@@ -2,34 +2,54 @@
 """Smoke run of the PyTorch/CUDA port (yaha_tpu_torch) on one NVIDIA GPU.
 
   python3 chip_smoke.py        (from the root of a checkout; one card)
+  python3 chip_smoke.py --profile DIR
+                               where the 1 kb batch's time goes (below)
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. device and build: the card's name and power limit, and the nvcc
-     build of yaha_tpu_torch/csrc into a shared library;
-  2. every DP kernel against its plain PyTorch version on the card, on
-     numpy-seeded inputs: all outputs equal, backtrack planes included;
-  3. the main path: the staged engine of --engine batch-cuda over one
-     default batch of 16,384 reads of 1 kb (sampled at 5 % error, half of
-     them with short indels, plus simulated split reads) against a 64 Mbp
-     synthetic genome with the default L15/S1 index; a cold and a warm
-     run, SAM bytes equal to the native C++ engine's; launch counts of
-     every kernel over the warm run;
+     build of yaha_tpu_torch/csrc (one nvcc per source, in parallel) into
+     a shared library;
+  2. every kernel against its plain PyTorch version on the card, on
+     numpy-seeded inputs: the three DP kernels (backtrack planes
+     included), the problem gather and the backtrack walk (items and
+     counts, a too-small cap included): all outputs equal;
+  3. the main path: the staged engine of --engine batch-cuda in its
+     default configuration (problems assembled on the card, planes walked
+     on the card, run-length items back) over one default batch of 16,384
+     reads of 1 kb (sampled at 5 % error, half of them with short indels,
+     plus simulated split reads) against a 64 Mbp synthetic genome with
+     the default L15/S1 index; a cold and a warm run, SAM bytes equal to
+     the native C++ engine's, no backtrack plane brought back; launch
+     counts of every kernel over the warm run.  Then the A/B configuration
+     (host fetch, planes to the native walkers) once on the same batch,
+     with parity;
   4. 256 reads of 10 kb, and the 105 kb split read of
-     tests/test_long_reads.py, through the same engine, SAM bytes equal to
-     the native engine's; the port's CLI on the repository's golden test
-     set with --device cuda;
+     tests/test_long_reads.py, through the default configuration, SAM
+     bytes equal to the native engine's; the port's CLI on the
+     repository's golden test set with --device cuda;
   5. kernel and plain-version times (CUDA events, distinct inputs) at the
-     main path's largest buckets.
+     main path's largest buckets, for all five kernels.
+
+With --profile DIR, phases 1 and 3's batch only, in the default and the
+A/B configuration: three warm runs of each, interleaved, with parity
+(walls, device term, bytes); then one run of each under cProfile (host
+time by function, DIR/cprofile_*.txt) and one under torch.profiler
+(device busy time, idle share of the wall, device time by kind and by
+name, DIR/device_*.txt).
 
 The genome and index are built from a seed on first use and cached under
 .smoke_cache/ (git-ignored).  With no CUDA device, the script exits 2
 before printing any result.  The last two lines of standard output are a
 JSON object per kernel and the JSON result line.
 """
+import argparse
+import cProfile
 import gzip
+import io
 import json
 import os
+import pstats
 import shutil
 import subprocess
 import sys
@@ -43,12 +63,19 @@ CACHE = os.path.join(REPO, ".smoke_cache")
 SEED = 7
 GENOME_GBP = 0.064       # 64 Mbp: bounds the L15 index build; see PERF.md
 BATCH = 16384            # the staged engine's default batch
-SOURCE = "yaha_tpu_torch/csrc/sw_kernels.cu"
-KERNELS = {              # wrapper -> the Pallas entry it replaces
-    "extension_forward": "yaha_tpu/ops/sw_pallas.py:764",
-    "anchored_forward_banded": "yaha_tpu/ops/sw_pallas.py:554",
-    "anchored_forward": "yaha_tpu/ops/sw_pallas.py:353",
+KERNELS = {              # wrapper -> (source, the TPU program it replaces)
+    "extension_forward": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+                          "yaha_tpu/ops/sw_pallas.py:764"),
+    "anchored_forward_banded": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+                                "yaha_tpu/ops/sw_pallas.py:554"),
+    "anchored_forward": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+                         "yaha_tpu/ops/sw_pallas.py:353"),
+    "gather_problems": ("yaha_tpu_torch/csrc/gather_kernels.cu",
+                        "yaha_tpu/ops/gather_dp.py:61"),
+    "rle_walk": ("yaha_tpu_torch/csrc/decode_kernels.cu",
+                 "yaha_tpu/ops/decode_jax.py:208"),
 }
+AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 
 
 def sync(torch, dev):
@@ -190,8 +217,26 @@ def compare(torch, errs, phase, name, tag, kernel_out, plain_out):
     log("%s %s %s: equal" % (phase, name, tag))
 
 
+def _gather_inputs(rng, m, qg, rg, rev_share, n_reads, lpad, genome_len):
+    """Coordinates [8, m] of m problems over n_reads strand rows and a
+    genome of genome_len codes: copies shorter than the problem, reversed
+    problems, sources at the genome's end."""
+    qlen = rng.integers(1, qg + 1, m)
+    rlen = rng.integers(1, rg + 1, m)
+    q_copy = np.where(rng.random(m) < 0.3, rng.integers(0, qlen + 1), qlen)
+    r_copy = np.where(rng.random(m) < 0.3, rng.integers(0, rlen + 1), rlen)
+    q_src = rng.integers(0, lpad - q_copy + 1)
+    r_src = rng.integers(0, genome_len - r_copy + 1)
+    r_src[:16] = genome_len - r_copy[:16]
+    return np.stack([rng.integers(0, 2 * n_reads, m), q_src, q_copy, qlen,
+                     r_src, r_copy, rlen,
+                     rng.random(m) < rev_share]).astype(np.int64)
+
+
 def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
+    from yaha_tpu.utils import codec
+    from yaha_tpu_torch.ops import decode, gather_dp
     rng = np.random.default_rng(SEED)
     kw0 = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
     # At this gap-open cost DP_WORST - (go + ge) wraps int32: the kernels
@@ -205,6 +250,19 @@ def phase_kernels(torch, sw, errs, dev):
     def up(*arrs):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in arrs]
+
+    def walk_check(tag, bt, y0, x0, active, full):
+        """The walk kernel on a kernel-made plane, at the engine's cap and
+        at a cap of 3 (overflowing walks report n_ops = -1)."""
+        h, w = bt.shape[1], bt.shape[2]
+        for cap in (1 << (2 * h + w + 1).bit_length(), 3):
+            got = decode.rle_walk(bt, y0, x0, active, cap=cap, full=full)
+            sync(torch, dev)
+            want = decode.rle_walk_reference(bt, y0, x0, active, cap=cap,
+                                             full=full)
+            compare(torch, errs, "phase2", "rle_walk", "%s cap=%d" % (
+                tag, cap), {"rle": got[0], "n_ops": got[1]},
+                {"rle": want[0], "n_ops": want[1]})
 
     # Extension: N = 4096 at QL = 256 for BW 5 and 3; a few hundred
     # problems at QL = 4096 (the read lengths the Pallas entry sent to its
@@ -223,6 +281,8 @@ def phase_kernels(torch, sw, errs, dev):
         sync(torch, dev)
         check("extension_forward", "N=%d QL=%d BW=%d" % (n, ql, bw), kw,
               out, sw.extension_forward_reference(*args, **kw))
+        walk_check("extension N=%d QL=%d" % (n, ql), out["bt"], out["maxi"],
+                   out["maxj"], out["score"] > 0, False)
     # Anchored, band-relative: N = 2048 at QL = 256, wband 64 and 256.
     for n, ql, wband, kw in ((2048, 256, 64, kw0), (2048, 256, 256, kw0),
                              (512, 64, 64, wrap)):
@@ -238,6 +298,10 @@ def phase_kernels(torch, sw, errs, dev):
         check("anchored_forward_banded", "N=%d QL=%d wband=%d" % (
             n, ql, wband), kw, out,
             sw.anchored_forward_banded_reference(*args, wband=wband, **kw))
+        ql_d, rl_d, lb_d = args[1], args[3], args[4]
+        inside = (rl_d - ql_d + lb_d >= 0) & (rl_d - ql_d + lb_d < wband)
+        walk_check("banded N=%d QL=%d" % (n, ql), out["bt_b"], ql_d,
+                   rl_d - ql_d + lb_d, inside, False)
     # Anchored, full width: N = 512 at 128 x 128 with bands up to the full
     # matrix; then RL = 1024 with bands wider than 512 (the JAX package's
     # fallback class).
@@ -254,36 +318,86 @@ def phase_kernels(torch, sw, errs, dev):
         sync(torch, dev)
         check("anchored_forward", "N=%d QL=%d RL=%d" % (n, ql, rl), kw,
               out, sw.anchored_forward_reference(*args, **kw))
+        walk_check("full N=%d QL=%d RL=%d" % (n, ql, rl), out["bt"],
+                   args[1], args[3], torch.ones_like(args[1], dtype=bool),
+                   True)
+    # Problem gather at the main path's extension and gap bucket shapes:
+    # 16,384 problems over a chunk of 16,384 reads of up to 1 kb.
+    glen, n_reads, lpad = 1 << 22, BATCH, 1024
+    corpus = gather_dp.DeviceCorpus(
+        rng.integers(0, 5, glen).astype(np.uint8), dev)
+    lens = rng.integers(1, lpad + 1, n_reads).astype(np.int32)
+    fwd = rng.integers(0, 4, (n_reads, lpad)).astype(np.uint8)
+    fwd[np.arange(lpad)[None, :] >= lens[:, None]] = 4
+    # The strand rows through the engine's row builder, from the reads'
+    # sequence characters back to back.
+    chars = np.asarray(codec.FOUR_BIT_CHARS, np.uint8)[fwd]
+    rows2 = corpus.read_rows(chars[np.arange(lpad)[None, :] < lens[:, None]],
+                             np.cumsum(lens) - lens, lens, lpad)
+    for m, qg, rg, rpad, rev in ((BATCH, 1024, 1044, 255, 0.5),
+                                 (BATCH, 64, 64, 0, 0.0)):
+        coords = up(_gather_inputs(rng, m, qg, rg, rev, n_reads, lpad,
+                                   glen))[0]
+        got = gather_dp.gather_problems(rows2, corpus.codes, coords, qg=qg,
+                                        rg=rg, rpad=rpad)
+        sync(torch, dev)
+        want = gather_dp.gather_reference(rows2, corpus.codes, coords,
+                                          qg=qg, rg=rg, rpad=rpad)
+        compare(torch, errs, "phase2", "gather_problems", "m=%d qg=%d rg=%d "
+                "rpad=%d" % (m, qg, rg, rpad), {"q": got[0], "r": got[1]},
+                {"q": want[0], "r": want[1]})
 
 
-def _recorder(StagedAligner, gap_dispatch):
+def _recorder(StagedAligner, gap_dispatch, pack_coords):
+    """A StagedAligner that keeps the largest bucket of each kernel for
+    phase 5: the DP kernels' inputs as the main path assembled them on the
+    card, and the gather's strand rows and coordinates."""
     class Recorder(StagedAligner):
-        """Keeps the largest bucket of each DP class for phase 5."""
-
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.buckets = {}
             self.counts = {}
 
-        def _keep(self, key, arrays):
-            n = len(arrays[1])
+        def _keep(self, key, n, arrays):
             self.counts[key] = self.counts.get(key, 0) + n
-            if n > len(self.buckets.get(key, (None, ()))[1]):
-                self.buckets[key] = arrays
+            if n > self.buckets.get(key, (0, None))[0]:
+                self.buckets[key] = (n, arrays)
 
-        def _run_ext_bucket(self, qa, qlens, ra, rlens):
-            self._keep(("extension_forward", qa.shape[1], ra.shape[1], 0),
-                       (qa, qlens, ra, rlens))
-            return super()._run_ext_bucket(qa, qlens, ra, rlens)
+        def _mk_gather(self, rows2, meta2, idx, qlen, rlen, rev, rpad, qg,
+                       rg):
+            q_row, q_src, q_copy, r_src, r_copy = meta2
+            coords = pack_coords(*(a[idx] for a in (
+                q_row, q_src, q_copy, qlen, r_src, r_copy, rlen)),
+                None if rev is None else rev[idx])
+            self._keep(("gather_problems", qg, rg, rpad), len(idx),
+                       (rows2, coords))
+            return super()._mk_gather(rows2, meta2, idx, qlen, rlen, rev,
+                                      rpad, qg, rg)
 
-        def _run_gap_bucket(self, qa, qlens, ra, rlens, lbws, rbws):
-            wband, banded = gap_dispatch(lbws, rbws, ra.shape[1])
+        def _run_ext_bucket(self, qa, qlens, ra, rlens, qg=None, rg=None,
+                            dev_gather=None):
+            def keep(m, pack):
+                q, r = dev_gather(m, pack)
+                self._keep(("extension_forward", qg, rg, 0), m,
+                           (q, qlens, r, rlens))
+                return q, r
+            return super()._run_ext_bucket(qa, qlens, ra, rlens, qg, rg,
+                                           keep if dev_gather else None)
+
+        def _run_gap_bucket(self, qa, qlens, ra, rlens, lbws, rbws, qg=None,
+                            rg=None, dev_gather=None):
+            wband, banded = gap_dispatch(lbws, rbws, rg)
             name = "anchored_forward_banded" if banded else \
                 "anchored_forward"
-            self._keep((name, qa.shape[1], ra.shape[1], wband),
-                       (qa, qlens, ra, rlens, lbws, rbws))
-            return super()._run_gap_bucket(qa, qlens, ra, rlens, lbws,
-                                           rbws)
+
+            def keep(m, pack):
+                q, r = dev_gather(m, pack)
+                self._keep((name, qg, rg, wband), m,
+                           (q, qlens, r, rlens, lbws, rbws))
+                return q, r
+            return super()._run_gap_bucket(qa, qlens, ra, rlens, lbws, rbws,
+                                           qg, rg,
+                                           keep if dev_gather else None)
     return Recorder
 
 
@@ -300,11 +414,46 @@ def _aa(host, index, xfile, **over):
     return aa
 
 
+def _report(tag, n, walls, s, launches):
+    log("%s: reads=%d parity=true %s reads_per_s=%.1f" % (
+        tag, n, " ".join("%s=%.3f" % kv for kv in walls.items()),
+        n / walls["warm_wall_s"]))
+    log("%s: ext_problems=%d gap_problems=%d gap_dispatch=%s "
+        "dp_launches=%d kernel_launches=%s h2d_mb=%.3f d2h_mb=%.3f "
+        "plane_d2h_mb=%.3f device_s=%.3f host_s=%s" % (
+            tag, s["ext_problems"], s["gap_problems"],
+            json.dumps({"banded": s["gap_banded"], "full": s["gap_full"],
+                        "fallback": s["gap_fallback"]}),
+            s["dp_launches"], json.dumps(launches), s["h2d_bytes"] / 1e6,
+            s["d2h_bytes"] / 1e6, s["plane_d2h_bytes"] / 1e6, s["device_s"],
+            json.dumps({k[:-2]: round(s[k], 3) for k in (
+                "begin_s", "gap_host_s", "phase2_s", "ext_host_s",
+                "finish_s")})))
+
+
+def _timed(torch, sw, st, pr, ref, dev, what):
+    """One align_chunk with the launch counts reset just before it; raises
+    unless the SAM bytes equal the native engine's.  Returns (wall,
+    launches)."""
+    sw.reset_launches()
+    sync(torch, dev)
+    t0 = time.time()
+    text = st.align_chunk(pr, 0, pr.n)[0]
+    sync(torch, dev)
+    wall = time.time() - t0
+    launches = sw.launches()
+    if text != ref:
+        raise AssertionError("%s: SAM differs from the native engine"
+                             % what)
+    return wall, launches
+
+
 def phase_main(torch, sw, host, Recorder, genome, index, aa, reads,
                threads, tag, dev):
-    """Cold and warm runs of the staged engine on one batch; byte parity
-    with the native engine.  Returns (aligner, kernel launches of the warm
-    run)."""
+    """Cold and warm runs of the staged engine's default configuration on
+    one batch; byte parity with the native engine, no backtrack plane
+    brought back, the gather and walk kernels launched.  Returns (aligner,
+    kernel launches of the warm run, parsed reads, native SAM)."""
     pr = host.parse_queries_native(b"".join(reads), False,
                                    aa.max_query_length, aa.word_len)
     if pr.n != len(reads):
@@ -314,40 +463,39 @@ def phase_main(torch, sw, host, Recorder, genome, index, aa, reads,
     ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
                                   n_threads=threads)[0]
     t_native = time.time() - t0
+    # Cold: the aligner's construction (the genome's upload) and the first
+    # batch, as a short job pays them.
+    t0 = time.time()
     st = Recorder(aa, genome, index, device=dev, n_threads=threads)
-    t0 = time.time()
-    text = st.align_chunk(pr, 0, pr.n)[0]
+    _timed(torch, sw, st, pr, ref, dev, tag + " cold run")
     cold = time.time() - t0
-    if text != ref:
-        raise AssertionError("%s cold run: SAM differs from the native "
-                             "engine" % tag)
     st.stats = {k: type(v)() for k, v in st.stats.items()}
-    sw.reset_launches()
-    sync(torch, dev)
-    t0 = time.time()
-    text = st.align_chunk(pr, 0, pr.n)[0]
-    sync(torch, dev)
-    warm = time.time() - t0
-    launches = sw.launches()
-    if text != ref:
-        raise AssertionError("%s warm run: SAM differs from the native "
-                             "engine" % tag)
+    warm, launches = _timed(torch, sw, st, pr, ref, dev, tag + " warm run")
     s = st.stats
-    log("%s: reads=%d parity=true native_wall_s=%.3f cold_wall_s=%.3f "
-        "warm_wall_s=%.3f reads_per_s=%.1f" % (
-            tag, pr.n, t_native, cold, warm, pr.n / warm))
-    log("%s: ext_problems=%d gap_problems=%d gap_dispatch=%s "
-        "dp_launches=%d kernel_launches=%s h2d_mb=%.3f d2h_mb=%.3f "
-        "device_s=%.3f host_s=%s" % (
-            tag, s["ext_problems"], s["gap_problems"],
-            json.dumps({"banded": s["gap_banded"], "full": s["gap_full"],
-                        "fallback": s["gap_fallback"]}),
-            s["dp_launches"], json.dumps(launches), s["h2d_bytes"] / 1e6,
-            s["d2h_bytes"] / 1e6, s["device_s"],
-            json.dumps({k[:-2]: round(s[k], 3) for k in (
-                "begin_s", "gap_host_s", "phase2_s", "ext_host_s",
-                "finish_s")})))
-    return st, launches
+    _report(tag, pr.n, {"native_wall_s": t_native, "cold_wall_s": cold,
+                        "warm_wall_s": warm}, s, launches)
+    if s["plane_d2h_bytes"] != 0:
+        raise AssertionError("%s: the default configuration brought back "
+                             "%d bytes of backtrack planes"
+                             % (tag, s["plane_d2h_bytes"]))
+    for name in ("gather_problems", "rle_walk"):
+        if s["dp_launches"] and launches[name] == 0:
+            raise AssertionError("%s: %s was never launched" % (tag, name))
+    return st, launches, pr, ref
+
+
+def phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
+             tag, dev):
+    """The A/B configuration (host fetch, 4-bit packed uploads, planes to
+    the native walkers) once on a batch, after the default runs warmed the
+    card; byte parity with the native engine."""
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads,
+                       **AB)
+    warm, launches = _timed(torch, sw, st, pr, ref, dev, tag)
+    _report(tag, pr.n, {"warm_wall_s": warm}, st.stats, launches)
+    if launches["gather_problems"] or launches["rle_walk"]:
+        raise AssertionError("%s: the A/B configuration ran the device "
+                             "assembly or walk" % tag)
 
 
 def testgen_files():
@@ -403,24 +551,71 @@ def phase_cli(nib, idx):
     log("phase4 cli: --engine batch-cuda --device cuda == A_default.sam")
 
 
+def _time_pair(torch, dev, fn, plain, sets):
+    """(kernel ms, plain ms): the kernel over 8 launches cycling through
+    the input sets, after one warm-up; the plain version once."""
+    fn(*sets[0])
+    sync(torch, dev)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    reps = 8
+    e0.record()
+    for k in range(reps):
+        fn(*sets[k % len(sets)])
+    e1.record()
+    sync(torch, dev)
+    ms = e0.elapsed_time(e1) / reps
+    e0.record()
+    plain(*sets[1])
+    e1.record()
+    sync(torch, dev)
+    return ms, e0.elapsed_time(e1)
+
+
+def _largest(st, name, prefer=None):
+    keys = [k for k in st.counts if k[0] == name]
+    if not keys:
+        raise AssertionError("phase5: the main path ran no %s bucket" % name)
+    if prefer is not None and any(k[1] == prefer for k in keys):
+        keys = [k for k in keys if k[1] == prefer]
+    key = max(keys, key=lambda k: st.counts[k])
+    return key, st.buckets[key][1]
+
+
 def phase_times(torch, sw, st, kernels, errs, dev):
-    """Kernel (wrapper: plane zero-fill + launch) and plain-version times
-    at the main path's largest buckets; CUDA events, distinct inputs.  The
-    kernel's output on the bucket must equal the plain version's."""
+    """Kernel (wrapper: output allocation + launch) and plain-version times
+    at the main path's largest buckets, on the inputs the main path
+    assembled on the card; CUDA events, distinct inputs (4 permutations of
+    the bucket).  The kernel's output on the bucket must equal the plain
+    version's."""
+    from yaha_tpu_torch.ops import decode, gather_dp
     gap_kw, ext_kw = st.gap_kw, st.ext_kw
-    for name in KERNELS:
-        keys = [k for k in st.counts if k[0] == name]
-        if not keys:
-            raise AssertionError("phase5: the main path ran no %s bucket"
-                                 % name)
-        if name == "extension_forward" and any(k[1] == 1024 for k in keys):
-            keys = [k for k in keys if k[1] == 1024]
-        key = max(keys, key=lambda k: st.counts[k])
-        arrs = st.buckets[key]
-        n = len(arrs[1])
-        base = [torch.from_numpy(np.ascontiguousarray(
-            a if a.dtype == np.uint8 else a.astype(np.int32))).to(dev)
-            for a in arrs]
+    rng = np.random.default_rng(SEED)
+
+    def perms(n):
+        return [torch.from_numpy(rng.permutation(n)).to(dev)
+                for _ in range(4)]
+
+    def finish(name, key, n, ms, plain_ms, got, want, cells=None):
+        compare(torch, errs, "phase5", name, "bucket=%s N=%d" % (
+            list(key[1:]), n), got, want)
+        kernels[name].update(ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+                             max_abs_err=errs[name])
+        rate = ""
+        if cells:
+            rate = " (%.2f vs %.4f Gcells/s)" % (cells / ms / 1e6,
+                                                 cells / plain_ms / 1e6)
+        log("phase5 %s bucket=%s N=%d: kernel %.4f ms, plain %.1f ms%s" % (
+            name, list(key[1:]), n, ms, plain_ms, rate))
+
+    ext_out = None
+    for name in ("extension_forward", "anchored_forward_banded",
+                 "anchored_forward"):
+        key, arrs = _largest(st, name, 1024 if name == "extension_forward"
+                             else None)
+        n = arrs[0].shape[0]
+        base = [a if torch.is_tensor(a) else torch.from_numpy(
+            a.astype(np.int32)).to(dev) for a in arrs]
         ql_ = arrs[1].astype(np.int64)
         if name == "extension_forward":
             fn, kw = sw.extension_forward, ext_kw
@@ -437,39 +632,132 @@ def phase_times(torch, sw, st, kernels, errs, dev):
             else:
                 fn, kw = sw.anchored_forward, gap_kw
                 plain = sw.anchored_forward_reference
-        rng = np.random.default_rng(SEED)
-        sets = []
-        for _ in range(4):
-            perm = torch.from_numpy(rng.permutation(n)).to(dev)
-            sets.append([t.index_select(0, perm).contiguous()
-                         for t in base])
-        fn(*sets[0], **kw)
-        sync(torch, dev)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        reps = 8
-        e0.record()
-        for k in range(reps):
-            fn(*sets[k % len(sets)], **kw)
-        e1.record()
-        sync(torch, dev)
-        ms = e0.elapsed_time(e1) / reps
-        e0.record()
-        want = plain(*sets[1], **kw)
-        e1.record()
-        sync(torch, dev)
-        plain_ms = e0.elapsed_time(e1)
-        compare(torch, errs, "phase5", name, "bucket=%s N=%d" % (
-            list(key[1:]), n), fn(*sets[1], **kw), want)
-        kernels[name].update(ms=round(ms, 4), plain_ms=round(plain_ms, 2),
-                             max_abs_err=errs[name])
-        log("phase5 %s bucket=%s N=%d cells=%d: kernel %.4f ms "
-            "(%.2f Gcells/s), plain %.1f ms (%.4f Gcells/s)" % (
-                name, list(key[1:]), n, cells, ms, cells / ms / 1e6,
-                plain_ms, cells / plain_ms / 1e6))
+        sets = [[t.index_select(0, p).contiguous() for t in base]
+                for p in perms(n)]
+        ms, plain_ms = _time_pair(torch, dev, lambda *a: fn(*a, **kw),
+                                  lambda *a: plain(*a, **kw), sets)
+        got = fn(*sets[1], **kw)
+        finish(name, key, n, ms, plain_ms, got, plain(*sets[1], **kw),
+               cells)
+        if name == "extension_forward":
+            ext_out, ext_key = got, key
+
+    # The walk on the largest extension bucket's planes, from its best
+    # cells, at the engine's cap.
+    w = ext_out["bt"].shape[2]
+    cap = 1 << (2 * ext_key[1] + w + 1).bit_length()
+    walk_in = [ext_out["bt"], ext_out["maxi"], ext_out["maxj"],
+               ext_out["score"] > 0]
+    n = walk_in[0].shape[0]
+    sets = [[t.index_select(0, p).contiguous() for t in walk_in]
+            for p in perms(n)]
+    wkw = dict(cap=cap, full=False)
+    ms, plain_ms = _time_pair(
+        torch, dev, lambda *a: decode.rle_walk(*a, **wkw),
+        lambda *a: decode.rle_walk_reference(*a, **wkw), sets)
+    got = decode.rle_walk(*sets[1], **wkw)
+    want = decode.rle_walk_reference(*sets[1], **wkw)
+    finish("rle_walk", ext_key, n, ms, plain_ms,
+           {"rle": got[0], "n_ops": got[1]},
+           {"rle": want[0], "n_ops": want[1]})
+
+    # The gather of the largest extension bucket, from the chunk's strand
+    # rows and the bucket's own coordinates.
+    key, (rows2, coords) = _largest(st, "gather_problems", 1024)
+    gkw = dict(qg=key[1], rg=key[2], rpad=key[3])
+    codes = st.corpus.codes
+    n = coords.shape[1]
+    sets = [[rows2, codes, torch.from_numpy(
+        np.ascontiguousarray(coords[:, p.cpu().numpy()])).to(dev)]
+        for p in perms(n)]
+    ms, plain_ms = _time_pair(
+        torch, dev, lambda *a: gather_dp.gather_problems(*a, **gkw),
+        lambda *a: gather_dp.gather_reference(*a, **gkw), sets)
+    got = gather_dp.gather_problems(*sets[1], **gkw)
+    want = gather_dp.gather_reference(*sets[1], **gkw)
+    finish("gather_problems", key, n, ms, plain_ms,
+           {"q": got[0], "r": got[1]}, {"q": want[0], "r": want[1]})
+
+
+def _device_time(torch, prof, wall):
+    """(busy ms, idle share of `wall`, ms by kind, ms of the 8 costliest
+    names) from the card's events of one torch.profiler run."""
+    evs = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, cur = 0.0, None
+    for t0, t1, _ in sorted(evs):
+        if cur is None or t0 > cur[1]:
+            busy += cur[1] - cur[0] if cur else 0.0
+            cur = [t0, t1]
+        else:
+            cur[1] = max(cur[1], t1)
+    busy += cur[1] - cur[0] if cur else 0.0
+    kinds, names = {}, {}
+    for t0, t1, name in evs:
+        kind = ("h2d" if "HtoD" in name else "d2h" if "DtoH" in name
+                else "memset" if "Memset" in name else "kernel")
+        kinds[kind] = kinds.get(kind, 0.0) + (t1 - t0) / 1e3
+        names[name] = names.get(name, 0.0) + (t1 - t0) / 1e3
+    top = dict(sorted(names.items(), key=lambda kv: -kv[1])[:8])
+    return busy / 1e3, 1 - busy / 1e3 / (wall * 1e3), kinds, top
+
+
+def phase_profile(torch, sw, host, StagedAligner, genome, index, aa, reads,
+                  threads, out, dev):
+    """--profile: the 1 kb batch in the default and the A/B configuration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out, exist_ok=True)
+    pr = host.parse_queries_native(b"".join(reads), False,
+                                   aa.max_query_length, aa.word_len)
+    t0 = time.time()
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=threads)[0]
+    log("profile native: wall_s=%.4f" % (time.time() - t0))
+    kw = dict(device=dev, n_threads=threads)
+    aligners = {"default": StagedAligner(aa, genome, index, **kw),
+                "ab": StagedAligner(aa, genome, index, **kw, **AB)}
+    for name, st in aligners.items():
+        _timed(torch, sw, st, pr, ref, dev, "profile %s first run" % name)
+    for name in ("default", "ab", "ab", "default", "default", "ab"):
+        st = aligners[name]
+        st.stats = {k: type(v)() for k, v in st.stats.items()}
+        wall, _ = _timed(torch, sw, st, pr, ref, dev, "profile " + name)
+        s = st.stats
+        log("profile %s: warm_wall_s=%.4f device_s=%.4f h2d_mb=%.3f "
+            "d2h_mb=%.3f plane_d2h_mb=%.3f" % (
+                name, wall, s["device_s"], s["h2d_bytes"] / 1e6,
+                s["d2h_bytes"] / 1e6, s["plane_d2h_bytes"] / 1e6))
+    for name, st in aligners.items():
+        pf = cProfile.Profile()
+        pf.enable()
+        _timed(torch, sw, st, pr, ref, dev, "profile %s cProfile" % name)
+        pf.disable()
+        text = io.StringIO()
+        pstats.Stats(pf, stream=text).sort_stats("tottime").print_stats(40)
+        with open(os.path.join(out, "cprofile_%s.txt" % name), "w") as f:
+            f.write(text.getvalue())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = _timed(torch, sw, st, pr, ref, dev,
+                             "profile %s torch.profiler" % name)
+        busy, idle, kinds, top = _device_time(torch, prof, wall)
+        with open(os.path.join(out, "device_%s.txt" % name), "w") as f:
+            f.write(prof.key_averages().table(row_limit=40))
+        log("profile %s device: wall_s=%.4f busy_ms=%.3f idle_share=%.4f "
+            "ms_by_kind=%s top_ms=%s" % (
+                name, wall, busy, idle,
+                json.dumps({k: round(v, 3) for k, v in kinds.items()}),
+                json.dumps({k[:60]: round(v, 3) for k, v in top.items()})))
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="profile the 1 kb batch instead of the smoke run; "
+                    "tables go to DIR")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch %s)" % torch.__version__,
@@ -479,6 +767,7 @@ def main():
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.staged import StagedAligner, gap_dispatch
     from yaha_tpu_torch.ops import sw_cuda as sw
+    from yaha_tpu_torch.ops.gather_dp import pack_coords
     dev = torch.device("cuda")
     threads = os.cpu_count() or 1
     t_start = time.time()
@@ -487,8 +776,9 @@ def main():
 
     phase_build()
     errs = {}
-    phase_kernels(torch, sw, errs, dev)
-    Recorder = _recorder(StagedAligner, gap_dispatch)
+    if not args.profile:
+        phase_kernels(torch, sw, errs, dev)
+    Recorder = _recorder(StagedAligner, gap_dispatch, pack_coords)
 
     fa, nib, idx = genome_files(threads)
     t0 = time.time()
@@ -507,16 +797,24 @@ def main():
     log("setup: %d reads of 1 kb (%d substitution-only, %d with indels, "
         "%d split reads)" % (len(reads), n_half,
                              BATCH - len(sv) - n_half, len(sv)))
-    st, launches = phase_main(torch, sw, host, Recorder, genome, index,
-                              _aa(host, index, idx), reads, threads,
-                              "phase3 1kb", dev)
+    aa = _aa(host, index, idx)
+    if args.profile:
+        phase_profile(torch, sw, host, StagedAligner, genome, index, aa,
+                      reads, threads, args.profile, dev)
+        log("total: %.1f s" % (time.time() - t_start))
+        return 0
+    st, launches, pr, ref = phase_main(torch, sw, host, Recorder, genome,
+                                       index, aa, reads, threads,
+                                       "phase3 1kb", dev)
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError("phase3: %s was never launched" % name)
-    kernels = {name: {"name": name, "route": "cuda", "source": SOURCE,
-                      "replaces": KERNELS[name],
-                      "launches": launches[name],
-                      "max_abs_err": errs[name]} for name in KERNELS}
+    kernels = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "launches": launches[name],
+                      "max_abs_err": errs[name]}
+               for name, (src, rep) in KERNELS.items()}
+    phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
+             "phase3 1kb A/B", dev)
 
     long_reads = (sample_reads(seqs, 128, 10000, rng, b"long", False) +
                   sample_reads(seqs, 128, 10000, rng, b"longindel", True))

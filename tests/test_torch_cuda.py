@@ -2,11 +2,14 @@
 
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
 are held to their plain PyTorch versions on the card, on the inputs with
-which tests/test_torch_sw.py holds the plain versions to the JAX package:
-every output equal, the whole backtrack plane included (integer DPs,
-tolerance zero).  The engine is held to the native C++ engine, SAM bytes
-equal.  Neither jax nor tests/conftest.py is needed, so on a machine with
-a card run them from the repository root with
+which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
+hold the plain versions to the JAX package: every output equal, whole
+backtrack planes, assembled problem planes and walk items included
+(integer arrays, tolerance zero).  The engine is held to the native C++
+engine, SAM bytes equal, in its default configuration (device assembly +
+device walk) and in the A/B one.  Neither jax nor tests/conftest.py is
+needed, so on a machine with a card run them from the repository root
+with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -22,8 +25,9 @@ import torch
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
                             EXT_SWEEP_IDS, KW, KW_WRAP, anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
-                            indel_reads)
-from yaha_tpu_torch.ops import sw_cuda
+                            gather_case, gather_coords, indel_reads,
+                            read_rows)
+from yaha_tpu_torch.ops import decode, gather_dp, sw_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +107,58 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     assert sw_cuda.launches()["extension_forward"] == 1
 
 
+@pytest.mark.parametrize("rpad,rev_share", [(0, 0.0), (255, 0.5)],
+                         ids=["gap", "ext_rev"])
+def test_gather_kernel_matches_plain(dev, rpad, rev_share):
+    g, fwd, lens = gather_case(41)
+    corpus = gather_dp.DeviceCorpus(g, dev)
+    rows2 = read_rows(corpus, fwd, lens)
+    c = gather_coords(7, 3000, 64, 96, rev_share)
+    coords = torch.from_numpy(np.stack(c).astype(np.int64)).to(dev)
+    sw_cuda.reset_launches()
+    got = gather_dp.gather_problems(rows2, corpus.codes, coords, qg=64,
+                                    rg=96, rpad=rpad)
+    assert sw_cuda.launches()["gather_problems"] == 1
+    want = gather_dp.gather_reference(rows2, corpus.codes, coords, qg=64,
+                                      rg=96, rpad=rpad)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _walks_equal(dev, bt, y0, x0, active, cap, full):
+    sw_cuda.reset_launches()
+    got = decode.rle_walk(bt, y0, x0, active, cap=cap, full=full)
+    assert sw_cuda.launches()["rle_walk"] == 1
+    want = decode.rle_walk_reference(bt, y0, x0, active, cap=cap, full=full)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    return got[1]
+
+
+@pytest.mark.parametrize("cap", [256, 3], ids=["cap", "overflow"])
+def test_walk_kernel_matches_plain(dev, cap):
+    """Both layouts, on extension, band-relative and full-width planes
+    made by the kernels; at cap 3 many walks overflow (n_ops = -1)."""
+    args = _up(dev, *extension_inputs(11, 1000, 40, 2))
+    ext = sw_cuda.extension_forward(*args, band_width=2, x_cutoff=25, **KW)
+    n_ops = _walks_equal(dev, ext["bt"], ext["maxi"], ext["maxj"],
+                         ext["score"] > 0, cap, False)
+    assert (n_ops == 0).any() and (n_ops > 0).any()
+    args = _up(dev, *anchored_sweep_inputs(2, 5))
+    q, qlens, r, rlens, lbw, rbw = args
+    wband = int((lbw + rbw).max()) + 1
+    band = sw_cuda.anchored_forward_banded(*args, wband=wband, **KW)
+    full = sw_cuda.anchored_forward(*args, **KW)
+    ones = torch.ones_like(qlens, dtype=torch.bool)
+    _walks_equal(dev, band["bt_b"], qlens, rlens - qlens + lbw, ones, cap,
+                 False)
+    n_ops = _walks_equal(dev, full["bt"], qlens, rlens, ones, cap, True)
+    if cap == 3:
+        assert (n_ops == -1).any()
+
+
 @pytest.fixture(scope="module")
 def testgen(dev, tmp_path_factory):
     from yaha_tpu_torch import host
@@ -122,14 +178,16 @@ def _reads(name):
         return f.read()
 
 
-@pytest.mark.parametrize("qfile,over", [
-    ("readsA_100bp.fasta", {}),
-    ("readsD_sv.fasta", {"fbs": True}),
-    ("indel", {}),
-], ids=["A_default", "D_fbs", "indel"])
-def test_staged_cuda_matches_native(dev, testgen, qfile, over):
-    """Every gap fill and extension through the kernels (inline_small off):
-    SAM bytes equal the native engine's."""
+@pytest.mark.parametrize("qfile,over,config", [
+    ("readsA_100bp.fasta", {}, {}),
+    ("readsD_sv.fasta", {"fbs": True}, {}),
+    ("indel", {}, {}),
+    ("indel", {}, {"device_assembly": False, "rle": False}),
+], ids=["A_default", "D_fbs", "indel", "indel_ab"])
+def test_staged_cuda_matches_native(dev, testgen, qfile, over, config):
+    """Every gap fill and extension through the kernels (inline_small off),
+    problems assembled and planes walked on the card: SAM bytes equal the
+    native engine's, and no backtrack plane comes back."""
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.staged import StagedAligner
     genome, index = testgen
@@ -146,7 +204,7 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over):
     ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
                                   n_threads=4)
     st = StagedAligner(aa, genome, index, device=dev, n_threads=4,
-                       inline_small=False)
+                       inline_small=False, **config)
     sw_cuda.reset_launches()
     text, sm, nr = st.align_chunk(pr, 0, pr.n)
     assert text == ref[0]
@@ -157,3 +215,7 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over):
     if qfile == "indel":
         assert st.stats["gap_full"] > 0
         assert launched["anchored_forward"] > 0
+    default = not config
+    assert (launched["gather_problems"] > 0) == default
+    assert (launched["rle_walk"] > 0) == default
+    assert (st.stats["plane_d2h_bytes"] == 0) == default

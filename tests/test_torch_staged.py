@@ -2,6 +2,9 @@
 
 With --device cpu the DP phases run the kernels' plain PyTorch versions,
 and inline_small=False sends every gap fill and extension through them.
+The default configuration assembles every problem on the device and walks
+the planes there (FMT_RLE items); the A/B configurations fetch problems on
+the host and/or bring the planes back to the native walkers.
 The SAM bytes must equal the per-read native C++ engine's
 (host.align_batch_native), and the CLI must reproduce the golden SAM
 files of tests/golden (ignoring @PG lines, which embed paths).  The CLI
@@ -65,7 +68,7 @@ def _aa(index, qfile, over):
     return aa
 
 
-def _parity(env, aa, data, n_max=None):
+def _parity(env, aa, data, n_max=None, **config):
     """Align through the port's engine on the CPU; assert byte parity with
     the native engine and return the engine's stats."""
     from yaha_tpu_torch import host
@@ -78,7 +81,7 @@ def _parity(env, aa, data, n_max=None):
     ref, _, sm0, nr0 = host.align_batch_native(pr, 0, n, genome, index, aa,
                                                n_threads=2)
     st = StagedAligner(aa, genome, index, device="cpu", n_threads=2,
-                       inline_small=False)
+                       inline_small=False, **config)
     text, sm, nr = st.align_chunk(pr, 0, n)
     assert text == ref
     assert (sm, nr) == (sm0, nr0)
@@ -104,6 +107,91 @@ def test_staged_cpu_matches_native(scratch, env, qfile, over, n_max):
         stats = _parity(env, aa, f.read(), n_max)
     assert stats["ext_problems"] > 0 and stats["gap_problems"] > 0
     assert stats["gap_banded"] > 0
+    assert stats["plane_d2h_bytes"] == 0
+
+
+@pytest.mark.parametrize("device_assembly,rle", [
+    (False, False), (True, False), (False, True),
+], ids=["host_fetch_planes", "device_assembly_planes", "host_fetch_rle"])
+def test_staged_cpu_ab_configurations_match_native(scratch, env,
+                                                   device_assembly, rle):
+    """The A/B configurations (host fetch with u8 uploads, plane transfer
+    to the native walkers) stay byte-identical too."""
+    with open(os.path.join(scratch, "readsA_100bp.fasta"), "rb") as f:
+        stats = _parity(env, _aa(env[1], "readsA_100bp.fasta", {}), f.read(),
+                        device_assembly=device_assembly, rle=rle)
+    assert (stats["plane_d2h_bytes"] > 0) == (not rle)
+
+
+def _fetch_recorder():
+    """A StagedAligner whose device gathers also fetch the same bucket on
+    the host (yt_batch_*_fetch) and record whether the planes agree."""
+    import numpy as np
+    from yaha_tpu.models.staged import _p64, _pu8
+    from yaha_tpu_torch.models.staged import StagedAligner
+
+    class FetchCheck(StagedAligner):
+        checked = []
+
+        def _meta2(self, ctx, n, fn):
+            self._ctx = ctx
+            return super()._meta2(ctx, n, fn)
+
+        def _mk_gather(self, rows2, meta2, idx, qlen, rlen, rev, rpad, qg,
+                       rg):
+            g = super()._mk_gather(rows2, meta2, idx, qlen, rlen, rev, rpad,
+                                   qg, rg)
+
+            def check(mpad, pack):
+                q, r = g(mpad, pack)
+                qa = np.zeros((len(idx), qg), np.uint8)
+                ra = np.full((len(idx), rg), rpad, np.uint8)
+                fetch = (self.lib.yt_batch_ext_fetch if rev is not None
+                         else self.lib.yt_batch_gap_fetch)
+                fetch(self._ctx, len(idx), _p64(idx), _pu8(qa), qg, _pu8(ra),
+                      rg)
+                self.checked.append((rev is not None, len(idx),
+                                     np.array_equal(q.numpy(), qa),
+                                     np.array_equal(r.numpy(), ra)))
+                return q, r
+            return check
+    return FetchCheck
+
+
+@pytest.mark.parametrize("qfile,over", [
+    ("readsD_sv.fasta", {"fbs": True}),
+    ("readsC_1kb.fasta", {"band_width": 3, "max_gap": 20, "min_match": 15,
+                          "x_cutoff": 15}),
+], ids=["D_fbs", "C_params"])
+def test_device_planes_equal_host_fetch(scratch, env, qfile, over):
+    """Planes assembled on the device from the native meta2 coordinates
+    equal the host fetch planes, bucket by bucket, for gap fills and for
+    extensions in both directions."""
+    from yaha_tpu_torch import host
+    genome, index = env
+    aa = _aa(index, qfile, over)
+    with open(os.path.join(scratch, qfile), "rb") as f:
+        pr = host.parse_queries_native(f.read(), False, aa.max_query_length,
+                                       aa.word_len)
+    st = _fetch_recorder()(aa, genome, index, device="cpu", n_threads=2,
+                           inline_small=False)
+    st.align_chunk(pr, 0, min(pr.n, 8))
+    assert st.checked
+    assert all(q_ok and r_ok for _, _, q_ok, r_ok in st.checked)
+    assert {ext for ext, _, _, _ in st.checked} == {False, True}
+
+
+def test_walk_overflow_raises(env):
+    """A walk that needs more items than its cap (n_ops = -1) stops the
+    engine instead of applying a truncated edit list."""
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = env
+    st = StagedAligner(_aa(index, "readsA_100bp.fasta", {}), genome, index,
+                       device="cpu")
+    score = torch.tensor([3, 4], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="cap=8"):
+        st._rle_items(torch.zeros((2, 8), dtype=torch.int32),
+                      torch.tensor([2, -1], dtype=torch.int32), [score], 8)
 
 
 def test_staged_cpu_full_width_gap_kernel(env, monkeypatch):

@@ -1,13 +1,16 @@
 """Numpy-seeded inputs shared by the port's tests.
 
 tests/test_torch_sw.py holds the plain PyTorch versions to the JAX package
-on these DP problems, and tests/test_torch_staged.py the engine to the
-native one on these reads; tests/test_torch_cuda.py holds the CUDA
+on these DP problems, tests/test_torch_gather.py the problem assembly on
+these genomes and coordinates, and tests/test_torch_staged.py the engine
+to the native one on these reads; tests/test_torch_cuda.py holds the CUDA
 kernels and the engine to the same references on the card.  This module
 imports neither jax nor torch, so the card tests run where jax is not
 installed.
 """
 import numpy as np
+
+from yaha_tpu.utils import codec
 
 KW = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
 # DP_WORST - (go + ge) wraps int32 at this gap-open cost; the kernels must
@@ -117,3 +120,70 @@ def extension_inputs(seed, n, ql, bw, err=0.15):
         r[k, L:] = rng.integers(0, 4, rl - L)
     rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
     return q, qlens, r, rlens
+
+
+GENOME = 5000
+N_READS = 12
+LPAD = 128
+
+
+def _genome(rng):
+    g = rng.integers(0, 4, GENOME).astype(np.uint8)
+    g[rng.random(GENOME) < 0.02] = rng.integers(4, 16)   # N and IUPAC
+    return g
+
+
+def _chunk(rng):
+    """Forward code rows of a chunk as _chunk_rows lays them out: 4 past
+    each read, pow2 row count, int32 lengths."""
+    lens = np.zeros(16, np.int32)
+    lens[:N_READS] = rng.integers(1, LPAD + 1, N_READS)
+    lens[0] = LPAD
+    fwd = np.full((16, LPAD), 4, np.uint8)
+    for k in range(N_READS):
+        fwd[k, :lens[k]] = rng.integers(0, 16, lens[k])
+    return fwd, lens
+
+
+def gather_coords(seed, m, qg, rg, rev_share):
+    """Problem coordinates with every edge the native export produces:
+    copies shorter than the problem (the zero fill), reversed problems,
+    sources at both ends of the genome and of the strand rows."""
+    rng = np.random.default_rng(seed)
+    qlen = rng.integers(1, qg + 1, m)
+    rlen = rng.integers(1, rg + 1, m)
+    q_row = rng.integers(0, 2 * N_READS, m)
+    q_copy = np.where(rng.random(m) < 0.3,
+                      rng.integers(0, qlen + 1), qlen)
+    q_src = rng.integers(0, LPAD - q_copy + 1)
+    r_copy = np.where(rng.random(m) < 0.3,
+                      rng.integers(0, rlen + 1), rlen)
+    r_src = rng.integers(0, GENOME - r_copy + 1)
+    # The genome's last bases, and a copy cut short by its end.
+    r_src[0], r_copy[0], rlen[0] = GENOME - rlen[0], rlen[0], rlen[0]
+    r_src[1] = GENOME - r_copy[1] // 2 - 1
+    r_copy[1] = GENOME - r_src[1]
+    r_src[2], q_src[2] = 0, 0
+    rev = (rng.random(m) < rev_share).astype(np.uint8)
+    return [a.astype(t) for a, t in (
+        (q_row, np.int32), (q_src, np.int32), (q_copy, np.int32),
+        (qlen, np.int32), (r_src, np.int64), (r_copy, np.int32),
+        (rlen, np.int32), (rev, np.uint8))]
+
+
+def gather_case(seed):
+    """(genome codes, forward chunk rows, lengths) for the assembly tests."""
+    rng = np.random.default_rng(seed)
+    g = _genome(rng)
+    fwd, lens = _chunk(rng)
+    return g, fwd, lens
+
+
+def read_rows(corpus, fwd, lens):
+    """The chunk's strand rows through corpus.read_rows, the engine's row
+    builder, from the reads' sequence characters back to back
+    (codec.FOUR_BIT_CHARS of the forward codes)."""
+    chars = np.asarray(codec.FOUR_BIT_CHARS, np.uint8)[fwd]
+    seq = chars[np.arange(fwd.shape[1])[None, :] < lens[:, None]]
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return corpus.read_rows(seq, starts, lens, fwd.shape[1])

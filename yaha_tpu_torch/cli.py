@@ -3,8 +3,15 @@
 Query runs (-x/-q) take the reference flag set of yaha_tpu.cli plus:
 
   --engine batch-cuda   the staged engine with its DP on the card (the
-                        only engine here; the others are in yaha_tpu.cli)
-  --device cuda|cpu     where the DP kernels run (default cuda); cpu runs
+                        only engine here; the others are in yaha_tpu.cli):
+                        the genome stays on the card, every DP problem is
+                        assembled there, and the backtrack walk runs there,
+                        so only run-length items come back (the JAX
+                        package's default batch-pallas configuration).
+                        YT_STAGED_DEVRES=0 fetches problems on the host and
+                        YT_STAGED_RLE=0 brings the planes back to the
+                        native walkers (A/B configurations).
+  --device cuda|cpu     where the kernels run (default cuda); cpu runs
                         their plain PyTorch versions.  With cuda and no
                         card the run stops with an error.
   --prewarm             accepted and does nothing: nothing is cached
@@ -51,6 +58,9 @@ Align queries:
            [-osh|-oss|-o8 <outFile>] [reference options]
            [--engine batch-cuda] [--device cuda|cpu] [--batch-size N]
            [--max-query-length N] [--max-region-frags N] [--resume]
+--engine batch-cuda assembles the DP problems and walks their backtrack
+planes on the device; YT_STAGED_DEVRES=0 / YT_STAGED_RLE=0 select the
+host-fetch / plane-transfer A/B configurations.
 Index, compress, uncompress: as python -m yaha_tpu.cli.
 Not ported yet: --seed device, %s.""" % ", ".join(_NOT_PORTED)
 

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of csrc/ (nvcc -> shared library -> ctypes).
 
-At first use, nvcc compiles every ``csrc/*.cu`` into
-``yaha_tpu_torch/_build/libyaha_sw.so`` for sm_90a; the library is rebuilt
-when a source is newer.  The sources have a plain C interface, so no
-PyTorch header is compiled and a build takes seconds.  A missing nvcc or a
-failed build raises: there is no fallback.
+At first use, nvcc compiles every ``csrc/*.cu`` for sm_90a, one process
+per source, all started together, and links the objects into
+``yaha_tpu_torch/_build/libyaha_sw.so``; the library is rebuilt when a
+source is newer.  The sources have a plain C interface, so no PyTorch
+header is compiled and a build takes seconds.  A missing nvcc or a failed
+build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libyaha_sw.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 
@@ -59,21 +60,34 @@ def build():
                 max(os.path.getmtime(s) for s in srcs)):
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp] +
-               [s for s in srcs if s.endswith(".cu")])
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed (%d): %s\n%s" % (
-                    res.returncode, " ".join(cmd), res.stderr[-4000:]))
-            os.replace(tmp, LIB_PATH)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cus = [s for s in srcs if s.endswith(".cu")]
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                    for s in cus]
+            cmds = [[nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+                    for obj, src in zip(objs, cus)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for cmd in cmds]
+            # Wait for every compile before reporting the first failure.
+            results = [(cmd, p.communicate()[1], p.returncode)
+                       for cmd, p in zip(cmds, procs)]
+            lib = os.path.join(tmp, "lib.so")
+            link = [nvcc] + NVCC_FLAGS + ["-shared", "-o", lib] + objs
+            for cmd, err, rc in results:
+                _check(cmd, rc, err)
+            res = subprocess.run(link, capture_output=True, text=True)
+            _check(link, res.returncode, res.stderr)
+            os.replace(lib, LIB_PATH)
         return time.perf_counter() - t0
+
+
+def _check(cmd, rc, err):
+    if rc != 0:
+        raise RuntimeError("nvcc failed (%d): %s\n%s" % (
+            rc, " ".join(cmd), err[-4000:]))
 
 
 @functools.cache
@@ -90,4 +104,10 @@ def load():
     lib.yt_anch_banded.restype = ct.c_int
     lib.yt_anch_banded.argtypes = (
         [_vp] * 6 + [_i64] * 3 + [_i32] * 7 + [_vp] * 4)
+    lib.yt_gather_problems.restype = ct.c_int
+    lib.yt_gather_problems.argtypes = (
+        [_vp, _i64, _i64, _vp, _i64, _vp] + [_i64] * 3 + [_i32] + [_vp] * 3)
+    lib.yt_rle_walk.restype = ct.c_int
+    lib.yt_rle_walk.argtypes = (
+        [_vp] + [_i64] * 3 + [_vp] * 3 + [_i64, _i32] + [_vp] * 3)
     return lib

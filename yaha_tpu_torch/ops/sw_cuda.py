@@ -7,6 +7,13 @@ the contracts of the Pallas entries and return the same arrays:
   anchored_forward_banded  anchored_forward_pallas_banded (phase A)
   anchored_forward         anchored_forward_pallas (phase A, wide bands)
 
+and the ``*_p4`` entries take 4-bit packed q/r ([N, G/2] uint8, two codes
+per byte, low nibble first: pack4_host), unpack them on their device with
+PyTorch ops as sw_pallas._unpack4 does, and call the entries above.  The
+staged engine does not feed them: it assembles u8 planes on the device,
+and for host-fetched planes the host pack costs more on an H100 than the
+halved upload saves, so those upload unpacked.
+
 Each takes its device from the input tensors.  On a CUDA tensor it checks
 dtype, shape and contiguity, allocates the outputs, and launches its
 hand-written kernel (csrc/sw_kernels.cu) on the current stream, raising
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from yaha_tpu.ops.dp_common import (DP_WORST, OP_DELETE, OP_INSERT,
@@ -35,10 +43,11 @@ BT_CF = 16
 
 I32 = torch.int32
 
-# Kernel launches per wrapper since the last reset_launches(): a run can
-# show which kernels its main path went through.
+# Kernel launches per wrapper since the last reset_launches(), for the
+# kernels of this module and of gather_dp and decode: a run can show which
+# kernels its main path went through.
 _launches = {"extension_forward": 0, "anchored_forward_banded": 0,
-             "anchored_forward": 0}
+             "anchored_forward": 0, "gather_problems": 0, "rle_walk": 0}
 _launch_lock = threading.Lock()
 
 
@@ -426,3 +435,36 @@ def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
             rl, go, ge, rc, ms, max_gap, max_intron, _p(bt), _p(score),
             _p(scratch), _stream(dev)))
     return {"score": score, "bt": bt}
+
+
+# ---- 4-bit packed entries (sw_pallas.py:652-701) ----
+
+def pack4_host(a):
+    """Pack [n, g] uint8 codes (<= 15) two per byte, low nibble first, on
+    the host; pad bytes 255 stay 255 (sw_pallas.pack4_host)."""
+    return (a[:, ::2] | (a[:, 1::2] << 4)).astype(np.uint8)
+
+
+def unpack4(p):
+    """[n, g/2] uint8 -> [n, g] on p's device (sw_pallas._unpack4): byte
+    255 unpacks to code 15, which stays a mismatch past the problem."""
+    return torch.stack([p & 0xF, p >> 4], dim=-1).reshape(p.shape[0],
+                                                          2 * p.shape[1])
+
+
+def extension_forward_p4(qp, qlens, rp, rlens, **kw):
+    """extension_forward with 4-bit packed q/r."""
+    return extension_forward(unpack4(qp), qlens, unpack4(rp), rlens, **kw)
+
+
+def anchored_forward_p4(qp, qlens, rp, rlens, left_bw, right_bw, **kw):
+    """anchored_forward with 4-bit packed q/r."""
+    return anchored_forward(unpack4(qp), qlens, unpack4(rp), rlens, left_bw,
+                            right_bw, **kw)
+
+
+def anchored_forward_banded_p4(qp, qlens, rp, rlens, left_bw, right_bw,
+                               **kw):
+    """anchored_forward_banded with 4-bit packed q/r."""
+    return anchored_forward_banded(unpack4(qp), qlens, unpack4(rp), rlens,
+                                   left_bw, right_bw, **kw)

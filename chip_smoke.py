@@ -7,13 +7,18 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-  1. device and build: the card's name and power limit, and the nvcc
-     build of yaha_tpu_torch/csrc (one nvcc per source, in parallel) into
-     a shared library;
+  1. device and build: the card's name and power limit, the g++ build of
+     the port's native host library, and the nvcc build of
+     yaha_tpu_torch/csrc (one nvcc per source, in parallel) into a shared
+     library; ptxas's registers, stack frame and spills for every kernel,
+     and no spill and no stack frame in any instance of the register
+     extension kernel;
   2. every kernel against its plain PyTorch version on the card, on
-     numpy-seeded inputs: the three DP kernels (backtrack planes
-     included), the problem gather and the backtrack walk (items and
-     counts, a too-small cap included): all outputs equal;
+     numpy-seeded inputs: both extension kernels (the register kernel at
+     W = 13, 21 and 33 and every block size, the scratch kernel at W = 21
+     and 37), the two anchored kernels (backtrack planes included), the
+     problem gather and the backtrack walk (items and counts, a too-small
+     cap included): all outputs equal;
   3. the main path: the staged engine of --engine batch-cuda in its
      default configuration (problems assembled on the card, planes walked
      on the card, run-length items back) over one default batch of 16,384
@@ -21,15 +26,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      plus simulated split reads) against a 64 Mbp synthetic genome with
      the default L15/S1 index; a cold and a warm run, SAM bytes equal to
      the native C++ engine's, no backtrack plane brought back; launch
-     counts of every kernel over the warm run.  Then the A/B configuration
-     (host fetch, planes to the native walkers) once on the same batch,
-     with parity;
-  4. 256 reads of 10 kb, and the 105 kb split read of
-     tests/test_long_reads.py, through the default configuration, SAM
-     bytes equal to the native engine's; the port's CLI on the
-     repository's golden test set with --device cuda;
+     counts of every kernel over the warm run, every extension through
+     the register kernel.  Then the A/B configuration (host fetch, planes
+     to the native walkers) once on the same batch, with parity;
+  4. the scratch extension kernel's path: 2,048 of those reads at -BW 9
+     (W = 37), every extension through that kernel; 256 reads of 10 kb,
+     and the 105 kb split read of tests/test_long_reads.py, through the
+     default configuration; SAM bytes equal to the native engine's each
+     time (counts set to 0 before each run and read after it); the port's
+     CLI on the repository's golden test set with --device cuda;
   5. kernel and plain-version times (CUDA events, distinct inputs) at the
-     main path's largest buckets, for all five kernels.
+     main path's largest buckets, for every kernel, each beside its bound
+     (bytes over the memory rate or int32 operations over the int32 rate,
+     from this run's inputs); the two extension kernels, and the register
+     kernel's block sizes, in turns at the largest 1 kb bucket and at the
+     10 kb run's widest bucket.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
 A/B configuration: three warm runs of each, interleaved, with parity
@@ -63,9 +74,11 @@ CACHE = os.path.join(REPO, ".smoke_cache")
 SEED = 7
 GENOME_GBP = 0.064       # 64 Mbp: bounds the L15 index build; see PERF.md
 BATCH = 16384            # the staged engine's default batch
-KERNELS = {              # wrapper -> (source, the TPU program it replaces)
-    "extension_forward": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+KERNELS = {   # launch counter -> (source, the TPU program it replaces)
+    "extension_forward": ("yaha_tpu_torch/csrc/ext_kernels.cu",
                           "yaha_tpu/ops/sw_pallas.py:764"),
+    "extension_forward_scratch": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+                                  "yaha_tpu/ops/sw_pallas.py:764"),
     "anchored_forward_banded": ("yaha_tpu_torch/csrc/sw_kernels.cu",
                                 "yaha_tpu/ops/sw_pallas.py:554"),
     "anchored_forward": ("yaha_tpu_torch/csrc/sw_kernels.cu",
@@ -76,6 +89,19 @@ KERNELS = {              # wrapper -> (source, the TPU program it replaces)
                  "yaha_tpu/ops/decode_jax.py:208"),
 }
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
+WIDE_BW = 9              # -BW of the wide-band path (W = 37: scratch kernel)
+WIDE_READS = 2048
+
+# Bounds: the least time the card could take for a kernel's work, the larger
+# of its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the peak rate for their type (one
+# H100 SXM at its 700 W limit).  The DP cells and the walk and gather are
+# int32 work: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (boost clock).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 64 * 132 * 1.98e9
+CELL_OPS = 25            # int32 operations of one DP cell (sw_cells.cuh)
+WALK_STEP_OPS = 8        # one walk step: load, mask, compare, move, merge
+GATHER_BYTE_OPS = 6      # one gathered byte: index, compare, select
 
 
 def sync(torch, dev):
@@ -177,7 +203,11 @@ def sv_reads(nib, n_max):
 # ---- phases ----
 
 def phase_build():
-    from yaha_tpu_torch.ops import _build
+    """The card, the kernels' build, and ptxas's report: every instance of
+    the register extension kernel must keep its band in registers (no
+    spill, no stack frame)."""
+    import re
+    from yaha_tpu_torch.ops import _build, sw_cuda
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).strip().splitlines()[0]
     log(smi)
@@ -187,6 +217,25 @@ def phase_build():
                                            else "up to date"))
     _build.load()
     log("phase1 load: %.2f s" % (time.time() - t0))
+    report = _build.ptxas_report()
+    widths = {}
+    for name, info in sorted(report.items()):
+        m = re.search(r"ext_reg_kernelILi(\d+)EE", name)
+        tag = "ext_reg W=%s" % m.group(1) if m else name
+        log("phase1 ptxas %s: %s registers, %s B stack frame, %s B spill "
+            "stores, %s B spill loads" % (
+                tag, info.get("registers"), info.get("stack"),
+                info.get("spill_stores"), info.get("spill_loads")))
+        if m:
+            widths[int(m.group(1))] = info
+    if sorted(widths) != list(sw_cuda.REG_WIDTHS):
+        raise AssertionError("phase1: register kernel instances %s, want %s"
+                             % (sorted(widths), sw_cuda.REG_WIDTHS))
+    bad = {w: i for w, i in widths.items() if i.get("stack", 1) or
+           i.get("spill_stores", 1) or i.get("spill_loads", 1)}
+    if bad:
+        raise AssertionError("phase1: register kernel spills or uses a "
+                             "stack frame: %s" % bad)
 
 
 def _rand_problems(rng, n, ql, rl, similar):
@@ -235,7 +284,7 @@ def _gather_inputs(rng, m, qg, rg, rev_share, n_reads, lpad, genome_len):
 
 def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
-    from yaha_tpu.utils import codec
+    from yaha_tpu_torch.utils import codec
     from yaha_tpu_torch.ops import decode, gather_dp
     rng = np.random.default_rng(SEED)
     kw0 = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
@@ -264,23 +313,41 @@ def phase_kernels(torch, sw, errs, dev):
                 tag, cap), {"rle": got[0], "n_ops": got[1]},
                 {"rle": want[0], "n_ops": want[1]})
 
-    # Extension: N = 4096 at QL = 256 for BW 5 and 3; a few hundred
-    # problems at QL = 4096 (the read lengths the Pallas entry sent to its
-    # windowed variant).
-    for n, ql, bw, xc, kw in ((4096, 256, 5, 25, kw0), (4096, 256, 3, 15, kw0),
-                              (256, 4096, 5, 25, kw0), (512, 64, 5, 25, wrap)):
+    # Extension, both kernels: N = 4096 at QL = 256 for BW 5 (the register
+    # kernel at each block size, and the scratch kernel) and BW 3; a few
+    # hundred problems at QL = 4096 (the read lengths the Pallas entry sent
+    # to its windowed variant); BW 8 (W = 33, the widest register
+    # instance) and BW 9 (W = 37: the scratch kernel, by dispatch).  A
+    # quarter of the references end before qlen + 2*bw2.
+    default = [(None, sw.EXT_BLOCK)]
+    for n, ql, bw, xc, kw, kernels in (
+            (4096, 256, 5, 25, kw0, default + [("reg", 32), ("reg", 128),
+                                               ("scratch", 64)]),
+            (4096, 256, 3, 15, kw0, default),
+            (256, 4096, 5, 25, kw0, default),
+            (1024, 128, 8, 25, kw0, default),
+            (1024, 128, WIDE_BW, 25, kw0, default),
+            (512, 64, 5, 25, wrap, default + [("scratch", 64)]),
+            (512, 64, 8, 25, wrap, default)):
         bw2 = 2 * bw
         rl = ql + 2 * bw2
         q, r = _rand_problems(rng, n, ql, rl, similar=True)
         qlens = rng.integers(ql // 2, ql + 1, n)
         rlens = np.minimum(qlens + bw2, rl)
+        rlens = np.where(rng.random(n) < 0.25, rng.integers(1, rlens + 1),
+                         rlens)
         r[np.arange(rl)[None, :] >= rlens[:, None]] = 255
         args = up(q, qlens.astype(np.int32), r, rlens.astype(np.int32))
         kw = dict(kw, band_width=bw, x_cutoff=xc)
-        out = sw.extension_forward(*args, **kw)
-        sync(torch, dev)
-        check("extension_forward", "N=%d QL=%d BW=%d" % (n, ql, bw), kw,
-              out, sw.extension_forward_reference(*args, **kw))
+        want = sw.extension_forward_reference(*args, **kw)
+        for variant, block in kernels:
+            out = sw.extension_forward(*args, variant=variant, block=block,
+                                       **kw)
+            sync(torch, dev)
+            name = ("extension_forward" if (variant or sw.ext_variant(bw))
+                    == "reg" else "extension_forward_scratch")
+            check(name, "N=%d QL=%d BW=%d block=%d" % (n, ql, bw, block),
+                  kw, out, want)
         walk_check("extension N=%d QL=%d" % (n, ql), out["bt"], out["maxi"],
                    out["maxj"], out["score"] > 0, False)
     # Anchored, band-relative: N = 2048 at QL = 256, wband 64 and 256.
@@ -551,43 +618,106 @@ def phase_cli(nib, idx):
     log("phase4 cli: --engine batch-cuda --device cuda == A_default.sam")
 
 
-def _time_pair(torch, dev, fn, plain, sets):
-    """(kernel ms, plain ms): the kernel over 8 launches cycling through
-    the input sets, after one warm-up; the plain version once."""
+def _time_kernel(torch, dev, fn, sets, reps=8):
+    """Mean ms of `fn` over `reps` launches cycling through the input sets,
+    after one warm-up (CUDA events)."""
     fn(*sets[0])
     sync(torch, dev)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    reps = 8
     e0.record()
     for k in range(reps):
         fn(*sets[k % len(sets)])
     e1.record()
     sync(torch, dev)
-    ms = e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / reps
+
+
+def _time_once(torch, dev, fn, args):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    plain(*sets[1])
+    out = fn(*args)
     e1.record()
     sync(torch, dev)
-    return ms, e0.elapsed_time(e1)
+    return e0.elapsed_time(e1), out
 
 
-def _largest(st, name, prefer=None):
+def _bound(nbytes, ops):
+    """(bound ms, what sets it) for a kernel that moves `nbytes` and does
+    `ops` int32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _band_cells(ql, rl, lb, rb, qmax):
+    """In-band cells of anchored problems: for every row i <= qlen, the
+    columns max(1, i - lbw) .. min(i + rbw, rlen)."""
+    i = np.arange(1, qmax + 1)[None, :]
+    lo = np.maximum(1, i - lb[:, None])
+    hi = np.minimum(i + rb[:, None], rl[:, None])
+    return int((np.maximum(hi - lo + 1, 0) * (i <= ql[:, None])).sum())
+
+
+def _largest(st, name, prefer=None, widest=False):
+    """The recorded bucket of kernel `name` with the most problems (with
+    qg == prefer when there is one, or with the largest qg when
+    `widest`)."""
     keys = [k for k in st.counts if k[0] == name]
     if not keys:
         raise AssertionError("phase5: the main path ran no %s bucket" % name)
     if prefer is not None and any(k[1] == prefer for k in keys):
         keys = [k for k in keys if k[1] == prefer]
-    key = max(keys, key=lambda k: st.counts[k])
+    key = max(keys, key=lambda k: (k[1] if widest else 0, st.counts[k]))
     return key, st.buckets[key][1]
 
 
-def phase_times(torch, sw, st, kernels, errs, dev):
+# Extension kernels timed in turns: (label, variant, block).
+EXT_TURNS = [("reg64", "reg", 64), ("scratch", "scratch", 64),
+             ("reg32", "reg", 32), ("reg128", "reg", 128),
+             ("reg128", "reg", 128), ("reg32", "reg", 32),
+             ("scratch", "scratch", 64), ("reg64", "reg", 64)]
+
+
+def _ext_turns(torch, sw, dev, kw, sets, tag):
+    """The register kernel (blocks of 64, 32 and 128 threads) and the
+    scratch kernel timed in turns on the same inputs; returns {label: [ms,
+    ms]} and the register kernel's output on sets[1], which must equal the
+    scratch kernel's."""
+    times = {}
+    for label, variant, block in EXT_TURNS:
+        fn = (lambda v, b: lambda *a: sw.extension_forward(
+            *a, variant=v, block=b, **kw))(variant, block)
+        times.setdefault(label, []).append(_time_kernel(torch, dev, fn,
+                                                        sets))
+    log("phase5 extension %s: %s" % (tag, " ".join(
+        "%s=%s ms" % (k, ",".join("%.6f" % t for t in v))
+        for k, v in times.items())))
+    reg = sw.extension_forward(*sets[1], variant="reg", **kw)
+    scr = sw.extension_forward(*sets[1], variant="scratch", **kw)
+    sync(torch, dev)
+    for key in reg:
+        if not torch.equal(reg[key], scr[key]):
+            raise AssertionError("phase5 extension %s: register and scratch "
+                                 "kernels differ in %s" % (tag, key))
+    return times, reg
+
+
+def phase_times(torch, sw, st, st10, kernels, errs, dev):
     """Kernel (wrapper: output allocation + launch) and plain-version times
     at the main path's largest buckets, on the inputs the main path
     assembled on the card; CUDA events, distinct inputs (4 permutations of
     the bucket).  The kernel's output on the bucket must equal the plain
-    version's."""
+    version's.  The two extension kernels run in turns at the largest 1 kb
+    bucket and at the 10 kb run's widest bucket.  Each kernel's bound comes
+    from this run's inputs: the cells its DP computed (the X-drop exits
+    counted from the extension's plane), its walk's steps, its gather's
+    bytes."""
     from yaha_tpu_torch.ops import decode, gather_dp
     gap_kw, ext_kw = st.gap_kw, st.ext_kw
     rng = np.random.default_rng(SEED)
@@ -596,70 +726,129 @@ def phase_times(torch, sw, st, kernels, errs, dev):
         return [torch.from_numpy(rng.permutation(n)).to(dev)
                 for _ in range(4)]
 
-    def finish(name, key, n, ms, plain_ms, got, want, cells=None):
+    def finish(name, key, n, ms, plain_ms, got, want, nbytes, ops):
         compare(torch, errs, "phase5", name, "bucket=%s N=%d" % (
             list(key[1:]), n), got, want)
-        kernels[name].update(ms=round(ms, 4), plain_ms=round(plain_ms, 2),
+        bound_ms, bound_by = _bound(nbytes, ops)
+        kernels[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None,
                              max_abs_err=errs[name])
-        rate = ""
-        if cells:
-            rate = " (%.2f vs %.4f Gcells/s)" % (cells / ms / 1e6,
-                                                 cells / plain_ms / 1e6)
-        log("phase5 %s bucket=%s N=%d: kernel %.4f ms, plain %.1f ms%s" % (
-            name, list(key[1:]), n, ms, plain_ms, rate))
+        log("phase5 %s bucket=%s N=%d: kernel %.6f ms, plain %.3f ms, bound "
+            "%.6f ms (%s: %d bytes, %d int32 ops), %.1f %% of the bound" % (
+                name, list(key[1:]), n, ms, plain_ms, bound_ms, bound_by,
+                nbytes, ops, 100 * bound_ms / ms))
 
-    ext_out = None
-    for name in ("extension_forward", "anchored_forward_banded",
-                 "anchored_forward"):
-        key, arrs = _largest(st, name, 1024 if name == "extension_forward"
-                             else None)
-        n = arrs[0].shape[0]
+    def bucket_sets(arrs):
         base = [a if torch.is_tensor(a) else torch.from_numpy(
             a.astype(np.int32)).to(dev) for a in arrs]
-        ql_ = arrs[1].astype(np.int64)
-        if name == "extension_forward":
-            fn, kw = sw.extension_forward, ext_kw
-            plain = sw.extension_forward_reference
-            cells = int((ql_ * (4 * st.aa.band_width + 1)).sum())
+        return [[t.index_select(0, p).contiguous() for t in base]
+                for p in perms(base[0].shape[0])]
+
+    # The extension at the largest 1 kb bucket: both kernels in turns, then
+    # the plain version once.
+    ext_key, arrs = _largest(st, "extension_forward", 1024)
+    n = arrs[0].shape[0]
+    sets = bucket_sets(arrs)
+    times, got = _ext_turns(torch, sw, dev, ext_kw, sets, "1kb bucket=%s N=%d"
+                            % (list(ext_key[1:]), n))
+    plain_ms, want = _time_once(
+        torch, dev, lambda *a: sw.extension_forward_reference(*a, **ext_kw),
+        sets[1])
+    w = got["bt"].shape[2]
+    bw2 = (w - 1) // 2
+    # Cells computed: every computed cell's byte is nonzero; the other
+    # nonzero bytes of rows 1.. are the anti-diagonal insert cells.
+    cells = int(torch.count_nonzero(got["bt"][:, 1:])) - n * min(
+        bw2, got["bt"].shape[1] - 1)
+    nbytes = _nbytes(*sets[1]) + _nbytes(*got.values())
+    for name, label in (("extension_forward", "reg64"),
+                        ("extension_forward_scratch", "scratch")):
+        finish(name, ext_key, n, float(np.mean(times[label])), plain_ms,
+               got, want, nbytes, cells * CELL_OPS)
+    log("phase5 extension cells computed: %d of %d (%.1f %%)" % (
+        cells, n * (got["bt"].shape[1] - 1) * w,
+        100 * cells / (n * (got["bt"].shape[1] - 1) * w)))
+    # Rows each problem computed (rows with a computed cell: the plane's
+    # nonzero bytes other than the anti-diagonal insert cells), against
+    # the row steps of warps whose 32 lanes run in step.
+    h = got["bt"].shape[1]
+    diag = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for i in range(1, min(bw2, h - 1) + 1):
+        diag[i, bw2 - i] = True
+    rows = ((got["bt"] != 0) & ~diag)[:, 1:].any(-1).sum(-1)
+    warp_rows = torch.nn.functional.pad(rows, (0, -n % 32)).view(
+        -1, 32).max(-1).values
+    log("phase5 extension rows: computed %d, longest problem %d, warp "
+        "row steps x 32 lanes %d (%.1f %% of lane-rows busy)" % (
+            int(rows.sum()), int(rows.max()), 32 * int(warp_rows.sum()),
+            100 * int(rows.sum()) / (32 * int(warp_rows.sum()))))
+    del diag
+    ext_out = got
+    del want
+
+    # The extension at the 10 kb run's widest bucket: both kernels in turns
+    # (the plain version would take minutes there; both kernels are held to
+    # it above and in phase 2).
+    key10, arrs10 = _largest(st10, "extension_forward", widest=True)
+    times10, got10 = _ext_turns(torch, sw, dev, st10.ext_kw,
+                                bucket_sets(arrs10), "10kb bucket=%s N=%d" % (
+                                    list(key10[1:]), arrs10[0].shape[0]))
+    cells10 = int(torch.count_nonzero(got10["bt"][:, 1:])) - \
+        arrs10[0].shape[0] * min(bw2, got10["bt"].shape[1] - 1)
+    b10, by10 = _bound(_nbytes(*bucket_sets(arrs10)[0]) +
+                       _nbytes(*got10.values()), cells10 * CELL_OPS)
+    log("phase5 extension 10kb: bound %.6f ms (%s), cells computed %d; "
+        "reg64 %.1f %%, scratch %.1f %% of the bound" % (
+            b10, by10, cells10, 100 * b10 / np.mean(times10["reg64"]),
+            100 * b10 / np.mean(times10["scratch"])))
+    del got10
+
+    for name in ("anchored_forward_banded", "anchored_forward"):
+        key, arrs = _largest(st, name)
+        n = arrs[0].shape[0]
+        ql_, rl_, lb, rb = (np.asarray(arrs[k]).astype(np.int64)
+                            for k in (1, 3, 4, 5))
+        if name == "anchored_forward_banded":
+            kw = dict(gap_kw, wband=key[3])
+            fn = sw.anchored_forward_banded
+            plain = sw.anchored_forward_banded_reference
         else:
-            lb, rb = arrs[4].astype(np.int64), arrs[5].astype(np.int64)
-            rl_ = arrs[3].astype(np.int64)
-            cells = int((np.minimum(lb + rb + 1, rl_ + 1) * ql_).sum())
-            if name == "anchored_forward_banded":
-                kw = dict(gap_kw, wband=key[3])
-                fn = sw.anchored_forward_banded
-                plain = sw.anchored_forward_banded_reference
-            else:
-                fn, kw = sw.anchored_forward, gap_kw
-                plain = sw.anchored_forward_reference
-        sets = [[t.index_select(0, p).contiguous() for t in base]
-                for p in perms(n)]
-        ms, plain_ms = _time_pair(torch, dev, lambda *a: fn(*a, **kw),
-                                  lambda *a: plain(*a, **kw), sets)
+            fn, kw = sw.anchored_forward, gap_kw
+            plain = sw.anchored_forward_reference
+        sets = bucket_sets(arrs)
+        ms = _time_kernel(torch, dev, lambda *a: fn(*a, **kw), sets)
+        plain_ms, want = _time_once(torch, dev, lambda *a: plain(*a, **kw),
+                                    sets[1])
         got = fn(*sets[1], **kw)
-        finish(name, key, n, ms, plain_ms, got, plain(*sets[1], **kw),
-               cells)
-        if name == "extension_forward":
-            ext_out, ext_key = got, key
+        cells = _band_cells(ql_, rl_, lb, rb, key[1])
+        finish(name, key, n, ms, plain_ms, got, want,
+               _nbytes(*sets[1]) + _nbytes(*got.values()),
+               cells * CELL_OPS)
 
     # The walk on the largest extension bucket's planes, from its best
     # cells, at the engine's cap.
-    w = ext_out["bt"].shape[2]
     cap = 1 << (2 * ext_key[1] + w + 1).bit_length()
     walk_in = [ext_out["bt"], ext_out["maxi"], ext_out["maxj"],
                ext_out["score"] > 0]
     n = walk_in[0].shape[0]
     sets = [[t.index_select(0, p).contiguous() for t in walk_in]
             for p in perms(n)]
+    del ext_out, walk_in
     wkw = dict(cap=cap, full=False)
-    ms, plain_ms = _time_pair(
-        torch, dev, lambda *a: decode.rle_walk(*a, **wkw),
-        lambda *a: decode.rle_walk_reference(*a, **wkw), sets)
+    ms = _time_kernel(torch, dev, lambda *a: decode.rle_walk(*a, **wkw),
+                      sets)
+    plain_ms, want = _time_once(
+        torch, dev, lambda *a: decode.rle_walk_reference(*a, **wkw), sets[1])
     got = decode.rle_walk(*sets[1], **wkw)
-    want = decode.rle_walk_reference(*sets[1], **wkw)
+    # Steps: one plane cell per unit of run length, plus the cell that ends
+    # each walk.
+    lens = (got[0] & ((1 << decode.RLE_OP_SHIFT) - 1)).sum()
+    steps = int(lens) + int((got[1] > 0).sum())
     finish("rle_walk", ext_key, n, ms, plain_ms,
            {"rle": got[0], "n_ops": got[1]},
-           {"rle": want[0], "n_ops": want[1]})
+           {"rle": want[0], "n_ops": want[1]},
+           steps + _nbytes(*sets[1][1:]) + _nbytes(*got),
+           steps * WALK_STEP_OPS)
 
     # The gather of the largest extension bucket, from the chunk's strand
     # rows and the bucket's own coordinates.
@@ -670,13 +859,17 @@ def phase_times(torch, sw, st, kernels, errs, dev):
     sets = [[rows2, codes, torch.from_numpy(
         np.ascontiguousarray(coords[:, p.cpu().numpy()])).to(dev)]
         for p in perms(n)]
-    ms, plain_ms = _time_pair(
-        torch, dev, lambda *a: gather_dp.gather_problems(*a, **gkw),
-        lambda *a: gather_dp.gather_reference(*a, **gkw), sets)
+    ms = _time_kernel(torch, dev,
+                      lambda *a: gather_dp.gather_problems(*a, **gkw), sets)
+    plain_ms, want = _time_once(
+        torch, dev, lambda *a: gather_dp.gather_reference(*a, **gkw),
+        sets[1])
     got = gather_dp.gather_problems(*sets[1], **gkw)
-    want = gather_dp.gather_reference(*sets[1], **gkw)
+    out_bytes = _nbytes(*got)
+    copied = int(coords[2].sum() + coords[5].sum())   # q_copy + r_copy
     finish("gather_problems", key, n, ms, plain_ms,
-           {"q": got[0], "r": got[1]}, {"q": want[0], "r": want[1]})
+           {"q": got[0], "r": got[1]}, {"q": want[0], "r": want[1]},
+           out_bytes + copied + coords.nbytes, out_bytes * GATHER_BYTE_OPS)
 
 
 def _device_time(torch, prof, wall):
@@ -806,21 +999,33 @@ def main():
     st, launches, pr, ref = phase_main(torch, sw, host, Recorder, genome,
                                        index, aa, reads, threads,
                                        "phase3 1kb", dev)
+    # At -BW 5 (W = 21) every extension goes through the register kernel.
     for name in KERNELS:
-        if launches[name] == 0:
-            raise AssertionError("phase3: %s was never launched" % name)
+        if (launches[name] == 0) != (name == "extension_forward_scratch"):
+            raise AssertionError("phase3: %s launched %d times" % (
+                name, launches[name]))
     kernels = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[name],
                       "max_abs_err": errs[name]}
                for name, (src, rep) in KERNELS.items()}
     phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
              "phase3 1kb A/B", dev)
+    # The scratch extension kernel's path: bands wider than -BW 8.
+    _, wide, _, _ = phase_main(
+        torch, sw, host, Recorder, genome, index,
+        _aa(host, index, idx, band_width=WIDE_BW), reads[:WIDE_READS],
+        threads, "phase4 1kb BW%d" % WIDE_BW, dev)
+    if wide["extension_forward"] or not wide["extension_forward_scratch"]:
+        raise AssertionError("phase4 BW%d: extension launches %s" % (
+            WIDE_BW, wide))
+    kernels["extension_forward_scratch"]["launches"] = \
+        wide["extension_forward_scratch"]
 
     long_reads = (sample_reads(seqs, 128, 10000, rng, b"long", False) +
                   sample_reads(seqs, 128, 10000, rng, b"longindel", True))
-    phase_main(torch, sw, host, Recorder, genome, index,
-               _aa(host, index, idx), long_reads, threads, "phase4 10kb",
-               dev)
+    st10 = phase_main(torch, sw, host, Recorder, genome, index,
+                      _aa(host, index, idx), long_reads, threads,
+                      "phase4 10kb", dev)[0]
     tg_nib, tg_idx = testgen_files()
     tg_index = host.load_index(tg_idx)
     phase_main(torch, sw, host, Recorder, host.load_genome(tg_nib),
@@ -828,7 +1033,7 @@ def main():
                              max_query_length=150000),
                long_read_105k(rng), threads, "phase4 105kb", dev)
     phase_cli(tg_nib, tg_idx)
-    phase_times(torch, sw, st, kernels, errs, dev)
+    phase_times(torch, sw, st, st10, kernels, errs, dev)
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

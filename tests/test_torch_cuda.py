@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card (marker `cuda`).
 
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
-are held to their plain PyTorch versions on the card, on the inputs with
+(both extension kernels, at each block size of the register one) are held
+to their plain PyTorch versions on the card, on the inputs with
 which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
 hold the plain versions to the JAX package: every output equal, whole
 backtrack planes, assembled problem planes and walk items included
@@ -55,21 +56,48 @@ def _equal(got, want):
         assert torch.equal(got[key], w), key
 
 
+# The extension's two kernels (sw_cuda.ext_variant picks one by band
+# width; both are held to the plain version at every width) and the
+# register kernel's block sizes.
+EXT_KERNELS = [("reg", 32), ("reg", 64), ("reg", 128), ("scratch", 64)]
+EXT_KERNEL_IDS = ["reg32", "reg64", "reg128", "scratch"]
+
+
+@pytest.mark.parametrize("variant,block", EXT_KERNELS, ids=EXT_KERNEL_IDS)
 @pytest.mark.parametrize("kw", [KW, KW_WRAP], ids=["default", "wrap"])
-def test_extension_kernel_matches_plain(dev, kw):
+def test_extension_kernel_matches_plain(dev, kw, variant, block):
     # N = 1000 is not a multiple of the block size.
     args = _up(dev, *extension_inputs(11, 1000, 40, 2))
     ekw = dict(band_width=2, x_cutoff=25, **kw)
-    _equal(sw_cuda.extension_forward(*args, **ekw),
+    _equal(sw_cuda.extension_forward(*args, variant=variant, block=block,
+                                     **ekw),
            sw_cuda.extension_forward_reference(*args, **ekw))
 
 
+@pytest.mark.parametrize("variant", ["reg", "scratch"])
 @pytest.mark.parametrize("bw,xc,mg,mi,err", EXT_SWEEP, ids=EXT_SWEEP_IDS)
-def test_extension_kernel_matches_plain_sweep(dev, bw, xc, mg, mi, err):
+def test_extension_kernel_matches_plain_sweep(dev, bw, xc, mg, mi, err,
+                                              variant):
     args = _up(dev, *extension_inputs(bw * 100 + xc, 300, 24, bw, err))
     kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
-    _equal(sw_cuda.extension_forward(*args, **kw),
+    _equal(sw_cuda.extension_forward(*args, variant=variant, **kw),
            sw_cuda.extension_forward_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("bw", [1, 8, 9])
+def test_extension_dispatch_by_band_width(dev, bw):
+    """-BW 1 and 8 (W = 5, 33) launch the register kernel, -BW 9 (W = 37)
+    the scratch kernel; references shorter than qlen + 2*bw2 included."""
+    q, qlens, r, rlens = extension_inputs(bw, 700, 48, bw, 0.1)
+    rlens = np.random.default_rng(bw).integers(1, rlens + 1)
+    args = _up(dev, q, qlens, r, rlens)
+    kw = dict(KW, band_width=bw, x_cutoff=25)
+    sw_cuda.reset_launches()
+    got = sw_cuda.extension_forward(*args, **kw)
+    name = ("extension_forward" if bw <= 8 else
+            "extension_forward_scratch")
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {name: 1}
+    _equal(got, sw_cuda.extension_forward_reference(*args, **kw))
 
 
 def _anchored_pair(dev, args, kw):
@@ -104,6 +132,9 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     for bad in (r.to(torch.int32), r.t().contiguous().t(), r.cpu()):
         with pytest.raises(ValueError):
             sw_cuda.extension_forward(q, qlens, bad, rlens, **kw)
+    for bad in (dict(block=96), dict(variant="other")):
+        with pytest.raises(ValueError):
+            sw_cuda.extension_forward(q, qlens, r, rlens, **kw, **bad)
     assert sw_cuda.launches()["extension_forward"] == 1
 
 
@@ -211,6 +242,7 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over, config):
     assert (sm, nr) == (ref[2], ref[3])
     launched = sw_cuda.launches()
     assert launched["extension_forward"] > 0
+    assert launched["extension_forward_scratch"] == 0
     assert launched["anchored_forward_banded"] > 0
     if qfile == "indel":
         assert st.stats["gap_full"] > 0

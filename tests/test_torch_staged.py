@@ -5,10 +5,14 @@ and inline_small=False sends every gap fill and extension through them.
 The default configuration assembles every problem on the device and walks
 the planes there (FMT_RLE items); the A/B configurations fetch problems on
 the host and/or bring the planes back to the native walkers.
-The SAM bytes must equal the per-read native C++ engine's
-(host.align_batch_native), and the CLI must reproduce the golden SAM
-files of tests/golden (ignoring @PG lines, which embed paths).  The CLI
-must not import jax, and must fail on --device cuda without a card.
+The SAM bytes must equal the JAX package's per-read native C++ engine's
+(yaha_tpu.native.host.align_batch_native; the port runs its own copy of
+that library), and the CLI must reproduce the golden SAM files of
+tests/golden (ignoring @PG lines, which embed paths).  The CLI must not
+import jax or anything of the JAX package, must load its native library
+from yaha_tpu_torch/_build, and must fail on --device cuda without a card.
+The port's -g / -c / -u operations must write the golden .nib2, FASTA and
+index files byte for byte.
 """
 import gzip
 import os
@@ -70,7 +74,8 @@ def _aa(index, qfile, over):
 
 def _parity(env, aa, data, n_max=None, **config):
     """Align through the port's engine on the CPU; assert byte parity with
-    the native engine and return the engine's stats."""
+    the JAX package's native engine and return the engine's stats."""
+    from yaha_tpu.native import host as jax_host
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.staged import StagedAligner
     genome, index = env
@@ -78,8 +83,8 @@ def _parity(env, aa, data, n_max=None, **config):
     pr = host.parse_queries_native(data, aa.fastq, aa.max_query_length,
                                    aa.word_len)
     n = pr.n if n_max is None else min(pr.n, n_max)
-    ref, _, sm0, nr0 = host.align_batch_native(pr, 0, n, genome, index, aa,
-                                               n_threads=2)
+    ref, _, sm0, nr0 = jax_host.align_batch_native(pr, 0, n, genome, index,
+                                                   aa, n_threads=2)
     st = StagedAligner(aa, genome, index, device="cpu", n_threads=2,
                        inline_small=False, **config)
     text, sm, nr = st.align_chunk(pr, 0, n)
@@ -127,8 +132,7 @@ def _fetch_recorder():
     """A StagedAligner whose device gathers also fetch the same bucket on
     the host (yt_batch_*_fetch) and record whether the planes agree."""
     import numpy as np
-    from yaha_tpu.models.staged import _p64, _pu8
-    from yaha_tpu_torch.models.staged import StagedAligner
+    from yaha_tpu_torch.models.staged import StagedAligner, _p64, _pu8
 
     class FetchCheck(StagedAligner):
         checked = []
@@ -235,10 +239,20 @@ def test_cli_cpu_matches_golden(scratch, monkeypatch, gold, qfile, flags):
 
 
 def _run_cli(scratch, args):
+    """The port's CLI in a fresh interpreter; after the run it asserts
+    that neither jax nor any module of the JAX package was imported, and
+    prints the paths of the native host libraries the process mapped."""
     code = ("import sys\n"
             "from yaha_tpu_torch import cli\n"
             "rc = cli.main(sys.argv[1:])\n"
             "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+            "ref = [m for m in sys.modules\n"
+            "       if m == 'yaha_tpu' or m.startswith('yaha_tpu.')]\n"
+            "assert not ref, 'the port imported %s' % ref\n"
+            "with open('/proc/self/maps') as f:\n"
+            "    libs = {ln.split()[-1] for ln in f\n"
+            "            if ln.rstrip().endswith('libyaha_host.so')}\n"
+            "print('\\n'.join(sorted(libs)))\n"
             "sys.exit(rc)\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", code] + args, cwd=scratch,
@@ -246,11 +260,17 @@ def _run_cli(scratch, args):
 
 
 def test_cli_imports_no_jax(scratch):
+    """A query run imports neither jax nor the JAX package, and runs the
+    port's own native library (yaha_tpu_torch/_build), not the JAX
+    package's."""
     r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
                            "--device", "cpu", "-osh", "nojax.sam"])
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     assert _strip_pg(os.path.join(scratch, "nojax.sam")) == _strip_pg(
         os.path.join(GOLD, "F_edge.sam"))
+    libs = [os.path.realpath(p) for p in r.stdout.decode().split()]
+    assert libs == [os.path.realpath(os.path.join(
+        REPO, "yaha_tpu_torch", "_build", "libyaha_host.so"))]
 
 
 def test_cli_device_cuda_without_card_fails(scratch):

@@ -140,3 +140,12 @@ def test_wrappers_take_any_n_and_reject_other_devices():
     lens = torch.ones(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         sw_cuda.anchored_forward(meta, lens, meta, lens, lens, lens, **KW)
+
+
+def test_extension_kernel_choice_by_band_width():
+    """The card's extension kernel is chosen by shape before the launch:
+    the register kernel for -BW 1 to 8 (W = 5 .. 33), the scratch kernel
+    for wider bands."""
+    assert [sw_cuda.ext_variant(bw) for bw in range(0, 11)] == (
+        ["scratch"] + ["reg"] * 8 + ["scratch"] * 2)
+    assert sw_cuda.REG_WIDTHS == tuple(4 * bw + 1 for bw in range(1, 9))

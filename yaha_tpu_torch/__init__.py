@@ -1,11 +1,19 @@
 """yaha_tpu_torch — the PyTorch/CUDA port of yaha_tpu's staged device engine.
 
-  cli.py            python -m yaha_tpu_torch.cli (--engine batch-cuda)
-  host.py           the jax-free host layers borrowed from yaha_tpu
+  cli.py            python -m yaha_tpu_torch.cli (--engine batch-cuda,
+                    index, compress, uncompress)
+  host.py           the host layers in one place (config, loaders,
+                    native pipeline)
+  config.py, io/, utils/
+                    the port's copies of the JAX package's host modules
+  native/           the native C++ pipeline (copied sources; g++ build at
+                    first use) and its ctypes bindings
   models/staged.py  StagedAligner: native host phases + DP on the card
   ops/sw_cuda.py    the DP entries, their plain PyTorch versions
+  ops/gather_dp.py, ops/decode.py
+                    device problem assembly and backtrack walk
   ops/_build.py     nvcc build of csrc/ at first use
   csrc/             hand-written CUDA kernels (sm_90a)
 
-Imports torch and never jax.
+Imports torch and never jax, and nothing of the JAX package.
 """

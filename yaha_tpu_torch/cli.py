@@ -1,31 +1,38 @@
 """Command line of the PyTorch/CUDA port: ``python -m yaha_tpu_torch.cli``.
 
-Query runs (-x/-q) take the reference flag set of yaha_tpu.cli plus:
+Counterpart of yaha_tpu/cli.py, with the reference's four operations
+(Main.c:187-671) selected by the same flags, the same file-name derivation
+(.nib2, .X{LL}_{SS}_{HHHHH}S) and the same validation messages:
+
+  -g genome.fa [-L -S -H -t -v]   index (compressing the FASTA first when its
+                                  .nib2 is missing or older)
+  -g genome.fa -c / -g g.nib2 -u  compress / uncompress
+  -x index -q reads ...           align, with the reference flag set plus:
 
   --engine batch-cuda   the staged engine with its DP on the card (the
-                        only engine here; the others are in yaha_tpu.cli):
-                        the genome stays on the card, every DP problem is
-                        assembled there, and the backtrack walk runs there,
-                        so only run-length items come back (the JAX
-                        package's default batch-pallas configuration).
-                        YT_STAGED_DEVRES=0 fetches problems on the host and
-                        YT_STAGED_RLE=0 brings the planes back to the
-                        native walkers (A/B configurations).
+                        only engine here): the genome stays on the card,
+                        every DP problem is assembled there, and the
+                        backtrack walk runs there, so only run-length items
+                        come back (the JAX package's default batch-pallas
+                        configuration).  YT_STAGED_DEVRES=0 fetches
+                        problems on the host and YT_STAGED_RLE=0 brings the
+                        planes back to the native walkers (A/B
+                        configurations).
   --device cuda|cpu     where the kernels run (default cuda); cpu runs
                         their plain PyTorch versions.  With cuda and no
                         card the run stops with an error.
   --prewarm             accepted and does nothing: nothing is cached
 
-Compress, uncompress and index runs go to yaha_tpu.cli unchanged.
+The host work runs in the port's own native library (native/host.py).
 """
 from __future__ import annotations
 
 import os
+import re
+import struct
 import sys
 
-from yaha_tpu import cli as _ref
-
-from . import host
+from .config import AlignmentArgs
 
 ENGINES = ("batch-cuda",)
 DEVICES = ("cuda", "cpu")
@@ -46,13 +53,19 @@ _FLOAT_FLAGS = {"-P": "min_identity", "-PRL": "fbs_ps_length",
 _BOOL_FLAGS = {"-AGS": "affine_gap_scoring", "-OQC": "oqc", "-FBS": "fbs"}
 _STR_FLAGS = {"-x": "xfile_name", "-q": "qfile_name", "-qs": "qs_file_name",
               "-g": "gfile_name"}
-# Flags of yaha_tpu.cli whose paths are not ported yet.
+_SWITCHES = {"-v": "verbose", "--prewarm": "prewarm", "--resume": "resume"}
+# Flags of the JAX package's CLI whose paths are not ported yet.
 _NOT_PORTED = ("--model-shards", "--coordinator", "--num-hosts",
                "--host-id", "--trace")
 
 USAGE = """\
 yaha_tpu_torch: split-read DNA aligner, DP phases on an NVIDIA GPU
 
+Create an index:
+  python -m yaha_tpu_torch.cli -g <genomeFile (fa|fasta|fna|nib2)>
+           [-L wordLen] [-S skipDist] [-H maxHits] [-t threads] [-v]
+Compress / uncompress a genome:
+  python -m yaha_tpu_torch.cli -g <file> -c | -u
 Align queries:
   python -m yaha_tpu_torch.cli -x <indexFile> -q <queryFile (fa|fastq)>
            [-osh|-oss|-o8 <outFile>] [reference options]
@@ -61,7 +74,6 @@ Align queries:
 --engine batch-cuda assembles the DP problems and walks their backtrack
 planes on the device; YT_STAGED_DEVRES=0 / YT_STAGED_RLE=0 select the
 host-fetch / plane-transfer A/B configurations.
-Index, compress, uncompress: as python -m yaha_tpu.cli.
 Not ported yet: --seed device, %s.""" % ", ".join(_NOT_PORTED)
 
 
@@ -70,10 +82,52 @@ def _fail(msg):
     sys.exit(1)
 
 
-def parse_query_args(argv):
-    """Parse a query command line into (AlignmentArgs, device name)."""
-    aa = host.AlignmentArgs()
+# ---- flag values, with the reference's C parsing (Main.c uses atoi/atof) --
+
+def _parse_bool(s, key):
+    if len(s) == 1:
+        if s in "YyTt":
+            return True
+        if s in "NnFf":
+            return False
+    _fail("%s is not a valid value for parameter %s." % (s, key))
+
+
+def _atoi(s):
+    """C atoi: leading whitespace, optional sign, digit prefix; 0 when
+    there is no number."""
+    m = re.match(r"\s*([+-]?\d+)", s)
+    return int(m.group(1)) if m else 0
+
+
+def _atof(s):
+    """C atof: numeric prefix, 0.0 when there is no number."""
+    m = re.match(r"\s*([+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?)", s)
+    return float(m.group(1)) if m else 0.0
+
+
+def _parse_int(s, key):
+    v = _atoi(s)
+    if v < 0:
+        _fail("%s is not a valid value for parameter %s." % (s, key))
+    return v
+
+
+def _parse_float(s, key):
+    v = _atof(s)
+    if v <= 0.0 or v > 1.0:
+        _fail("%s is not a valid value for parameter %s." % (s, key))
+    # The reference stores minIdentity/FBS_PSLength/FBS_PSScore as
+    # single-precision floats (Math.h:292,314-315): round as it does.
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+def parse_args(argv):
+    """Parse a command line into (AlignmentArgs, device, operation), the
+    operation one of "query", "compress", "uncompress", "index"."""
+    aa = AlignmentArgs()
     device = "cuda"
+    ops = set()
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -82,22 +136,27 @@ def parse_query_args(argv):
             _fail("%s is not ported to yaha_tpu_torch yet (not ported: "
                   "--seed device, %s); use python -m yaha_tpu.cli."
                   % (a, ", ".join(_NOT_PORTED)))
-        if a in ("-v", "--prewarm", "--resume"):
-            setattr(aa, {"-v": "verbose", "--prewarm": "prewarm",
-                         "--resume": "resume"}[a], True)
+        if a in _SWITCHES:
+            setattr(aa, _SWITCHES[a], True)
+            i += 1
+            continue
+        if a in ("-c", "-u"):
+            ops.add("compress" if a == "-c" else "uncompress")
             i += 1
             continue
         if i + 1 >= len(argv):
             _fail("%s is not a valid option.\n" % a)
         val = argv[i + 1]
         if a in _INT_FLAGS:
-            setattr(aa, _INT_FLAGS[a], _ref._parse_int(val, a))
+            setattr(aa, _INT_FLAGS[a], _parse_int(val, a))
         elif a in _FLOAT_FLAGS:
-            setattr(aa, _FLOAT_FLAGS[a], _ref._parse_float(val, a))
+            setattr(aa, _FLOAT_FLAGS[a], _parse_float(val, a))
         elif a in _BOOL_FLAGS:
-            setattr(aa, _BOOL_FLAGS[a], _ref._parse_bool(val, a))
+            setattr(aa, _BOOL_FLAGS[a], _parse_bool(val, a))
         elif a in _STR_FLAGS:
             setattr(aa, _STR_FLAGS[a], val)
+            if a in ("-x", "-q"):
+                ops.add("query")
         elif a in ("-osh", "-oss", "-o8"):
             aa.output_blast8 = a == "-o8"
             aa.output_sam = a != "-o8"
@@ -118,39 +177,361 @@ def parse_query_args(argv):
         else:
             _fail("%s is not a valid option.\n" % a)
         i += 2
-    if aa.xfile_name is None:
-        _fail("Index file specification (-x) is required for query "
-              "alignment.")
-    aa.gfile_name = os.path.splitext(aa.xfile_name)[0] + ".nib2"
-    if aa.ofile_name is None:
-        aa.output_blast8 = False
-        aa.output_sam = True
-        aa.hard_clip = True
-        aa.ofile_name = "stdout"
-    aa.post_process(True)
-    return aa, device
+    # The reference's order: compress, uncompress, query, index.
+    op = next((o for o in ("compress", "uncompress", "query") if o in ops),
+              "index")
+    if "query" in ops:
+        if aa.xfile_name is None:
+            _fail("Index file specification (-x) is required for query "
+                  "alignment.")
+        aa.gfile_name = os.path.splitext(aa.xfile_name)[0] + ".nib2"
+        if op == "query" and aa.ofile_name is None:
+            aa.output_blast8 = False
+            aa.output_sam = True
+            aa.hard_clip = True
+            aa.ofile_name = "stdout"
+    elif os.path.splitext(aa.gfile_name or "")[1] not in (
+            ".fna", ".fa", ".fasta", ".nib2"):
+        _fail('Expecting a ".fa", ".fna", ".fasta", or ".nib2" genome '
+              'file.')
+    base = os.path.splitext(aa.gfile_name)[0]
+    aa.ofile_name = {"uncompress": base + ".fasta",
+                     "compress": base + ".nib2"}.get(op, aa.ofile_name)
+    aa.post_process("query" in ops)
+    if op == "index":
+        aa.xfile_name = os.path.splitext(aa.gfile_name)[0] + (
+            ".X%02d_%02d_%05dS" % (aa.word_len, aa.skip_dist, aa.max_hits))
+    return aa, device, op
 
 
-def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if any(a in ("-h", "-?", "-xh") for a in argv):
-        print(USAGE, file=sys.stderr)
-        return 0
-    if "-x" not in argv and "-q" not in argv:
-        return _ref.main(argv)
-    aa, device = parse_query_args(argv)
+# ---- compress, uncompress, index ----
+
+def _do_compress(aa):
+    from .native import host
+    host.compress_fasta_file(aa.gfile_name, aa.ofile_name)
+
+
+def _load_nib2(path):
+    from .io import nib2
+    with open(path, "rb") as f:
+        return nib2.load(f.read())
+
+
+def _do_uncompress(aa):
+    from .io import nib2
+    genome = _load_nib2(aa.gfile_name)
+    with open(aa.ofile_name, "wb") as f:
+        f.write(nib2.uncompress_to_fasta(genome))
+
+
+def _do_index(aa):
+    if aa.word_len > 15:
+        _fail("Word Length (-L) for index creation is currently restricted "
+              "to < 16.")
+    if aa.skip_dist < 1 or aa.skip_dist > aa.word_len:
+        _fail("Skip Distance (-S) for index creation must be between 1 and "
+              "WordLength (inclusive).")
+    from .io import index_io
+    from .native import host
+    if not aa.gfile_name.endswith(".nib2"):
+        # Index a FASTA through its .nib2, compressed first when missing
+        # or older than the FASTA.
+        nib2_name = os.path.splitext(aa.gfile_name)[0] + ".nib2"
+        if (not os.path.exists(nib2_name) or os.path.getmtime(
+                aa.gfile_name) > os.path.getmtime(nib2_name)):
+            aa.ofile_name = nib2_name
+            _do_compress(aa)
+        aa.gfile_name = nib2_name
+    genome = _load_nib2(aa.gfile_name)
+    # Threaded native builder (yaha_index.cpp); -t sets the scan threads.
+    so, roa, tm = host.build_index(genome, aa.word_len, aa.skip_dist,
+                                   aa.max_hits,
+                                   n_threads=max(aa.num_threads, 4))
+    if aa.verbose:
+        index_io.print_count_statistics(so, aa.word_len)
+    index_io.write_index(aa.xfile_name, aa.word_len, aa.max_hits, so, roa,
+                         tm)
+    print("Index %s created." % aa.xfile_name, file=sys.stderr)
+
+
+# ---- query streaming ----
+
+def _find_chunk_cut(data, fastq):
+    """Byte offset of the last record start in `data`, or -1.
+
+    FASTA: the last "\\n>".  FASTQ: the last "\\n@" that opens a plausible
+    record (a line starting with '+' follows the id line within a few
+    lines), as readNextQuery's own '@'-after-newline terminator
+    (Query.c:177-198).
+    """
+    if not fastq:
+        p = data.rfind(b"\n>")
+        return p + 1 if p >= 0 else -1
+    pos = len(data)
+    for _ in range(16):
+        p = data.rfind(b"\n@", 0, pos)
+        if p < 0:
+            return -1
+        start = p + 1
+        nl1 = data.find(b"\n", start)
+        if nl1 >= 0:
+            q = nl1 + 1
+            for _ in range(64):
+                if data[q:q + 1] == b"+":
+                    return start
+                e = data.find(b"\n", q)
+                if e < 0:
+                    break
+                q = e + 1
+        pos = p
+    return -1
+
+
+def _iter_query_chunks(path, block_size=64 << 20):
+    """Stream (chunk_bytes, fastq) pieces that start at record boundaries;
+    memory is bounded by block_size + one record."""
+    with open(path, "rb") as f:
+        first = f.read(1)
+        fastq = first == b"@"
+        carry = first + f.read(block_size)
+        while True:
+            nxt = f.read(block_size)
+            if not nxt:
+                if carry:
+                    yield carry, fastq
+                return
+            data = carry + nxt
+            cut = _find_chunk_cut(data, fastq)
+            if cut <= 0:
+                carry = data       # no boundary yet: grow
+                continue
+            yield data[:cut], fastq
+            carry = data[cut:]
+
+
+def _run_native_engine(aa, genome, align_fn, dp_stats):
+    """The streaming query loop: the file streams through bounded chunks,
+    each parsed natively and aligned in batches by `align_fn(pr, lo, hi,
+    dist, want_stats) -> (text, stats, seed_matches, records)`; output is
+    emitted per batch by a writer thread, with the --resume cursor.  With
+    YT_STAGED_PREFETCH on (default), batch k+1's host phases overlap
+    batch k.  `dp_stats` is the engine's launch/byte accounting, reported
+    under -v."""
+    import concurrent.futures as cf
+    import ctypes as ct
+    import queue
+    import threading
+    from collections import deque
+
+    from .io import sam
+    from .native import host
+    from .utils.timing import StageTimers
+
+    with open(aa.qfile_name, "rb") as f:
+        aa.fastq = f.read(1) == b"@"
+    batch_size = getattr(aa, "batch_size", 0) or 65536
+    cursor_path = aa.ofile_name + ".cursor"
+    start_read = 0
+    mode = "w"
+    if getattr(aa, "resume", False) and os.path.exists(cursor_path):
+        with open(cursor_path) as f:
+            fields = f.read().split()
+        start_read = int(fields[0]) if fields else 0
+        cursor_bytes = int(fields[1]) if len(fields) > 1 else None
+        if cursor_bytes is not None and os.path.exists(aa.ofile_name):
+            with open(aa.ofile_name, "r+b") as tf:
+                tf.truncate(cursor_bytes)
+        mode = "a"
+        print("Resuming at read %d." % start_read, file=sys.stderr)
+    timers = StageTimers()
+    out = (sys.stdout.buffer if aa.ofile_name in ("stdout", "-")
+           else open(aa.ofile_name, mode + "b"))
+    emit_q = queue.Queue(maxsize=2)
+    emit_err = []
+    n = start_read
+
+    def _writer():
+        while True:
+            item = emit_q.get()
+            if item is None:
+                return
+            text, n_done = item
+            try:
+                with timers.stage("emit"):
+                    out.write(text)
+                    out.flush()
+                    if n_done is not None and out is not sys.stdout.buffer:
+                        with open(cursor_path, "w") as f:
+                            f.write("%d %d" % (n_done, out.tell()))
+            except Exception as e:          # pragma: no cover
+                emit_err.append(e)
+                while True:
+                    if emit_q.get() is None:
+                        return
+
+    writer = threading.Thread(target=_writer, daemon=True)
+    writer.start()
+    done = 0
+    qs_name = getattr(aa, "qs_file_name", None)
+    qs_file = open(qs_name, "w") if qs_name else None
+    if qs_file:
+        qs_file.write("query\tlen\tseedMatches\talignments\tusec\n")
+    seed_total = 0
+    rec_total = 0
+    dist_acc = [0, 0, (1 << 62), 0, 0, (1 << 62), 0, 0, 0, (1 << 62), -1] \
+        if aa.verbose else None
+
+    def _batches():
+        nonlocal done
+        for chunk, fastq in _iter_query_chunks(aa.qfile_name):
+            with timers.stage("parse"):
+                pr = host.parse_queries_native(
+                    chunk, fastq, aa.max_query_length, aa.word_len)
+            base = done
+            done += pr.n
+            for lo in range(0, pr.n, batch_size):
+                hi = min(lo + batch_size, pr.n)
+                if base + hi <= start_read:
+                    continue   # resume: whole batch already emitted
+                # Partial overlap (e.g. a different --batch-size than
+                # the interrupted run): start inside the batch.
+                yield pr, max(lo, start_read - base), hi, base + hi
+            if pr.stopped:
+                # Reference semantics: a zero-length record ends the
+                # run (Query.c:306).
+                return
+
+    def _align_one(pr, lo, hi):
+        dist = (ct.c_int64 * 11)() if dist_acc is not None else None
+        text, stats, sm, nr = align_fn(pr, lo, hi, dist=dist,
+                                       want_stats=qs_file is not None)
+        return text, stats, sm, nr, dist
+
+    def _consume(res, n_done):
+        nonlocal n, seed_total, rec_total
+        text, stats, sm, nr, dist = res
+        seed_total += sm
+        rec_total += nr
+        if dist is not None:
+            for k in (0, 1, 4, 7, 8):           # sums
+                dist_acc[k] += dist[k]
+            for k in (2, 5, 9):                 # mins
+                dist_acc[k] = min(dist_acc[k], dist[k])
+            for k in (3, 6, 10):                # maxes
+                dist_acc[k] = max(dist_acc[k], dist[k])
+        if stats is not None:
+            qs_file.write(stats.decode("latin-1"))
+        if emit_err:
+            raise emit_err[0]
+        n = n_done
+        emit_q.put((text, n))
+
+    prefetch = os.environ.get("YT_STAGED_PREFETCH", "1") != "0"
+    try:
+        if start_read == 0:
+            emit_q.put((sam.file_header(aa, genome).encode("latin-1"),
+                        None))
+        if prefetch:
+            # Depth-2 batch pipeline: the host phases of batch k+1 overlap
+            # batch k's device DP.  Batches are consumed in submission
+            # order, so output order and the resume cursor are unchanged.
+            ex = cf.ThreadPoolExecutor(max_workers=2)
+            try:
+                pending = deque()
+                for pr, lo, hi, n_done in _batches():
+                    pending.append(
+                        (ex.submit(_align_one, pr, lo, hi), n_done))
+                    if len(pending) > 1:
+                        fut, nd = pending.popleft()
+                        with timers.stage("align batch"):
+                            res = fut.result()
+                        _consume(res, nd)
+                while pending:
+                    fut, nd = pending.popleft()
+                    with timers.stage("align batch"):
+                        res = fut.result()
+                    _consume(res, nd)
+            finally:
+                ex.shutdown(wait=True)
+        else:
+            for pr, lo, hi, n_done in _batches():
+                with timers.stage("align batch"):
+                    res = _align_one(pr, lo, hi)
+                _consume(res, n_done)
+        emit_q.put(None)
+        writer.join()
+        if emit_err:
+            raise emit_err[0]
+        if aa.verbose:
+            _report(timers, n - start_read, seed_total, rec_total,
+                    dp_stats, dist_acc)
+    finally:
+        if writer.is_alive():
+            try:
+                emit_q.put_nowait(None)
+            except queue.Full:
+                pass
+            writer.join(timeout=30)
+        if qs_file:
+            qs_file.close()
+        if out is not sys.stdout.buffer:
+            out.close()
+            if os.path.exists(cursor_path) and n >= done:
+                os.unlink(cursor_path)
+
+
+def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc):
+    """The -v run summary (the STATS compile-switch analog,
+    Query.c:519-536), with the device DP's launch/byte budget."""
+    timers.print_report()
+    total_s = sum(timers.totals.values())
+    print("Processed %d reads: %d seed matches, %d alignments printed."
+          % (emitted, seed_total, rec_total), file=sys.stderr)
+    if total_s > 0 and emitted > 0:
+        print("Throughput: %.0f reads/s." % (emitted / total_s),
+              file=sys.stderr)
+    print("Device DP: %d launches, %d gap + %d ext problems, %.1f MB h2d, "
+          "%.1f MB d2h, %.2fs device+transfer."
+          % (dp_stats["dp_launches"], dp_stats["gap_problems"],
+             dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
+             dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"]),
+          file=sys.stderr)
+    if dist_acc[0] <= 0:
+        return
+    q, qlt, qlmin, qlmax = dist_acc[0:4]
+    ct_, cmin, cmax, nonal = dist_acc[4:8]
+    cl, clmin, clmax = dist_acc[8:11]
+    print("%d queries processed." % q, file=sys.stderr)
+    print("Query Lengths vary from %d to %d with average %d."
+          % (qlmin, qlmax, qlt // q), file=sys.stderr)
+    print("Total Counts vary from %d to %d with average %d."
+          % (cmin if cmin < (1 << 62) else 0, cmax, ct_ // (2 * q)),
+          file=sys.stderr)
+    print("There were %d queries with no Alignment." % nonal,
+          file=sys.stderr)
+    if cl <= 0:
+        print("No Alignments found.", file=sys.stderr)
+        return
+    print("Total Alignments Output = %d, average %4.2f per non-zero query."
+          % (cl, cl / (q - nonal)), file=sys.stderr)
+    print("Of those queries with an alignment, the min number of "
+          "alignments was %d." % clmin, file=sys.stderr)
+    print("The max number of alignments per query was %d." % clmax,
+          file=sys.stderr)
+
+
+def _do_query(aa, device):
     import torch
     if device == "cuda" and not torch.cuda.is_available():
         _fail("--device cuda: no CUDA device is available (torch %s); "
               "use --device cpu to run the DP on the host." %
               torch.__version__)
     if getattr(aa, "prewarm", False):
-        return 0
-    if not host.available():
-        _fail("--engine batch-cuda requires the native host library "
-              "(tools/build_native.sh).")
-    genome = host.load_genome(aa.gfile_name)
-    index = host.load_index(aa.xfile_name)
+        return
+    from .io import native_loader
+    from .models.staged import StagedAligner
+    genome = native_loader.load_genome(aa.gfile_name)
+    index = native_loader.load_index(aa.xfile_name)
     aa.word_len = index.word_len
     if index.max_hits < aa.max_hits:
         print("WARNING: Index file made with maxHits of %d, while %d "
@@ -160,7 +541,6 @@ def main(argv=None):
         aa.max_hits = index.max_hits
     if not getattr(aa, "batch_size", 0):
         aa.batch_size = 16384
-    from .models.staged import StagedAligner
     aligner = StagedAligner(aa, genome, index, device=device,
                             n_threads=aa.num_threads)
 
@@ -171,8 +551,19 @@ def main(argv=None):
             return text, stats, sm, nr
         text, sm, nr = aligner.align_chunk(pr, lo, hi, dist=dist)
         return text, None, sm, nr
-    _ref._run_native_engine(aa, genome, index, align_fn=_align,
-                            dp_stats=aligner.stats)
+    _run_native_engine(aa, genome, _align, aligner.stats)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if any(a in ("-h", "-?", "-xh") for a in argv):
+        print(USAGE, file=sys.stderr)
+        return 0
+    aa, device, op = parse_args(argv)
+    {"query": lambda: _do_query(aa, device),
+     "compress": lambda: _do_compress(aa),
+     "uncompress": lambda: _do_uncompress(aa),
+     "index": lambda: _do_index(aa)}[op]()
     return 0
 
 

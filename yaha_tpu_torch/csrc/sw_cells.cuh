@@ -45,6 +45,12 @@ YT_HD int32_t wmul(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
+// Byte idx of a reference row of length len; 255 (a mismatch with every
+// code) outside it.
+YT_HD int32_t ref_at(const uint8_t* row, int64_t len, int64_t idx) {
+    return (idx >= 0 && idx < len) ? (int32_t)row[idx] : 255;
+}
+
 struct Scoring {
     int32_t go, ge, rc, ms, max_gap, max_intron;
 };

@@ -5,7 +5,9 @@
 //
 //   yt_ext_forward       extension_forward_pallas (_ext_kernel,
 //                        _ext_kernel_win -> _ext_body): banded X-drop
-//                        forward extension, phase B
+//                        forward extension, phase B, for bands wider than
+//                        -BW 8 (ext_kernels.cu keeps narrower bands in
+//                        registers)
 //   yt_anch_banded       anchored_forward_pallas_banded
 //                        (_anch_banded_kernel): anchored gap fill in
 //                        band-relative columns, phase A
@@ -32,14 +34,13 @@
 // index arithmetic: out-of-range positions read 255, a guaranteed
 // mismatch (codes are 0-14).
 //
-// What bounds this first version on the card: the column recurrence is
+// What bounds these kernels on the card: the column recurrence is
 // sequential within a problem, so time per cell is one dependent chain
 // of ~20 integer ops plus a scratch load/store round trip; and the bt
 // stores are strided by the plane size between the threads of a warp,
-// so each byte store is its own memory transaction.  Later versions
-// change that: coalesced, problem-minor bt with a transposing trim; band
-// state in registers with the width as a template constant; int16x2 /
-// DPX cells; and a warp-level exit.
+// so each byte store is its own memory transaction.  ext_kernels.cu
+// shows the repair for the extension: band state in registers with the
+// width as a template constant, plane rows staged in shared memory.
 #include "sw_cells.cuh"
 
 namespace ytsw {
@@ -47,10 +48,6 @@ namespace ytsw {
 // Scratch slot k (0 = PV, 1 = PF, 2 = PI) of column j for problem p.
 YT_HD int64_t sidx(int k, int64_t j, int64_t cols, int64_t n, int64_t p) {
     return ((int64_t)k * cols + j) * n + p;
-}
-
-YT_HD int32_t ref_at(const uint8_t* row, int64_t len, int64_t idx) {
-    return (idx >= 0 && idx < len) ? (int32_t)row[idx] : 255;
 }
 
 // Banded X-drop extension of problem p (sw_pallas._ext_body).  W = 2*bw2+1

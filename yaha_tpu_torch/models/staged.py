@@ -1,8 +1,9 @@
 """Staged batch engine on PyTorch + CUDA: native host phases + DP on the card.
 
-Counterpart of yaha_tpu/models/staged.py with backend "cuda".  The native
-C++ staged pipeline runs every per-read phase (parse, seed, chain, clumps,
-score/split, OQC/FBS, SAM); the two batched DP phases run on the card:
+Counterpart of yaha_tpu/models/staged.py.  The native C++ staged pipeline
+(the port's copy, native/host.py) runs every per-read phase (parse, seed,
+chain, clumps, score/split, OQC/FBS, SAM); the two batched DP phases run
+on the card:
 
   phase A  anchored gap fills   -> sw_cuda.anchored_forward_banded, or
                                    sw_cuda.anchored_forward for bands
@@ -20,28 +21,41 @@ The default configuration is the JAX package's default one:
                    the native FMT_RLE apply.
 
 With device_assembly off, problems are fetched on the host
-(yt_batch_*_fetch) and upload as u8 planes; with rle off, the packed planes come back to the native walkers
-(FMT_PACKED / FMT_PACKED_BAND).  Both off is the A/B configuration
-(YT_STAGED_DEVRES=0 YT_STAGED_RLE=0).  Nothing switches configuration on an
-error.  Every configuration is byte-identical to the per-read native
-engine.  The batch loop (align_chunk), the stats and the bucketing rules
-are inherited.
+(yt_batch_*_fetch) and upload as u8 planes; with rle off, the packed
+planes come back to the native walkers (FMT_PACKED / FMT_PACKED_BAND).
+Both off is the A/B configuration (YT_STAGED_DEVRES=0 YT_STAGED_RLE=0).
+Nothing switches configuration on an error.  Every configuration is
+byte-identical to the per-read native engine.
+
+Small problems (<= 24 rows) run inline on the native small-DP fast paths
+during the host phases by default (YT_STAGED_INLINE=0 sends every problem
+to the DP kernels).
 """
 from __future__ import annotations
 
 import ctypes as ct
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
-from yaha_tpu.models import staged as _ref
-from yaha_tpu.models.staged import (FMT_PACKED, FMT_PACKED_BAND, FMT_RLE,
-                                    MAX_DEVICE_BATCH, _p32, _p64, _pow2,
-                                    _pow2_arr, _pu8)
+from ..native import host
 from ..ops import decode, sw_cuda
 from ..ops.gather_dp import COORD_BYTES, DeviceCorpus
+
+_u8p = ct.POINTER(ct.c_uint8)
+_i32p = ct.POINTER(ct.c_int32)
+_i64p = ct.POINTER(ct.c_int64)
+
+# Plane formats of the native yt_batch_*_apply entries that the port feeds
+# (0 and 1, the inline and eo/idc formats, are the JAX package's).
+FMT_PACKED, FMT_PACKED_BAND, FMT_RLE = 2, 3, 4
+
+# Largest device problem batch per launch: buckets beyond it split into
+# slices, so a bucket's backtrack planes stay bounded.
+MAX_DEVICE_BATCH = 16384
 
 # Bound on one launch's backtrack plane, DP scratch and item buffer:
 # buckets slice further when MAX_DEVICE_BATCH problems would exceed it (a
@@ -51,6 +65,29 @@ MAX_LAUNCH_BYTES = 1 << 32
 # Widest band the band-relative gap kernel takes (the Pallas dispatch
 # rule, yaha_tpu/models/staged.py _run_gap_bucket).
 MAX_WBAND = 512
+
+
+def _pow2(x, lo=32):
+    return max(lo, 1 << (int(x) - 1).bit_length())
+
+
+def _pow2_arr(x, lo=32):
+    """Per-element next power of two, floored at `lo` (bucket widths)."""
+    x = np.maximum(np.asarray(x, np.int64), 2)
+    e = np.ceil(np.log2(x.astype(np.float64))).astype(np.int64)
+    return np.maximum(np.int64(lo), np.int64(1) << e)
+
+
+def _p32(a):
+    return a.ctypes.data_as(_i32p)
+
+
+def _p64(a):
+    return a.ctypes.data_as(_i64p)
+
+
+def _pu8(a):
+    return a.ctypes.data_as(_u8p)
 
 
 def dp_params(aa):
@@ -79,11 +116,12 @@ def _env_on(name):
     return os.environ.get(name, "1") != "0"
 
 
-class StagedAligner(_ref.StagedAligner):
+class StagedAligner:
     """Batch aligner over ParsedReads with the DP phases on `device`.
 
     device: a CUDA device runs the hand-written kernels; "cpu" runs their
     plain PyTorch versions (the tests' configuration).
+    inline_small: None takes YT_STAGED_INLINE (default on).
     device_assembly, rle: see the module docstring; None takes
     YT_STAGED_DEVRES / YT_STAGED_RLE (default on).
     """
@@ -94,19 +132,44 @@ class StagedAligner(_ref.StagedAligner):
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StagedAligner: device %s requested but no "
                                "CUDA device is available" % self.device)
-        super().__init__(aa, genome, index, backend="cuda",
-                         n_threads=n_threads, inline_small=inline_small)
+        self.aa = aa
+        self.genome = genome
+        self.index = index
+        self.n_threads = max(1, int(n_threads))
+        if inline_small is None:
+            inline_small = _env_on("YT_STAGED_INLINE")
+        self.inline_small = inline_small
+        self.lib = host._load()
         self.gap_kw, self.ext_kw = dp_params(aa)
         self.rle = _env_on("YT_STAGED_RLE") if rle is None else bool(rle)
         if device_assembly is None:
             device_assembly = _env_on("YT_STAGED_DEVRES")
+        self.corpus = None
         if device_assembly:
             codes = np.ctypeslib.as_array(
-                ct.cast(genome.codes_buf, ct.POINTER(ct.c_uint8)),
+                ct.cast(genome.codes_buf, _u8p),
                 shape=(int(genome.codes_len),))
             self.corpus = DeviceCorpus(codes, self.device)
-        # Backtrack-plane bytes among d2h_bytes: 0 when rle is on.
-        self.stats["plane_d2h_bytes"] = 0
+        # Launch/byte accounting and the host-phase decomposition.
+        # gap_banded / gap_full / gap_fallback count the gap problems the
+        # band-relative kernel serves, and the full-width kernel serves at
+        # rg <= 512 and above it; plane_d2h_bytes is the backtrack-plane
+        # part of d2h_bytes (0 when rle is on).
+        self.stats = {"dp_launches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+                      "plane_d2h_bytes": 0,
+                      "gap_problems": 0, "ext_problems": 0,
+                      "gap_cells": 0, "ext_cells": 0, "device_s": 0.0,
+                      "gap_banded": 0, "gap_full": 0, "gap_fallback": 0,
+                      "begin_s": 0.0, "gap_host_s": 0.0, "phase2_s": 0.0,
+                      "ext_host_s": 0.0, "finish_s": 0.0}
+        # align_chunk may run concurrently from the CLI's prefetch
+        # pipeline; the accumulator guards the read-modify-write.
+        self._stats_lock = threading.Lock()
+
+    def _acc(self, **kv):
+        with self._stats_lock:
+            for k, v in kv.items():
+                self.stats[k] += v
 
     def _up(self, a):
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -297,9 +360,35 @@ class StagedAligner(_ref.StagedAligner):
         self._acc(device_s=time.time() - t0)
         return parts
 
-    # The phase loops follow the reference's, with every bucket assembled
-    # on the device when rows2 is given (no paging, so no host-fetch
-    # routing): the reference's versions import its jax assembly module.
+    # ---- phase loops: pow2 buckets of the native problem lists, every
+    # bucket assembled on the device when rows2 is given ----
+
+    def _meta2(self, ctx, n, fn):
+        """Fetch the device-assembly coordinates for a phase."""
+        q_row = np.empty(n, np.int32)
+        q_src = np.empty(n, np.int32)
+        q_copy = np.empty(n, np.int32)
+        r_src = np.empty(n, np.int64)
+        r_copy = np.empty(n, np.int32)
+        fn(ctx, _p32(q_row), _p32(q_src), _p32(q_copy), _p64(r_src),
+           _p32(r_copy))
+        return q_row, q_src, q_copy, r_src, r_copy
+
+    def _mk_gather(self, rows2, meta2, idx, qlen, rlen, rev, rpad,
+                   qg, rg):
+        """Device plane assembler for one bucket slice: `g(m, pack)` pads
+        the coordinate arrays to m problems and gathers on the device."""
+        q_row, q_src, q_copy, r_src, r_copy = meta2
+
+        def g(mpad, pack, _i=idx):
+            mp = mpad - len(_i)
+            pz = lambda a: np.pad(a[_i], (0, mp))
+            return self.corpus.gather(
+                rows2, pz(q_row), pz(q_src), pz(q_copy), pz(qlen),
+                pz(r_src), pz(r_copy), pz(rlen),
+                pz(rev) if rev is not None else None,
+                qg=qg, rg=rg, rpad=rpad, pack=pack)
+        return g
 
     def _gap_phase(self, ctx, rows2=None):
         lib = self.lib
@@ -390,3 +479,90 @@ class StagedAligner(_ref.StagedAligner):
                         _p32(idc) if idc is not None else None,
                         pstride, rstride, _p32(maxi), _p32(maxj),
                         _p32(score))
+
+    # ---- batch loop ----
+
+    def align_chunk(self, pr, lo: int, hi: int, dist=None,
+                    want_stats=False):
+        """Align reads [lo, hi) of a ParsedReads through the staged
+        pipeline; returns (sam_bytes, seed_matches, records).  `dist`, if
+        given, is a ctypes (c_int64 * 11) array filled with the per-batch
+        STATS distributions (as host.align_batch_native).  `want_stats`
+        appends a fourth return: the QUERYSTATS TSV rows (-qs), with the
+        per-read usec measured inside the native phases (batched device
+        time is not per-read attributable and is left out)."""
+        lib = self.lib
+        aa = self.aa
+        genome = self.genome
+        index = self.index
+        ip, fp = host._pack_params_ct(aa, self.n_threads)
+        t_begin = time.time()
+        rows2 = None
+        if self.corpus is not None:
+            # The chunk's read bytes upload before the native phase 1, so
+            # the copy overlaps the seed/chain/clump host work; the
+            # dispatch counts as device time.
+            t_up = time.time()
+            rows2 = self._chunk_rows(pr, lo, hi)
+            dt_up = time.time() - t_up
+            self._acc(device_s=dt_up)
+            t_begin += dt_up
+        ctx = lib.yt_batch_begin(
+            pr.seqs, host.off64(pr.seq_offs, lo), pr.ids,
+            host.off64(pr.id_offs, lo), pr.quals if aa.fastq else None,
+            hi - lo, ct.cast(genome.codes_buf, _u8p), genome.codes_len,
+            genome.max_roff, ct.cast(genome._starts_arr, _i64p),
+            ct.cast(genome._lens_arr, _i64p), genome.n_seqs,
+            ct.cast(genome._names_blob, _u8p),
+            ct.cast(genome._name_offs, _i64p),
+            index.so_ptr, index.roa_ptr, index.roa_len,
+            ct.cast(ip, _i64p), ct.cast(fp, ct.POINTER(ct.c_double)),
+            1 if self.inline_small else 0, None, None, None, None)
+        if not ctx:
+            raise RuntimeError("yt_batch_begin failed")
+        try:
+            t1 = time.time()
+            self._acc(begin_s=t1 - t_begin)
+            d0 = self.stats["device_s"]
+            self._gap_phase(ctx, rows2)
+            t2 = time.time()
+            d1 = self.stats["device_s"]
+            self._acc(gap_host_s=t2 - t1 - (d1 - d0))
+            lib.yt_batch_phase2(ctx)
+            t3 = time.time()
+            self._acc(phase2_s=t3 - t2)
+            self._ext_phase(ctx, rows2)
+            t4 = time.time()
+            d2 = self.stats["device_s"]
+            self._acc(ext_host_s=t4 - t3 - (d2 - d1))
+            out_text = ct.c_void_p()
+            out_len = ct.c_int64()
+            sm = ct.c_int64()
+            nr = ct.c_int64()
+            rc = lib.yt_batch_finish(
+                ctx, ct.byref(out_text), ct.byref(out_len), ct.byref(sm),
+                ct.byref(nr), ct.cast(dist, _i64p) if dist is not None
+                else None)
+            self._acc(finish_s=time.time() - t4)
+            assert rc == 0
+            try:
+                text = ct.string_at(out_text, out_len.value)
+            finally:
+                lib.yt_free(out_text)
+            if not want_stats:
+                return text, int(sm.value), int(nr.value)
+            n = hi - lo
+            ql, sd, al, us = (np.empty(n, np.int64) for _ in range(4))
+            lib.yt_batch_query_stats(ctx, _p64(ql), _p64(sd), _p64(al),
+                                     _p64(us))
+            id_offs = np.ctypeslib.as_array(pr.id_offs, shape=(pr.n + 1,))
+            blob = np.ctypeslib.as_array(
+                pr.ids, shape=(max(int(id_offs[pr.n]), 1),)).tobytes()
+            rows = []
+            for i in range(n):
+                a, b = int(id_offs[lo + i]), int(id_offs[lo + i + 1])
+                rows.append(b"%s\t%d\t%d\t%d\t%d\n" % (
+                    blob[a:b], ql[i], sd[i], al[i], us[i]))
+            return text, int(sm.value), int(nr.value), b"".join(rows)
+        finally:
+            lib.yt_batch_free(ctx)

@@ -5,7 +5,9 @@ per source, all started together, and links the objects into
 ``yaha_tpu_torch/_build/libyaha_sw.so``; the library is rebuilt when a
 source is newer.  The sources have a plain C interface, so no PyTorch
 header is compiled and a build takes seconds.  A missing nvcc or a failed
-build raises: there is no fallback.
+build raises: there is no fallback.  ptxas reports every kernel's
+registers, stack frame and spills (``-Xptxas -v``) into
+``_build/ptxas.log``; ptxas_report() reads them.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes as ct
 import functools
 import glob
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,6 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libyaha_sw.so")
+PTXAS_LOG = os.path.join(BUILD_DIR, "ptxas.log")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -66,13 +70,14 @@ def build():
             cus = [s for s in srcs if s.endswith(".cu")]
             objs = [os.path.join(tmp, os.path.basename(s) + ".o")
                     for s in cus]
-            cmds = [[nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+            cmds = [[nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-c", "-o",
+                                           obj, src]
                     for obj, src in zip(objs, cus)]
             procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)
+                                      stderr=subprocess.STDOUT, text=True)
                      for cmd in cmds]
             # Wait for every compile before reporting the first failure.
-            results = [(cmd, p.communicate()[1], p.returncode)
+            results = [(cmd, p.communicate()[0], p.returncode)
                        for cmd, p in zip(cmds, procs)]
             lib = os.path.join(tmp, "lib.so")
             link = [nvcc] + NVCC_FLAGS + ["-shared", "-o", lib] + objs
@@ -80,6 +85,8 @@ def build():
                 _check(cmd, rc, err)
             res = subprocess.run(link, capture_output=True, text=True)
             _check(link, res.returncode, res.stderr)
+            with open(PTXAS_LOG, "w") as f:
+                f.write("".join(out for _, out, _ in results))
             os.replace(lib, LIB_PATH)
         return time.perf_counter() - t0
 
@@ -90,6 +97,33 @@ def _check(cmd, rc, err):
             rc, " ".join(cmd), err[-4000:]))
 
 
+def ptxas_report(log=None):
+    """{kernel (mangled name): {"registers", "stack", "spill_stores",
+    "spill_loads"}} from ptxas's -v lines of the last build (or `log`)."""
+    if log is None:
+        with open(PTXAS_LOG) as f:
+            log = f.read()
+    out = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 @functools.cache
 def load():
     """The kernel library with its C signatures declared (built first)."""
@@ -98,6 +132,9 @@ def load():
     lib.yt_ext_forward.restype = ct.c_int
     lib.yt_ext_forward.argtypes = (
         [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 6)
+    lib.yt_ext_forward_reg.restype = ct.c_int
+    lib.yt_ext_forward_reg.argtypes = (
+        [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 4 + [_i32, _vp])
     lib.yt_anch_full.restype = ct.c_int
     lib.yt_anch_full.argtypes = (
         [_vp] * 6 + [_i64] * 3 + [_i32] * 6 + [_vp] * 4)

@@ -23,8 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from yaha_tpu.ops.dp_common import (BT_CD, BT_CF, OP_DELETE, OP_INSERT,
-                                    OP_UNKNOWN)
+from .dp_common import BT_CD, BT_CF, OP_DELETE, OP_INSERT, OP_UNKNOWN
 
 from . import sw_cuda
 

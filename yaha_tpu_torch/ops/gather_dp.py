@@ -28,8 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yaha_tpu.utils import codec
-
+from ..utils import codec
 from . import sw_cuda
 
 # Coordinate rows of gather_problems (csrc/gather_kernels.cu C_*).

@@ -16,8 +16,10 @@ halved upload saves, so those upload unpacked.
 
 Each takes its device from the input tensors.  On a CUDA tensor it checks
 dtype, shape and contiguity, allocates the outputs, and launches its
-hand-written kernel (csrc/sw_kernels.cu) on the current stream, raising
-if the launch fails.  On a CPU tensor it runs its plain PyTorch version
+hand-written kernel on the current stream, raising if the launch fails:
+csrc/ext_kernels.cu (band state in registers) for extensions up to -BW 8,
+csrc/sw_kernels.cu for wider extension bands and for both anchored
+entries.  On a CPU tensor it runs its plain PyTorch version
 (``*_reference``), which loops over rows and band columns, vectorised
 over problems, with the same tie rules and int32 wrap-around as the
 kernel.  Unlike the Pallas entries, N may be any size.
@@ -34,20 +36,26 @@ import threading
 import numpy as np
 import torch
 
-from yaha_tpu.ops.dp_common import (DP_WORST, OP_DELETE, OP_INSERT,
-                                    OP_MATCH, OP_REPLACE)
-
-BT_OP = 7
-BT_CD = 8
-BT_CF = 16
+from .dp_common import (BT_CD, BT_CF, DP_WORST, OP_DELETE, OP_INSERT,
+                        OP_MATCH, OP_REPLACE)
 
 I32 = torch.int32
 
 # Kernel launches per wrapper since the last reset_launches(), for the
 # kernels of this module and of gather_dp and decode: a run can show which
-# kernels its main path went through.
-_launches = {"extension_forward": 0, "anchored_forward_banded": 0,
-             "anchored_forward": 0, "gather_problems": 0, "rle_walk": 0}
+# kernels its main path went through.  The extension has two kernels,
+# counted apart: "extension_forward" (band state in registers,
+# csrc/ext_kernels.cu) and "extension_forward_scratch" (band state in
+# global scratch, csrc/sw_kernels.cu ext_problem).
+_launches = {"extension_forward": 0, "extension_forward_scratch": 0,
+             "anchored_forward_banded": 0, "anchored_forward": 0,
+             "gather_problems": 0, "rle_walk": 0}
+
+# Band widths W = 4*band_width + 1 the register kernel is instantiated for
+# (-BW 1 to 8), and the block sizes it takes.
+REG_WIDTHS = (5, 9, 13, 17, 21, 25, 29, 33)
+REG_BLOCKS = (32, 64, 128)
+EXT_BLOCK = 64
 _launch_lock = threading.Lock()
 
 
@@ -345,14 +353,25 @@ def _p(t):
     return t.data_ptr()
 
 
+def ext_variant(band_width):
+    """The extension kernel for a band width, chosen by shape before the
+    launch: "reg" (band state in registers) for W in REG_WIDTHS, "scratch"
+    (band state in global scratch) for wider bands."""
+    return "reg" if 4 * band_width + 1 in REG_WIDTHS else "scratch"
+
+
 def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
-                      max_gap, max_intron, x_cutoff):
+                      max_gap, max_intron, x_cutoff, variant=None,
+                      block=EXT_BLOCK):
     """Banded X-drop forward extension; the contract of
     sw_pallas.extension_forward_pallas for any N.
 
     q: [N, QL] uint8, r: [N, RL] uint8 (RL >= QL + 4*band_width),
     qlens/rlens: [N].  Returns score/maxi/maxj [N] int32 and the packed
-    backtrack plane bt [N, QL+1, 4*band_width+1] int8.
+    backtrack plane bt [N, QL+1, 4*band_width+1] int8.  On the card,
+    `variant` (default ext_variant(band_width)) picks the kernel and
+    `block` the register kernel's threads per block; both kernels return
+    the same arrays.
     """
     kw = dict(band_width=band_width, go=go, ge=ge, rc=rc, ms=ms,
               max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff)
@@ -363,16 +382,27 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     n, ql = q.shape
     bw2 = 2 * band_width
     w = 2 * bw2 + 1
+    variant = variant or ext_variant(band_width)
+    if variant not in ("reg", "scratch") or (variant == "reg" and (
+            w not in REG_WIDTHS or block not in REG_BLOCKS)):
+        raise ValueError("%s: no %s kernel for W=%d, block=%d"
+                         % (name, variant, w, block))
     dev = q.device
     bt = torch.zeros((n, ql + 1, w), dtype=torch.int8, device=dev)
     score, maxi, maxj = torch.empty((3, n), dtype=I32, device=dev)
     if n:
-        scratch = torch.empty((3, w + 2, n), dtype=I32, device=dev)
         from . import _build
-        _launched(name, _build.load().yt_ext_forward(
-            _p(q), _p(r), _p(qlens), _p(rlens), n, ql, r.shape[1], bw2,
-            go, ge, rc, ms, max_gap, max_intron, x_cutoff, _p(bt),
-            _p(score), _p(maxi), _p(maxj), _p(scratch), _stream(dev)))
+        lib = _build.load()
+        args = (_p(q), _p(r), _p(qlens), _p(rlens), n, ql, r.shape[1], bw2,
+                go, ge, rc, ms, max_gap, max_intron, x_cutoff, _p(bt),
+                _p(score), _p(maxi), _p(maxj))
+        if variant == "reg":
+            _launched(name, lib.yt_ext_forward_reg(*args, block,
+                                                   _stream(dev)))
+        else:
+            scratch = torch.empty((3, w + 2, n), dtype=I32, device=dev)
+            _launched(name + "_scratch", lib.yt_ext_forward(
+                *args, _p(scratch), _stream(dev)))
     return {"score": score, "maxi": maxi, "maxj": maxj, "bt": bt}
 
 

@@ -12,13 +12,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      yaha_tpu_torch/csrc (one nvcc per source, in parallel) into a shared
      library; ptxas's registers, stack frame and spills for every kernel,
      and no spill and no stack frame in any instance of the register
-     extension kernel;
+     extension kernel, the windowed walk kernel or the gather kernel;
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size, the scratch kernel at W = 21
      and 37), the two anchored kernels (backtrack planes included), the
-     problem gather and the backtrack walk (items and counts, a too-small
-     cap included): all outputs equal;
+     problem gather (from every source alignment, forward and reversed,
+     rows of 75 and 1,044 bytes, clamped sources) and the backtrack walk
+     (teams of 8, 16 and 32 lanes; counts, and items up to the counts, the
+     only slots the kernel writes; a too-small cap and gap runs of 100-300
+     bases included): all outputs equal;
   3. the main path: the staged engine of --engine batch-cuda in its
      default configuration (problems assembled on the card, planes walked
      on the card, run-length items back) over one default batch of 16,384
@@ -40,7 +43,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (bytes over the memory rate or int32 operations over the int32 rate,
      from this run's inputs); the two extension kernels, and the register
      kernel's block sizes, in turns at the largest 1 kb bucket and at the
-     10 kb run's widest bucket.
+     10 kb run's widest bucket, and so the walk's team sizes;
+     the 4-bit packed extension entry (unpack + kernel) at the largest
+     1 kb bucket.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
 A/B configuration: three warm runs of each, interleaved, with parity
@@ -61,6 +66,7 @@ import io
 import json
 import os
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -88,6 +94,8 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
     "rle_walk": ("yaha_tpu_torch/csrc/decode_kernels.cu",
                  "yaha_tpu/ops/decode_jax.py:208"),
 }
+# Kernels of which no instance may spill or use a stack frame.
+NO_SPILL = re.compile(r"ext_reg_kernel|rle_win_kernel|gather_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide-band path (W = 37: scratch kernel)
 WIDE_READS = 2048
@@ -204,9 +212,8 @@ def sv_reads(nib, n_max):
 
 def phase_build():
     """The card, the kernels' build, and ptxas's report: every instance of
-    the register extension kernel must keep its band in registers (no
-    spill, no stack frame)."""
-    import re
+    the register extension kernel must keep its band in registers, and the
+    windowed walk and the gather their state (no spill, no stack frame)."""
     from yaha_tpu_torch.ops import _build, sw_cuda
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).strip().splitlines()[0]
@@ -231,11 +238,12 @@ def phase_build():
     if sorted(widths) != list(sw_cuda.REG_WIDTHS):
         raise AssertionError("phase1: register kernel instances %s, want %s"
                              % (sorted(widths), sw_cuda.REG_WIDTHS))
-    bad = {w: i for w, i in widths.items() if i.get("stack", 1) or
-           i.get("spill_stores", 1) or i.get("spill_loads", 1)}
+    bad = {k: i for k, i in report.items() if NO_SPILL.search(k) and (
+        i.get("stack", 1) or i.get("spill_stores", 1) or
+        i.get("spill_loads", 1))}
     if bad:
-        raise AssertionError("phase1: register kernel spills or uses a "
-                             "stack frame: %s" % bad)
+        raise AssertionError("phase1: a kernel spills or uses a stack "
+                             "frame: %s" % bad)
 
 
 def _rand_problems(rng, n, ql, rl, similar):
@@ -246,6 +254,14 @@ def _rand_problems(rng, n, ql, rl, similar):
         keep = rng.random((n, k)) < 0.9
         r[:, :k] = np.where(keep, q[:, :k], r[:, :k])
     return q, r
+
+
+def walk_items(torch, rle, n_ops, cap):
+    """The item slots a walk kernel writes, [0, min(n_ops, cap)) (cap for
+    n_ops = -1), and 0 past them as in the plain version."""
+    stored = torch.where(n_ops < 0, cap, n_ops)
+    keep = torch.arange(cap, device=rle.device)[None, :] < stored[:, None]
+    return torch.where(keep, rle, 0)
 
 
 def compare(torch, errs, phase, name, tag, kernel_out, plain_out):
@@ -282,6 +298,47 @@ def _gather_inputs(rng, m, qg, rg, rev_share, n_reads, lpad, genome_len):
                      rng.random(m) < rev_share]).astype(np.int64)
 
 
+def _gather_edges(qg, rg, lpad, genome_len, nrows):
+    """Coordinates [8, 70]: whole copies (the gather kernel's 16-byte path)
+    from every source alignment 0-15, forward and reversed, lengths that
+    are not multiples of 16; sources clamped at both ends of the genome and
+    of a strand row, and rows outside the strand rows."""
+    cols = []
+    for rev in (0, 1):
+        for a in range(16):
+            ql, rl = qg - a % 5, rg - a % 7
+            cols.append((a, a, ql, ql, 16 * (a + 3) + a, rl, rl, rev))
+            cols.append((a + 5, 16 - a, ql // 2 + a, ql, genome_len // 2 + a,
+                         rl // 3 + a, rl, rev))
+        cols += [(nrows - 1, lpad - 4, 10, 10, genome_len - 3, 20, 20, rev),
+                 (1, -3, 12, 12, genome_len - rg // 2, rg, rg, rev),
+                 (nrows, lpad - 17, qg, qg, -5, rg, rg, rev)]
+    return np.array(cols, np.int64).T
+
+
+def _long_runs(rng, n):
+    """n gap fills, each one deletion or insertion of 100-300 bases between
+    8 matching bases on each side: (q, qlen, r, rlen, lbw, rbw)."""
+    ql = rl = 316
+    q = np.zeros((n, ql), np.uint8)
+    r = np.zeros((n, rl), np.uint8)
+    lens = np.zeros((4, n), np.int64)
+    for k in range(n):
+        size = int(rng.integers(100, 301))
+        ref = rng.integers(0, 4, size + 16).astype(np.uint8)
+        if k % 2:
+            qk, rk, lb, rb = np.concatenate([ref[:8], ref[size + 8:]]), ref, \
+                2, size + 2
+        else:
+            qk = np.concatenate([ref[:8], rng.integers(0, 4, size).astype(
+                np.uint8), ref[8:16]])
+            rk, lb, rb = ref[:16], size + 2, 2
+        q[k, :len(qk)] = qk
+        r[k, :len(rk)] = rk
+        lens[:, k] = (len(qk), len(rk), lb, rb)
+    return q, lens[0], r, lens[1], lens[2], lens[3]
+
+
 def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
     from yaha_tpu_torch.utils import codec
@@ -301,17 +358,22 @@ def phase_kernels(torch, sw, errs, dev):
                 for a in arrs]
 
     def walk_check(tag, bt, y0, x0, active, full):
-        """The walk kernel on a kernel-made plane, at the engine's cap and
-        at a cap of 3 (overflowing walks report n_ops = -1)."""
+        """The walk kernel at every team size on a kernel-made plane, at
+        the engine's cap and at a cap of 3 (overflowing walks report
+        n_ops = -1)."""
         h, w = bt.shape[1], bt.shape[2]
         for cap in (1 << (2 * h + w + 1).bit_length(), 3):
-            got = decode.rle_walk(bt, y0, x0, active, cap=cap, full=full)
-            sync(torch, dev)
             want = decode.rle_walk_reference(bt, y0, x0, active, cap=cap,
                                              full=full)
-            compare(torch, errs, "phase2", "rle_walk", "%s cap=%d" % (
-                tag, cap), {"rle": got[0], "n_ops": got[1]},
-                {"rle": want[0], "n_ops": want[1]})
+            for team in decode.WALK_TEAMS:
+                got = decode.rle_walk(bt, y0, x0, active, cap=cap,
+                                      full=full, team=team)
+                sync(torch, dev)
+                compare(torch, errs, "phase2", "rle_walk",
+                        "%s team=%d cap=%d" % (tag, team, cap),
+                        {"rle": walk_items(torch, *got, cap),
+                         "n_ops": got[1]},
+                        {"rle": want[0], "n_ops": want[1]})
 
     # Extension, both kernels: N = 4096 at QL = 256 for BW 5 (the register
     # kernel at each block size, and the scratch kernel) and BW 3; a few
@@ -388,6 +450,21 @@ def phase_kernels(torch, sw, errs, dev):
         walk_check("full N=%d QL=%d RL=%d" % (n, ql, rl), out["bt"],
                    args[1], args[3], torch.ones_like(args[1], dtype=bool),
                    True)
+    # Gap runs of 100-300 bases, longer than the walk's windows, in both
+    # layouts (the native walker reads each as one run).
+    long_kw = dict(kw0, max_gap=320, max_intron=320)
+    args = up(*_long_runs(rng, 256))
+    ones = torch.ones_like(args[1], dtype=bool)
+    for full in (False, True):
+        if full:
+            bt = sw.anchored_forward(*args, **long_kw)["bt"]
+            x0 = args[3]
+        else:
+            bt = sw.anchored_forward_banded(*args, wband=512,
+                                            **long_kw)["bt_b"]
+            x0 = args[3] - args[1] + args[4]
+        sync(torch, dev)
+        walk_check("long runs full=%d" % full, bt, args[1], x0, ones, full)
     # Problem gather at the main path's extension and gap bucket shapes:
     # 16,384 problems over a chunk of 16,384 reads of up to 1 kb.
     glen, n_reads, lpad = 1 << 22, BATCH, 1024
@@ -402,9 +479,11 @@ def phase_kernels(torch, sw, errs, dev):
     rows2 = corpus.read_rows(chars[np.arange(lpad)[None, :] < lens[:, None]],
                              np.cumsum(lens) - lens, lens, lpad)
     for m, qg, rg, rpad, rev in ((BATCH, 1024, 1044, 255, 0.5),
-                                 (BATCH, 64, 64, 0, 0.0)):
-        coords = up(_gather_inputs(rng, m, qg, rg, rev, n_reads, lpad,
-                                   glen))[0]
+                                 (BATCH, 64, 64, 0, 0.0),
+                                 (4096, 40, 75, 255, 0.5)):
+        coords = up(np.concatenate([
+            _gather_inputs(rng, m, qg, rg, rev, n_reads, lpad, glen),
+            _gather_edges(qg, rg, lpad, glen, 2 * n_reads)], axis=1))[0]
         got = gather_dp.gather_problems(rows2, corpus.codes, coords, qg=qg,
                                         rg=rg, rpad=rpad)
         sync(torch, dev)
@@ -708,6 +787,45 @@ def _ext_turns(torch, sw, dev, kw, sets, tag):
     return times, reg
 
 
+# Walk team sizes timed in turns (lanes per problem).
+WALK_TURNS = [32, 8, 16, 16, 8, 32]
+
+
+def _walk_turns(torch, decode, dev, sets, wkw, tag):
+    """The walk at each team size timed in turns on the same inputs;
+    returns {team: [ms, ms]} and each team size's output on sets[1], whose
+    counts and items must agree."""
+    times = {}
+    for team in WALK_TURNS:
+        fn = (lambda t: lambda *a: decode.rle_walk(*a, team=t, **wkw))(team)
+        times.setdefault(team, []).append(_time_kernel(torch, dev, fn,
+                                                       sets))
+    log("phase5 walk %s: %s" % (tag, " ".join(
+        "team%d=%s ms" % (k, ",".join("%.6f" % t for t in v))
+        for k, v in times.items())))
+    outs = {team: decode.rle_walk(*sets[1], team=team, **wkw)
+            for team in decode.WALK_TEAMS}
+    sync(torch, dev)
+    first = outs[decode.WALK_TEAM]
+    for team, got in outs.items():
+        if not (torch.equal(got[1], first[1]) and torch.equal(
+                walk_items(torch, *got, wkw["cap"]),
+                walk_items(torch, *first, wkw["cap"]))):
+            raise AssertionError("phase5 walk %s: teams of %d and %d lanes "
+                                 "differ" % (tag, team, decode.WALK_TEAM))
+    return times, outs
+
+
+def _walk_work(torch, rle, n_ops, cap, inputs):
+    """(bytes, steps) a walk needs: one plane byte per visited cell (a
+    cell per unit of run length, plus the cell that ends each walk), 4
+    bytes per item it stores, its per-problem inputs and n_ops."""
+    items = walk_items(torch, rle, n_ops, cap)
+    steps = int((items & ((1 << 28) - 1)).sum()) + int((n_ops > 0).sum())
+    stored = int(torch.where(n_ops < 0, cap, n_ops).sum())
+    return steps + 4 * stored + _nbytes(*inputs) + _nbytes(n_ops), steps
+
+
 def phase_times(torch, sw, st, st10, kernels, errs, dev):
     """Kernel (wrapper: output allocation + launch) and plain-version times
     at the main path's largest buckets, on the inputs the main path
@@ -786,6 +904,29 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
     ext_out = got
     del want
 
+    # The 4-bit packed entry (sw_cuda.extension_forward_p4: unpack on the
+    # card, then the register kernel) on the same bucket, packed on the
+    # card; its output must equal the unpacked entry's.
+    def pack(t):
+        return (t[:, ::2] | (t[:, 1::2] << 4)).contiguous()
+    psets = [[pack(a[0]), a[1], pack(a[2]), a[3]] for a in sets]
+    p4_ms = _time_kernel(torch, dev, lambda *a: sw.extension_forward_p4(
+        *a, **ext_kw), psets)
+    p4 = sw.extension_forward_p4(*psets[1], **ext_kw)
+    sync(torch, dev)
+    for key in ext_out:
+        if not torch.equal(p4[key], ext_out[key]):
+            raise AssertionError("phase5 extension_forward_p4 differs from "
+                                 "extension_forward in %s" % key)
+    p4_bound, p4_by = _bound(_nbytes(*psets[1]) + _nbytes(*p4.values()),
+                             cells * CELL_OPS)
+    log("phase5 extension_forward_p4 bucket=%s N=%d: %.6f ms (unpack + "
+        "register kernel; unpacked entry %.6f ms), bound %.6f ms (%s), "
+        "%.1f %% of the bound; output = unpacked entry's" % (
+            list(ext_key[1:]), n, p4_ms, float(np.mean(times["reg64"])),
+            p4_bound, p4_by, 100 * p4_bound / p4_ms))
+    del p4, psets
+
     # The extension at the 10 kb run's widest bucket: both kernels in turns
     # (the plain version would take minutes there; both kernels are held to
     # it above and in phase 2).
@@ -801,7 +942,26 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
         "reg64 %.1f %%, scratch %.1f %% of the bound" % (
             b10, by10, cells10, 100 * b10 / np.mean(times10["reg64"]),
             100 * b10 / np.mean(times10["scratch"])))
+    # The walk on those planes, every team size in turns (the plain version
+    # would take minutes there; every team size is held to it above).
+    cap10 = 1 << (2 * key10[1] + got10["bt"].shape[2] + 1).bit_length()
+    walk_in = [got10["bt"], got10["maxi"], got10["maxj"], got10["score"] > 0]
     del got10
+    sets = [[t.index_select(0, p).contiguous() for t in walk_in]
+            for p in perms(walk_in[0].shape[0])]
+    del walk_in
+    wkw = dict(cap=cap10, full=False)
+    times10, outs10 = _walk_turns(torch, decode, dev, sets, wkw,
+                                  "10kb bucket=%s N=%d" % (
+                                      list(key10[1:]), sets[0][0].shape[0]))
+    wb10, steps10 = _walk_work(torch, *outs10[decode.WALK_TEAM], cap10,
+                               sets[1][1:])
+    b10, by10 = _bound(wb10, steps10 * WALK_STEP_OPS)
+    log("phase5 walk 10kb: bound %.6f ms (%s: %d bytes, %d steps), %s" % (
+        b10, by10, wb10, steps10, " ".join(
+            "team%d %.2f %%" % (k, 100 * b10 / np.mean(v))
+            for k, v in times10.items())))
+    del sets, outs10
 
     for name in ("anchored_forward_banded", "anchored_forward"):
         key, arrs = _largest(st, name)
@@ -826,7 +986,9 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
                cells * CELL_OPS)
 
     # The walk on the largest extension bucket's planes, from its best
-    # cells, at the engine's cap.
+    # cells, at the engine's cap: every team size in turns, then the plain
+    # version once.  The bound counts the walk's own work
+    # (_walk_work), not the [N, cap] item buffer.
     cap = 1 << (2 * ext_key[1] + w + 1).bit_length()
     walk_in = [ext_out["bt"], ext_out["maxi"], ext_out["maxj"],
                ext_out["score"] > 0]
@@ -835,20 +997,23 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
             for p in perms(n)]
     del ext_out, walk_in
     wkw = dict(cap=cap, full=False)
-    ms = _time_kernel(torch, dev, lambda *a: decode.rle_walk(*a, **wkw),
-                      sets)
+    times, outs = _walk_turns(torch, decode, dev, sets, wkw,
+                              "1kb bucket=%s N=%d" % (list(ext_key[1:]), n))
     plain_ms, want = _time_once(
         torch, dev, lambda *a: decode.rle_walk_reference(*a, **wkw), sets[1])
-    got = decode.rle_walk(*sets[1], **wkw)
-    # Steps: one plane cell per unit of run length, plus the cell that ends
-    # each walk.
-    lens = (got[0] & ((1 << decode.RLE_OP_SHIFT) - 1)).sum()
-    steps = int(lens) + int((got[1] > 0).sum())
-    finish("rle_walk", ext_key, n, ms, plain_ms,
-           {"rle": got[0], "n_ops": got[1]},
-           {"rle": want[0], "n_ops": want[1]},
-           steps + _nbytes(*sets[1][1:]) + _nbytes(*got),
-           steps * WALK_STEP_OPS)
+    wbytes, steps = _walk_work(torch, *want, cap, sets[1][1:])
+    got = outs[decode.WALK_TEAM]
+    finish("rle_walk", ext_key, n, float(np.mean(times[decode.WALK_TEAM])),
+           plain_ms, {"rle": walk_items(torch, *got, cap), "n_ops": got[1]},
+           {"rle": want[0], "n_ops": want[1]}, wbytes, steps * WALK_STEP_OPS)
+    bound, _ = _bound(wbytes, steps * WALK_STEP_OPS)
+    log("phase5 walk 1kb: %d steps, %d items; bound %.6f ms; the [N, cap] "
+        "item buffer alone would be %.6f ms at the memory rate; %s" % (
+            steps, int(torch.where(want[1] < 0, cap, want[1]).sum()), bound,
+            _nbytes(want[0]) / HBM_BYTES_S * 1e3, " ".join(
+                "team%d %.2f %%" % (k, 100 * bound / np.mean(v))
+                for k, v in times.items())))
+    del sets, outs, want
 
     # The gather of the largest extension bucket, from the chunk's strand
     # rows and the bucket's own coordinates.

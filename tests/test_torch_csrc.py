@@ -1,4 +1,4 @@
-"""The CUDA extension kernels' per-problem bodies, built as C++ on the CPU.
+"""The CUDA kernels' per-problem bodies, built as C++ on the CPU.
 
 The bodies in yaha_tpu_torch/csrc are __host__ __device__: without
 __CUDACC__ they compile with g++.  A small C loop over problems (C_LOOP
@@ -15,7 +15,24 @@ tolerance zero (integer arrays, the whole backtrack plane included):
 
 on the EXT_SWEEP inputs of tests/torch_dp_cases.py, the int32-wrap inputs
 (KW_WRAP) and references shorter than qlen + 2*bw2 (the rows whose band
-ends before the last column).  The test skips only where g++ is missing.
+ends before the last column);
+
+  * the backtrack walk of csrc/decode_kernels.cu, held to
+    decode.rle_walk_reference: rle_walk_window<T> for teams of 8, 16 and
+    32 lanes (their run scans a loop over the lanes) with windows of 16,
+    64 and 512 bytes (the host copy in place of cp.async), on
+    extension, band-relative and full-width planes, 260- and 600-base gap
+    runs, walks from every cell of a plane, inactive, OP_UNKNOWN and
+    outside starts, and a cap of 3 (n_ops = -1); n_ops whole, the items
+    up to min(n_ops, cap), and no slot written past them;
+  * the problem gather of csrc/gather_kernels.cu (gather_problem: every
+    16-byte chunk of both rows through gather_chunk / gather_store), held
+    to gather_dp.gather_reference from every source alignment, forward
+    and reversed, with output rows at every alignment, short copies, both
+    pads and clamped sources.
+
+The plain versions are held to the JAX package in test_torch_decode.py
+and test_torch_gather.py.  The test skips only where g++ is missing.
 """
 import ctypes as ct
 import os
@@ -26,9 +43,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_dp_cases import EXT_SWEEP, EXT_SWEEP_IDS, KW, KW_WRAP, \
-    extension_inputs
-from yaha_tpu_torch.ops import sw_cuda
+from torch_dp_cases import (ANCH_SWEEP, EXT_SWEEP, EXT_SWEEP_IDS, KW,
+                            KW_WRAP, anchored_sweep_inputs,
+                            extension_inputs, gather_aligned_coords,
+                            gather_case, gather_clamp_coords, gather_coords,
+                            long_run_inputs, read_rows)
+from yaha_tpu_torch.ops import decode, gather_dp, sw_cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "yaha_tpu_torch", "csrc")
@@ -36,6 +56,58 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 C_LOOP = r"""
 #include "sw_kernels.cu"
 #include "ext_kernels.cu"
+#include "decode_kernels.cu"
+#include "gather_kernels.cu"
+
+// rle_walk_window by teams of `team` lanes with windows of `window` bytes.
+template <bool kFull>
+static int walk(int team, int64_t window, const int8_t* bt, int64_t n,
+                int64_t h, int64_t w, const int32_t* y0, const int32_t* x0,
+                const uint8_t* active, int64_t cap, int32_t* rle,
+                int32_t* n_ops) {
+    alignas(16) static uint8_t smem[2 * 16384];
+    const ytsw::HostCopy cp = {0, 1};
+    for (int64_t p = 0; p < n; p++) {
+        switch (team) {
+#define YT_TEAM(t)                                                       \
+        case t:                                                          \
+            ytsw::rle_walk_window<kFull, t>(p, bt, h, w, y0, x0, active, \
+                                            cap, rle, n_ops, smem,       \
+                                            window, cp);                 \
+            break;
+        YT_TEAM(8)
+        YT_TEAM(16)
+        YT_TEAM(32)
+#undef YT_TEAM
+        default:
+            return 1;
+        }
+    }
+    return 0;
+}
+
+extern "C" int run_walk(int team, int64_t window, int full,
+                        const int8_t* bt, int64_t n, int64_t h, int64_t w,
+                        const int32_t* y0, const int32_t* x0,
+                        const uint8_t* active, int64_t cap, int32_t* rle,
+                        int32_t* n_ops) {
+    if (window < 16 || window > 16384 || (window & (window - 1))) return 1;
+    return full ? walk<true>(team, window, bt, n, h, w, y0, x0, active, cap,
+                             rle, n_ops)
+                : walk<false>(team, window, bt, n, h, w, y0, x0, active, cap,
+                              rle, n_ops);
+}
+
+extern "C" void run_gather(const uint8_t* rows2, int64_t nrows, int64_t lpad,
+                           const uint8_t* codes, int64_t ncodes,
+                           const int64_t* coords, int64_t m, int64_t qg,
+                           int64_t rg, int32_t rpad, uint8_t* q, uint8_t* r,
+                           int backwards) {
+    for (int64_t i = 0; i < m; i++)
+        ytsw::gather_problem(backwards ? m - 1 - i : i, m, rows2, nrows,
+                             lpad, codes, ncodes, coords, qg, rg, rpad, q,
+                             r);
+}
 
 // variant 0: ext_problem (scratch [3][W+2][N]); 1: ext_problem_reg<W>;
 // 2: ext_problem_reg<W> with every row predicated.
@@ -106,6 +178,15 @@ def lib(tmp_path_factory):
     out.run_ext.argtypes = ([ct.c_int] + [ct.c_void_p] * 4 +
                             [ct.c_int64] * 3 + [ct.c_int32] +
                             [ct.c_void_p] * 6)
+    out.run_walk.restype = ct.c_int
+    out.run_walk.argtypes = ([ct.c_int, ct.c_int64, ct.c_int, ct.c_void_p] +
+                             [ct.c_int64] * 3 + [ct.c_void_p] * 3 +
+                             [ct.c_int64] + [ct.c_void_p] * 2)
+    out.run_gather.restype = None
+    out.run_gather.argtypes = ([ct.c_void_p, ct.c_int64, ct.c_int64,
+                                ct.c_void_p, ct.c_int64, ct.c_void_p] +
+                               [ct.c_int64] * 3 + [ct.c_int32] +
+                               [ct.c_void_p] * 2 + [ct.c_int])
     return out
 
 
@@ -183,3 +264,182 @@ def test_ptxas_report_reads_registers_and_spills():
     assert _build.ptxas_report(log) == {name: {
         "stack": 8, "spill_stores": 4, "spill_loads": 12,
         "registers": 168}}
+
+
+# ---- the backtrack walk ----
+
+# (team, window bytes).
+WALK_ROUTES = [(t, s) for t in (8, 16, 32) for s in (16, 64, 512)]
+UNWRITTEN = 0x5A5A5A5A
+
+
+def _walk_planes(case):
+    """(bt, y0, x0, active, full) of one plane set, as torch CPU tensors."""
+    if case == "extension":
+        args = [torch.from_numpy(a) for a in extension_inputs(3, 200, 40, 3)]
+        out = sw_cuda.extension_forward(*args, band_width=3, x_cutoff=25,
+                                        **KW)
+        return out["bt"], out["maxi"], out["maxj"], out["score"] > 0, False
+    if case in ("D260", "I260", "D600", "D260_full", "I600_full"):
+        length = int(case[1:4])
+        args = [torch.from_numpy(a)
+                for a in long_run_inputs(case[0], length)]
+        kw = dict(KW, max_gap=length + 40, max_intron=length + 40)
+        qlen, rlen, lbw = (int(args[k][0]) for k in (1, 3, 4))
+        y0 = torch.tensor([qlen], dtype=torch.int32)
+        if case.endswith("_full"):
+            bt = sw_cuda.anchored_forward(*args, **kw)["bt"]
+            return bt, y0, torch.tensor([rlen]), torch.ones(1, dtype=bool), \
+                True
+        wband = 1 << (lbw + int(args[5][0])).bit_length()
+        bt = sw_cuda.anchored_forward_banded(*args, wband=wband,
+                                             **kw)["bt_b"]
+        return bt, y0, torch.tensor([rlen - qlen + lbw]), \
+            torch.ones(1, dtype=bool), False
+    args = [torch.from_numpy(a) for a in anchored_sweep_inputs(
+        *ANCH_SWEEP[1][:2], n=150, ql=30, rl=36)]
+    q, qlens, r, rlens, lbw, rbw = args
+    ones = torch.ones(len(qlens), dtype=torch.bool)
+    if case == "banded":
+        wband = int((lbw + rbw).max()) + 1
+        bt = sw_cuda.anchored_forward_banded(*args, wband=wband,
+                                             **KW)["bt_b"]
+        return bt, qlens, rlens - qlens + lbw, ones, False
+    bt = sw_cuda.anchored_forward(*args, **KW)["bt"]
+    return bt, qlens, rlens, ones, True
+
+
+def _every_cell(bt, full, k=3):
+    """The first k planes, each walked from every cell and from four cells
+    outside it (rows -1 and h, columns -1 and w), half of them inactive."""
+    n, h, w = bt.shape
+    ys, xs = np.meshgrid(np.arange(-1, h + 1), np.arange(-1, w + 1),
+                         indexing="ij")
+    ys, xs = ys.ravel(), xs.ravel()
+    planes = bt[:k].repeat_interleave(len(ys), 0).contiguous()
+    y0 = torch.from_numpy(np.tile(ys, k).astype(np.int32))
+    x0 = torch.from_numpy(np.tile(xs, k).astype(np.int32))
+    active = torch.from_numpy(np.arange(len(y0)) % 7 != 3)
+    return planes, y0, x0, active, full
+
+
+def _walk_body(lib, team, window, bt, y0, x0, active, cap, full):
+    n, h, w = bt.shape
+    rle = np.full((n, cap), UNWRITTEN, np.int32)
+    n_ops = np.full(n, UNWRITTEN, np.int32)
+    arrs = [np.ascontiguousarray(a.numpy()) for a in (
+        bt, y0.to(torch.int32), x0.to(torch.int32), active.to(torch.uint8))]
+    rc = lib.run_walk(team, window, int(full), arrs[0].ctypes.data, n, h, w,
+                      *(a.ctypes.data for a in arrs[1:]), cap,
+                      rle.ctypes.data, n_ops.ctypes.data)
+    assert rc == 0
+    return rle, n_ops
+
+
+def _walk_check(lib, planes, cap, routes=WALK_ROUTES):
+    bt, y0, x0, active, full = planes
+    want_rle, want_n = (a.numpy() for a in decode.rle_walk_reference(
+        bt, y0, x0, active, cap=cap, full=full))
+    stored = np.where(want_n < 0, cap, want_n)
+    written = np.arange(cap)[None, :] < stored[:, None]
+    for team, window in routes:
+        rle, n_ops = _walk_body(lib, team, window, bt, y0, x0, active, cap,
+                                full)
+        tag = "team %d window %d" % (team, window)
+        np.testing.assert_array_equal(n_ops, want_n, err_msg=tag)
+        np.testing.assert_array_equal(np.where(written, rle, 0), want_rle,
+                                      err_msg=tag)
+        assert (rle[~written] == UNWRITTEN).all(), tag
+    return want_n
+
+
+WALK_CASES = ["extension", "banded", "full", "D260", "I260", "D600",
+              "D260_full", "I600_full"]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_bodies_match_plain(lib, case):
+    """Every team and window size on one plane set at a cap that no walk
+    reaches; the long-run sets are one walk with a run longer than every
+    window (a delete run along a row, an insert run up its chain)."""
+    n_ops = _walk_check(lib, _walk_planes(case), cap=256)
+    assert (n_ops > 0).any() and (n_ops >= 0).all()
+
+
+@pytest.mark.parametrize("case", ["extension", "banded", "full"])
+def test_walk_bodies_overflow_cap(lib, case):
+    """At cap 3 walks keep their first 3 items and report n_ops = -1."""
+    n_ops = _walk_check(lib, _walk_planes(case), cap=3)
+    assert (n_ops == -1).any() and (n_ops >= 0).any()
+
+
+@pytest.mark.parametrize("case", ["extension", "banded", "full"])
+def test_walk_bodies_from_every_cell(lib, case):
+    """Walks that start in every row and column of a plane, so in the first
+    and the last row of every window, and outside the plane; inactive and
+    OP_UNKNOWN starts emit nothing."""
+    planes = _every_cell(*(_walk_planes(case)[k] for k in (0, 4)))
+    n_ops = _walk_check(lib, planes, cap=64)
+    assert (n_ops[~planes[3].numpy()] == 0).all()
+    assert (n_ops == 0).sum() > (~planes[3]).sum()   # OP_UNKNOWN starts
+
+
+# ---- the problem gather ----
+
+def _gather_body(lib, rows2, codes, coords, qg, rg, rpad, out_off,
+                 backwards):
+    """gather_problem over every problem (last to first when `backwards`,
+    so a store past the end of a row lands on a row already written), its
+    q and r rows written `out_off` bytes past a 64-byte boundary; the
+    bytes around the rows must stay 0."""
+    m = coords.shape[1]
+    bufs = [np.zeros(m * g + out_off + 64, np.uint8) for g in (qg, rg)]
+    views = []
+    for b, g in zip(bufs, (qg, rg)):
+        start = (-b.ctypes.data) % 64 + out_off
+        views.append(b[start:start + m * g])
+    lib.run_gather(rows2.ctypes.data, rows2.shape[0], rows2.shape[1],
+                   codes.ctypes.data, len(codes), coords.ctypes.data, m, qg,
+                   rg, rpad, views[0].ctypes.data, views[1].ctypes.data,
+                   int(backwards))
+    for b, v in zip(bufs, views):
+        assert b.sum() == v.sum(dtype=np.int64)   # nothing written outside
+    return [v.reshape(m, g) for v, g in zip(views, (qg, rg))]
+
+
+@pytest.mark.parametrize("qg,rg", [(64, 96), (40, 75), (48, 1044 % 80)],
+                         ids=["64x96", "40x75", "48x4"])
+@pytest.mark.parametrize("rpad", [0, 255])
+@pytest.mark.parametrize("src_off", [0, 5])
+def test_gather_body_matches_plain(lib, qg, rg, rpad, src_off):
+    """Random coordinates (gather_coords), every source alignment forward
+    and reversed (gather_aligned_coords) and clamped sources at both ends
+    of the genome and the rows (gather_clamp_coords); the genome and the
+    strand rows start `src_off` bytes past an aligned address and the
+    output rows at offsets 0, 3 and 8, problems in both orders."""
+    g, fwd, lens = gather_case(41)
+    rows2 = read_rows(gather_dp.DeviceCorpus(g, "cpu"), fwd, lens).numpy()
+    nrows, lpad = rows2.shape
+    coords = np.concatenate([
+        np.stack(gather_coords(7, 200, qg, rg, 0.5)).astype(np.int64),
+        np.stack(gather_aligned_coords(qg, rg, lpad, len(g), nrows)),
+        np.stack(gather_clamp_coords(qg, rg, len(g), nrows))], axis=1)
+    want = gather_dp.gather_reference(
+        torch.from_numpy(rows2), torch.from_numpy(g),
+        torch.from_numpy(coords), qg=qg, rg=rg, rpad=rpad)
+
+    def shifted(a):
+        buf = np.zeros(a.size + 64, np.uint8)
+        start = (-buf.ctypes.data) % 16 + src_off
+        out = buf[start:start + a.size].reshape(a.shape)
+        out[...] = a
+        return out
+    coords = np.ascontiguousarray(coords)
+    for out_off, backwards in ((0, False), (3, False), (3, True),
+                               (8, True)):
+        got = _gather_body(lib, shifted(rows2), shifted(g), coords, qg, rg,
+                           rpad, out_off, backwards)
+        for w_, g_, name in zip(want, got, "qr"):
+            np.testing.assert_array_equal(
+                g_, w_.numpy(), err_msg="%s out_off %d backwards %s" % (
+                    name, out_off, backwards))

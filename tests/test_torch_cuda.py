@@ -6,7 +6,8 @@ to their plain PyTorch versions on the card, on the inputs with
 which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
 hold the plain versions to the JAX package: every output equal, whole
 backtrack planes, assembled problem planes and walk items included
-(integer arrays, tolerance zero).  The engine is held to the native C++
+(integer arrays, tolerance zero).  The walk kernel, at each team size, is held
+to its plain version on the items up to n_ops, the only slots it writes.  The engine is held to the native C++
 engine, SAM bytes equal, in its default configuration (device assembly +
 device walk) and in the A/B one.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
@@ -26,8 +27,9 @@ import torch
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
                             EXT_SWEEP_IDS, KW, KW_WRAP, anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
-                            gather_case, gather_coords, indel_reads,
-                            read_rows)
+                            gather_aligned_coords, gather_case,
+                            gather_clamp_coords, gather_coords, indel_reads,
+                            long_run_inputs, read_rows)
 from yaha_tpu_torch.ops import decode, gather_dp, sw_cuda
 
 pytestmark = pytest.mark.cuda
@@ -138,44 +140,59 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     assert sw_cuda.launches()["extension_forward"] == 1
 
 
-@pytest.mark.parametrize("rpad,rev_share", [(0, 0.0), (255, 0.5)],
-                         ids=["gap", "ext_rev"])
-def test_gather_kernel_matches_plain(dev, rpad, rev_share):
+@pytest.mark.parametrize("qg,rg,rpad,rev_share", [
+    (64, 96, 0, 0.0), (64, 96, 255, 0.5), (40, 75, 255, 0.5)],
+    ids=["gap", "ext_rev", "40x75"])
+def test_gather_kernel_matches_plain(dev, qg, rg, rpad, rev_share):
+    """Random coordinates, whole copies from every source alignment 0-15
+    forward and reversed, and clamped sources at both ends of the genome
+    and of the strand rows; rows of 75 bytes start at every alignment."""
     g, fwd, lens = gather_case(41)
     corpus = gather_dp.DeviceCorpus(g, dev)
     rows2 = read_rows(corpus, fwd, lens)
-    c = gather_coords(7, 3000, 64, 96, rev_share)
-    coords = torch.from_numpy(np.stack(c).astype(np.int64)).to(dev)
+    nrows, lpad = rows2.shape
+    c = np.concatenate([
+        np.stack(gather_coords(7, 3000, qg, rg, rev_share)).astype(np.int64),
+        np.stack(gather_aligned_coords(qg, rg, lpad, len(g), nrows)),
+        np.stack(gather_clamp_coords(qg, rg, len(g), nrows))], axis=1)
+    coords = torch.from_numpy(c).to(dev)
     sw_cuda.reset_launches()
-    got = gather_dp.gather_problems(rows2, corpus.codes, coords, qg=64,
-                                    rg=96, rpad=rpad)
+    got = gather_dp.gather_problems(rows2, corpus.codes, coords, qg=qg,
+                                    rg=rg, rpad=rpad)
     assert sw_cuda.launches()["gather_problems"] == 1
-    want = gather_dp.gather_reference(rows2, corpus.codes, coords, qg=64,
-                                      rg=96, rpad=rpad)
+    want = gather_dp.gather_reference(rows2, corpus.codes, coords, qg=qg,
+                                      rg=rg, rpad=rpad)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
-def _walks_equal(dev, bt, y0, x0, active, cap, full):
+def _walks_equal(bt, y0, x0, active, cap, full, team):
+    """The kernel's n_ops and its items up to min(n_ops, cap) equal the
+    plain version's; returns n_ops."""
     sw_cuda.reset_launches()
-    got = decode.rle_walk(bt, y0, x0, active, cap=cap, full=full)
-    assert sw_cuda.launches()["rle_walk"] == 1
+    got = decode.rle_walk(bt, y0, x0, active, cap=cap, full=full, team=team)
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "rle_walk": 1}
     want = decode.rle_walk_reference(bt, y0, x0, active, cap=cap, full=full)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
-    assert torch.equal(got[0], want[0])
+    stored = torch.where(want[1] < 0, cap, want[1])
+    written = torch.arange(cap, device=bt.device)[None, :] < stored[:, None]
+    assert torch.equal(torch.where(written, got[0], 0), want[0])
     return got[1]
 
 
+@pytest.mark.parametrize("team", decode.WALK_TEAMS)
 @pytest.mark.parametrize("cap", [256, 3], ids=["cap", "overflow"])
-def test_walk_kernel_matches_plain(dev, cap):
+def test_walk_kernel_matches_plain(dev, cap, team):
     """Both layouts, on extension, band-relative and full-width planes
-    made by the kernels; at cap 3 many walks overflow (n_ops = -1)."""
+    made by the kernels, and on 260-base gap runs; at cap 3 many walks
+    overflow (n_ops = -1)."""
     args = _up(dev, *extension_inputs(11, 1000, 40, 2))
     ext = sw_cuda.extension_forward(*args, band_width=2, x_cutoff=25, **KW)
-    n_ops = _walks_equal(dev, ext["bt"], ext["maxi"], ext["maxj"],
-                         ext["score"] > 0, cap, False)
+    n_ops = _walks_equal(ext["bt"], ext["maxi"], ext["maxj"],
+                         ext["score"] > 0, cap, False, team)
     assert (n_ops == 0).any() and (n_ops > 0).any()
     args = _up(dev, *anchored_sweep_inputs(2, 5))
     q, qlens, r, rlens, lbw, rbw = args
@@ -183,11 +200,66 @@ def test_walk_kernel_matches_plain(dev, cap):
     band = sw_cuda.anchored_forward_banded(*args, wband=wband, **KW)
     full = sw_cuda.anchored_forward(*args, **KW)
     ones = torch.ones_like(qlens, dtype=torch.bool)
-    _walks_equal(dev, band["bt_b"], qlens, rlens - qlens + lbw, ones, cap,
-                 False)
-    n_ops = _walks_equal(dev, full["bt"], qlens, rlens, ones, cap, True)
+    _walks_equal(band["bt_b"], qlens, rlens - qlens + lbw, ones, cap,
+                 False, team)
+    n_ops = _walks_equal(full["bt"], qlens, rlens, ones, cap, True, team)
     if cap == 3:
         assert (n_ops == -1).any()
+    kw = dict(KW, max_gap=300, max_intron=300)
+    for event in ("D", "I"):
+        args = _up(dev, *long_run_inputs(event))
+        qlen, rlen, lb = args[1], args[3], args[4]
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        bt = sw_cuda.anchored_forward_banded(*args, wband=512, **kw)["bt_b"]
+        _walks_equal(bt, qlen, rlen - qlen + lb, one, cap, False, team)
+        bt = sw_cuda.anchored_forward(*args, **kw)["bt"]
+        _walks_equal(bt, qlen, rlen, one, cap, True, team)
+
+
+@pytest.mark.parametrize("w,full", [(21, False), (512, False), (1100, True),
+                                    (20000, True)])
+def test_walk_kernel_any_width(dev, w, full):
+    """Random planes of every byte value: windows of 1,024 bytes up to the
+    largest, 16,384, which holds less than one row of 20,000 bytes; walks
+    from inside and outside the plane, a tenth of them inactive."""
+    rng = np.random.default_rng(w)
+    n, h = 256, 40
+    bt = torch.from_numpy(rng.integers(0, 32, (n, h, w)).astype(
+        np.int8)).to(dev)
+    y0, x0 = _up(dev, rng.integers(-1, h + 1, n).astype(np.int32),
+                 rng.integers(-1, w + 1, n).astype(np.int32))
+    active = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    sw_cuda.reset_launches()
+    got = decode.rle_walk(bt, y0, x0, active, cap=64, full=full)
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "rle_walk": 1}
+    want = decode.rle_walk_reference(bt, y0, x0, active, cap=64, full=full)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    written = torch.arange(64, device=dev)[None, :] < torch.where(
+        want[1] < 0, 64, want[1])[:, None]
+    assert torch.equal(torch.where(written, got[0], 0), want[0])
+
+
+def test_walk_refused_launch_raises(dev):
+    """A team or window the C entry does not take is refused, the wrapper
+    raises and counts nothing; so does a team the wrapper does not take."""
+    from yaha_tpu_torch.ops import _build
+    bt = torch.zeros((4, 3, 5), dtype=torch.int8, device=dev)
+    yx = torch.zeros(4, dtype=torch.int32, device=dev)
+    act = torch.ones(4, dtype=torch.uint8, device=dev)
+    rle = torch.empty((4, 8), dtype=torch.int32, device=dev)
+    n_ops = torch.empty(4, dtype=torch.int32, device=dev)
+    sw_cuda.reset_launches()
+    for team, window in ((12, 512), (0, 512), (32, 300), (32, 32768)):
+        with pytest.raises(RuntimeError):
+            sw_cuda._launched("rle_walk", _build.load().yt_rle_walk(
+                bt.data_ptr(), 4, 3, 5, yx.data_ptr(), yx.data_ptr(),
+                act.data_ptr(), 8, 0, rle.data_ptr(), n_ops.data_ptr(),
+                team, window, sw_cuda._stream(dev)))
+    with pytest.raises(ValueError):
+        decode.rle_walk(bt, yx, yx, act, cap=8, full=False, team=12)
+    assert not any(sw_cuda.launches().values())
 
 
 @pytest.fixture(scope="module")

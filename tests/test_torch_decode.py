@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_decode_jax import _items_from_rle, _mutate
+from torch_dp_cases import long_run_inputs
 from yaha_tpu.ops import decode_jax, dp_common
 from yaha_tpu_torch.ops import decode, sw_cuda
 
@@ -181,15 +182,7 @@ def test_too_small_cap_flags_minus_one():
 
 def _long_run_problem(event):
     """One gap fill with a 260-base deletion ("D") or insertion ("I")."""
-    rng = np.random.default_rng(300)
-    r = rng.integers(0, 4, 276).astype(np.uint8)
-    if event == "D":
-        q, r, lbw, rbw = np.concatenate([r[:8], r[268:]]), r, 2, 262
-    else:
-        ins = rng.integers(0, 4, 260).astype(np.uint8)
-        q, r, lbw, rbw = np.concatenate([r[:8], ins, r[8:16]]), r[:16], 262, 2
-    return _t(q[None], np.array([len(q)]), r[None], np.array([len(r)]),
-              np.array([lbw]), np.array([rbw]))
+    return _t(*long_run_inputs(event))
 
 
 @pytest.mark.parametrize("full,event", [(True, "D"), (True, "I"),
@@ -240,15 +233,29 @@ def test_inactive_and_unknown_starts_emit_nothing():
     assert not rle[1:].any()
 
 
-def test_gather_rle_flat_matches_jax():
+@pytest.mark.parametrize("garbage", [False, True],
+                         ids=["zero_tail", "garbage_tail"])
+def test_gather_rle_flat_matches_jax(garbage):
+    """The flat items equal decode_jax's on zero-tailed items; the port's
+    gather writes 0 past n_ops, so slots the card leaves unwritten there
+    (non-zero garbage here) never reach the flat items."""
     rng = np.random.default_rng(8)
     cap = 16
+    n_ops = rng.integers(0, cap + 1, 40).astype(np.int32)
     rle = rng.integers(1, 1 << 30, (40, cap)).astype(np.int32)
+    rle[np.arange(cap)[None, :] >= n_ops[:, None]] = 0
     src = rng.permutation(40)[:25]
     t = np.sort(rng.choice([0, 8, 16], 25))
+    t = np.maximum(t, np.minimum(n_ops[src], 8))
+    order = np.argsort(t, kind="stable")
+    src, t = src[order], t[order]
     total = int(t.sum())
     starts = np.concatenate([[0], np.cumsum(t)[:-1]])
-    got = decode.gather_rle_flat(*_t(rle, src, t), total)
+    card = rle.copy()
+    if garbage:
+        tail = np.arange(cap)[None, :] >= n_ops[:, None]
+        card[tail] = rng.integers(1, 1 << 30, int(tail.sum()))
+    got = decode.gather_rle_flat(*_t(card, n_ops, src, t), total)
     # decode_jax pads to total_pad with one sentinel problem.
     total_pad = 1024
     src_aug = np.append(src, 0).astype(np.int32)

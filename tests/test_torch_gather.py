@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from torch_dp_cases import (KW, anchored_inputs, extension_inputs,
-                            gather_case, gather_coords, read_rows)
+                            gather_aligned_coords, gather_case, gather_coords,
+                            read_rows)
 from yaha_tpu.ops import gather_dp as jax_gather
 from yaha_tpu.ops import sw_pallas
 from yaha_tpu_torch.ops import gather_dp, sw_cuda
@@ -53,6 +54,23 @@ def test_gather_matches_jax(corpora, rpad, pack, rev_share):
         # Past the problem: q is 0, r takes the pad value.
         jr = np.arange(rg)[None, :]
         assert (got[1].numpy()[jr >= c[6][:, None]] == rpad).all()
+
+
+@pytest.mark.parametrize("qg,rg,rpad", [(64, 96, 0), (40, 75, 255)],
+                         ids=["64x96", "40x75_pad"])
+def test_gather_aligned_and_clamped_match_jax(corpora, qg, rg, rpad):
+    """Whole copies from every source alignment 0-15, forward and
+    reversed, lengths and widths that are not multiples of 16, and sources
+    clamped at the end of a row and of the genome and before the start of
+    a row (gather_aligned_coords): the gather kernel's 16-byte path and
+    its edges."""
+    jc, tc, jrows, trows = corpora
+    c = gather_aligned_coords(qg, rg, trows.shape[1],
+                              int(tc.codes.shape[0]), trows.shape[0])
+    want = jc.gather(jrows, *c, qg=qg, rg=rg, rpad=rpad, pack=False)
+    got = tc.gather(trows, *c, qg=qg, rg=rg, rpad=rpad, pack=False)
+    for w_, g_ in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w_), g_.numpy())
 
 
 def test_gather_wrapper_refuses_other_devices():

@@ -171,6 +171,61 @@ def gather_coords(seed, m, qg, rg, rev_share):
         (rlen, np.int32), (rev, np.uint8))]
 
 
+def gather_aligned_coords(qg, rg, lpad, genome, nrows):
+    """Whole copies (the gather kernel's 16-byte path) from every source
+    alignment 0-15 in the strand rows and in the genome, forward and
+    reversed, with lengths that are not multiples of 16; then the clamps:
+    sources running past the end of a row and of the genome, a negative
+    row source and the last strand row past its end.  Low-end genome and
+    row clamps (negative r_src, q_row) are in gather_clamp_coords."""
+    rows = []
+    for rev in (0, 1):
+        for a in range(16):
+            qlen = qg - (a % 5)
+            rlen = rg - (a % 7)
+            rows.append((a % nrows, a, qlen, qlen, 16 * (a + 3) + a, rlen,
+                         rlen, rev))
+            # Copies shorter than the problem, from an offset source.
+            rows.append(((a + 5) % nrows, 16 - a, qlen // 2 + a, qlen,
+                         genome // 2 + a, rlen // 3 + a, rlen, rev))
+    for rev in (0, 1):
+        rows.append((nrows - 1, lpad - 4, min(qg, 10), min(qg, 10),
+                     genome - 3, min(rg, 20), min(rg, 20), rev))
+        rows.append((1, -3, min(qg, 12), min(qg, 12), genome - rg // 2, rg,
+                     rg, rev))
+        rows.append((nrows, lpad - 17, qg, qg, 0, rg, rg, rev))
+    return [np.array(c, np.int64) for c in zip(*rows)]
+
+
+def gather_clamp_coords(qg, rg, genome, nrows):
+    """Sources before the start of the genome and rows outside the strand
+    rows at both ends, forward and reversed."""
+    rows = []
+    for rev in (0, 1):
+        rows.append((-1, 0, qg, qg, -5, rg, rg, rev))
+        rows.append((nrows + 3, -20, qg, qg, -rg // 2, rg // 2, rg, rev))
+        rows.append((nrows - 1, 2, qg - 1, qg, genome - 1, rg, rg, rev))
+    return [np.array(c, np.int64) for c in zip(*rows)]
+
+
+def long_run_inputs(event, length=260, seed=300):
+    """One gap fill (q, qlen, r, rlen, lbw, rbw) with a `length`-base
+    deletion ("D") or insertion ("I") between 8 matching bases on each
+    side; at max_gap = max_intron >= length it is one run."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, 4, length + 16).astype(np.uint8)
+    if event == "D":
+        q = np.concatenate([r[:8], r[length + 8:]])
+        lbw, rbw = 2, length + 2
+    else:
+        q = np.concatenate([r[:8], rng.integers(0, 4, length).astype(
+            np.uint8), r[8:16]])
+        r = r[:16]
+        lbw, rbw = length + 2, 2
+    return (q[None], np.array([len(q)]), r[None], np.array([len(r)]),
+            np.array([lbw]), np.array([rbw]))
+
+
 def gather_case(seed):
     """(genome codes, forward chunk rows, lengths) for the assembly tests."""
     rng = np.random.default_rng(seed)

@@ -45,6 +45,22 @@ YT_HD int32_t wmul(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
+// __byte_perm(x, y, s): byte n of the result is byte (s >> 4n) & 7 of the
+// eight bytes y:x (x the low four).  The host build has no __byte_perm, so
+// it gets this version of it.
+YT_HD uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+    return __byte_perm(x, y, s);
+#else
+    const uint64_t v = ((uint64_t)y << 32) | x;
+    uint32_t out = 0;
+    for (int n = 0; n < 4; n++)
+        out |= (uint32_t)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFF)
+               << (8 * n);
+    return out;
+#endif
+}
+
 // Byte idx of a reference row of length len; 255 (a mismatch with every
 // code) outside it.
 YT_HD int32_t ref_at(const uint8_t* row, int64_t len, int64_t idx) {

@@ -236,7 +236,8 @@ class StagedAligner:
         flat = np.zeros(0, np.int32)
         if total:
             src, t = self._up(np.stack([order, t_sorted]).astype(np.int32))
-            flat = self._down(decode.gather_rle_flat(rle, src, t, total))
+            flat = self._down(decode.gather_rle_flat(rle, n_ops, src, t,
+                                                        total))
         parts = []
         bounds = np.searchsorted(t_sorted, np.unique(t_sorted))
         starts = np.concatenate([[0], np.cumsum(t_sorted)])

@@ -146,5 +146,6 @@ def load():
         [_vp, _i64, _i64, _vp, _i64, _vp] + [_i64] * 3 + [_i32] + [_vp] * 3)
     lib.yt_rle_walk.restype = ct.c_int
     lib.yt_rle_walk.argtypes = (
-        [_vp] + [_i64] * 3 + [_vp] * 3 + [_i64, _i32] + [_vp] * 3)
+        [_vp] + [_i64] * 3 + [_vp] * 3 + [_i64, _i32] + [_vp] * 2 +
+        [_i32, _i64, _vp])
     return lib

@@ -9,15 +9,18 @@ Counterpart of yaha_tpu/ops/decode_jax.py:
                     bucket's items leave the device in one transfer
 
 The two decodes call rle_walk: on a CUDA tensor the kernel of
-csrc/decode_kernels.cu (one thread per problem), on a CPU tensor its plain
-version, rle_walk_reference (vectorised over problems, one plane cell per
-step until every walk has ended).  Both walk as the native packed-plane
+csrc/decode_kernels.cu (a team of lanes per problem, walking from windows
+of the plane in shared memory), on a CPU tensor its plain version,
+rle_walk_reference (vectorised over problems, one plane cell per step
+until every walk has ended).  Both walk as the native packed-plane
 walkers do (ops/dp_common.py traceback_*_packed) and emit int32 items
-op << 28 | len in walk order, unreversed, with n_ops per problem: 0 for an
-inactive walk or one that starts on OP_UNKNOWN, -1 for a walk that needs
-more than `cap` items (its first cap items are kept).  Item slots past
-n_ops are 0.  The JAX decode's jump plane, 255-cell jump cap, time-major
-buffer and slice plan are TPU workarounds and have no counterpart.
+op << 28 | len in walk order, unreversed, with n_ops per problem: 0 for an inactive walk or one that starts on OP_UNKNOWN, -1 for a
+walk that needs more than `cap` items (its first cap items are kept).  On
+the card, item slots past min(n_ops, cap) are left as they were allocated
+(uninitialised); the plain version leaves them 0, and gather_rle_flat
+writes 0 there, so the flat items equal decode_jax's.  The JAX decode's
+jump plane, 255-cell jump cap, time-major buffer and slice plan are TPU
+workarounds and have no counterpart.
 """
 from __future__ import annotations
 
@@ -31,6 +34,25 @@ RLE_OP_SHIFT = 28
 RLE_LEN_MASK = (1 << RLE_OP_SHIFT) - 1
 
 I32 = torch.int32
+
+# The kernel's team sizes (lanes per problem) and the default, and its
+# window of plane bytes in shared memory (two per team, four teams a
+# block): about WINDOW_ROWS plane rows, within [WINDOW_MIN, WINDOW_MAX]
+# bytes.  Only rows wider than 512 bytes (full-width gap planes of the
+# gap_fallback class, which none of chip_smoke.py's read sets produced)
+# get fewer rows a window, and rows wider than WINDOW_MAX less than one.
+WALK_TEAMS = (8, 16, 32)
+WALK_TEAM = 32
+WINDOW_MIN, WINDOW_MAX = 512, 16384
+WINDOW_ROWS = 32
+
+
+def window_bytes(w, full):
+    """The window for planes of width w: the power of two at or above
+    WINDOW_ROWS steps up the plane (a full layout's match step moves one
+    row up and one column left), clamped to [WINDOW_MIN, WINDOW_MAX]."""
+    want = WINDOW_ROWS * (w + 1 if full else w)
+    return min(max(1 << (want - 1).bit_length(), WINDOW_MIN), WINDOW_MAX)
 
 
 def rle_walk_reference(bt, y0, x0, active, *, cap, full):
@@ -85,10 +107,13 @@ def rle_walk_reference(bt, y0, x0, active, *, cap, full):
     return rle, n_ops
 
 
-def rle_walk(bt, y0, x0, active, *, cap, full):
+def rle_walk(bt, y0, x0, active, *, cap, full, team=WALK_TEAM):
     """Walk each problem's packed plane bt[p] ([N, H, W] int8) from
     (y0[p], x0[p]) where active[p]; returns (rle [N, cap] int32,
-    n_ops [N] int32).  full selects the full layout, else the band one."""
+    n_ops [N] int32).  full selects the full layout, else the band one.
+    On the card `team` is the kernel's lanes per problem; every team size
+    returns the same n_ops and the same items in slots
+    [0, min(n_ops, cap))."""
     if bt.device.type == "cpu":
         return rle_walk_reference(bt, y0, x0, active, cap=cap, full=full)
     name = "rle_walk"
@@ -99,20 +124,24 @@ def rle_walk(bt, y0, x0, active, *, cap, full):
         raise ValueError("%s: bt must be a contiguous 3-D int8 tensor"
                          % name)
     n, h, w = bt.shape
+    if team not in WALK_TEAMS:
+        raise ValueError("%s: teams of %s lanes are not supported (%s)"
+                         % (name, team, WALK_TEAMS))
     y0, x0 = (t.to(device=bt.device, dtype=I32).contiguous()
               for t in (y0, x0))
     active = active.to(device=bt.device, dtype=torch.uint8).contiguous()
     for t in (y0, x0, active):
         if t.dim() != 1 or t.shape[0] != n:
             raise ValueError("%s: per-problem arrays must be [N]" % name)
-    rle = torch.zeros((n, cap), dtype=I32, device=bt.device)
+    rle = torch.empty((n, cap), dtype=I32, device=bt.device)
     n_ops = torch.empty(n, dtype=I32, device=bt.device)
     if n:
         from . import _build
         sw_cuda._launched(name, _build.load().yt_rle_walk(
             bt.data_ptr(), n, h, w, y0.data_ptr(), x0.data_ptr(),
             active.data_ptr(), cap, 1 if full else 0, rle.data_ptr(),
-            n_ops.data_ptr(), sw_cuda._stream(bt.device)))
+            n_ops.data_ptr(), team, window_bytes(w, full),
+            sw_cuda._stream(bt.device)))
     return rle, n_ops
 
 
@@ -128,14 +157,17 @@ def rle_decode_full(bt, y0, x0, active, *, cap):
     return rle_walk(bt, y0, x0, active, cap=cap, full=True)
 
 
-def gather_rle_flat(rle, src, t, total):
+def gather_rle_flat(rle, n_ops, src, t, total):
     """flat[starts[k] + i] = rle[src[k], i] for i < t[k], with starts the
-    exclusive cumulative sum of t and total = sum(t): one ragged gather of
-    the slots of problems src (decode_jax.gather_rle_flat, unpadded)."""
+    exclusive cumulative sum of t and total = sum(t), and 0 for the slots
+    at or past n_ops[src[k]] (n_ops >= 0): one ragged gather of the slots
+    of problems src (decode_jax.gather_rle_flat on zero-tailed items,
+    unpadded)."""
     src = src.to(device=rle.device, dtype=torch.int64)
     t = t.to(device=rle.device, dtype=torch.int64)
     starts = torch.cumsum(t, 0) - t
     rows = torch.repeat_interleave(src, t, output_size=total)
     cols = (torch.arange(total, device=rle.device) -
             torch.repeat_interleave(starts, t, output_size=total))
-    return rle[rows, cols]
+    keep = cols < n_ops.to(device=rle.device, dtype=torch.int64)[rows]
+    return torch.where(keep, rle[rows, cols], 0)

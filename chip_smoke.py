@@ -12,13 +12,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      yaha_tpu_torch/csrc (one nvcc per source, in parallel) into a shared
      library; ptxas's registers, stack frame and spills for every kernel,
      and no spill and no stack frame in any instance of the register
-     extension kernel, the windowed walk kernel or the gather kernel;
+     extension kernel, the two anchored register kernels, the windowed
+     walk kernel or the gather kernel;
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size, the scratch kernel at W = 21
-     and 37), the two anchored kernels (backtrack planes included), the
-     problem gather (from every source alignment, forward and reversed,
-     rows of 75 and 1,044 bytes, clamped sources) and the backtrack walk
+     and 37), the two anchored kernels (on warps of each width class 8,
+     16 and 32 and wider ones, whose state is in global scratch; backtrack
+     planes included; both scorings) and the anchored `*_p4` entries
+     against the unpacked ones, the problem gather
+     (from every source alignment, forward and reversed, rows of 75 and
+     1,044 bytes, clamped sources) and the backtrack walk
      (teams of 8, 16 and 32 lanes; counts, and items up to the counts, the
      only slots the kernel writes; a too-small cap and gap runs of 100-300
      bases included): all outputs equal;
@@ -30,8 +34,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the default L15/S1 index; a cold and a warm run, SAM bytes equal to
      the native C++ engine's, no backtrack plane brought back; launch
      counts of every kernel over the warm run, every extension through
-     the register kernel.  Then the A/B configuration (host fetch, planes
-     to the native walkers) once on the same batch, with parity;
+     the register kernel.  Then the A/B configuration (host fetch, planes to the native walkers)
+     once on the same batch, with parity;
   4. the scratch extension kernel's path: 2,048 of those reads at -BW 9
      (W = 37), every extension through that kernel; 256 reads of 10 kb,
      and the 105 kb split read of tests/test_long_reads.py, through the
@@ -43,9 +47,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (bytes over the memory rate or int32 operations over the int32 rate,
      from this run's inputs); the two extension kernels, and the register
      kernel's block sizes, in turns at the largest 1 kb bucket and at the
-     10 kb run's widest bucket, and so the walk's team sizes;
-     the 4-bit packed extension entry (unpack + kernel) at the largest
-     1 kb bucket.
+     10 kb run's widest bucket, and so the walk's team sizes; the two
+     anchored kernels at their largest 1 kb buckets both on shuffled
+     copies of the bucket and in the main path's problem order (which
+     sets the lanes of a warp), with the plane's zero fill alone; the
+     4-bit packed extension entry (unpack + kernel) at the largest 1 kb
+     bucket; a histogram of every gap launch of the 1 kb, -BW 9, 10 kb and
+     105 kb runs: (qg, rg, plane width, N), its warps by width class and
+     each class's share of the in-band cells.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
 A/B configuration: three warm runs of each, interleaved, with parity
@@ -85,9 +94,9 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                           "yaha_tpu/ops/sw_pallas.py:764"),
     "extension_forward_scratch": ("yaha_tpu_torch/csrc/sw_kernels.cu",
                                   "yaha_tpu/ops/sw_pallas.py:764"),
-    "anchored_forward_banded": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+    "anchored_forward_banded": ("yaha_tpu_torch/csrc/anch_kernels.cu",
                                 "yaha_tpu/ops/sw_pallas.py:554"),
-    "anchored_forward": ("yaha_tpu_torch/csrc/sw_kernels.cu",
+    "anchored_forward": ("yaha_tpu_torch/csrc/anch_kernels.cu",
                          "yaha_tpu/ops/sw_pallas.py:353"),
     "gather_problems": ("yaha_tpu_torch/csrc/gather_kernels.cu",
                         "yaha_tpu/ops/gather_dp.py:61"),
@@ -95,7 +104,8 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                  "yaha_tpu/ops/decode_jax.py:208"),
 }
 # Kernels of which no instance may spill or use a stack frame.
-NO_SPILL = re.compile(r"ext_reg_kernel|rle_win_kernel|gather_kernel")
+NO_SPILL = re.compile(r"ext_reg_kernel|anch_reg_kernel|rle_win_kernel|"
+                      r"gather_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide-band path (W = 37: scratch kernel)
 WIDE_READS = 2048
@@ -238,6 +248,10 @@ def phase_build():
     if sorted(widths) != list(sw_cuda.REG_WIDTHS):
         raise AssertionError("phase1: register kernel instances %s, want %s"
                              % (sorted(widths), sw_cuda.REG_WIDTHS))
+    anch = sorted(k for k in report if "anch_reg_kernel" in k)
+    if len(anch) != 2:
+        raise AssertionError("phase1: anchored register kernels %s, want "
+                             "the banded and the full layout" % anch)
     bad = {k: i for k, i in report.items() if NO_SPILL.search(k) and (
         i.get("stack", 1) or i.get("spill_stores", 1) or
         i.get("spill_loads", 1))}
@@ -339,6 +353,50 @@ def _long_runs(rng, n):
     return q, lens[0], r, lens[1], lens[2], lens[3]
 
 
+def _anch_classes(rng, n, ql, rl, wband):
+    """(qlens, banded rlens, full-width rlens, lbw, rbw) of n gap fills in
+    warps of 32 whose live widths (lbw + rbw + 1 banded, rlen full width)
+    reach 8, 16, 32 and 64 in turn: lane 0 at the warp's width, the others
+    below it; banded references end inside the band."""
+    target = np.array([8, 16, 32, 64])[(np.arange(n) // 32) % 4]
+    live = rng.integers(1, target + 1)
+    live[::32] = target[::32]
+    lbw = rng.integers(0, np.minimum(live, wband))
+    rbw = np.minimum(live, wband) - 1 - lbw
+    qlens = rng.integers(1, ql + 1, n)
+    rl_band = np.clip(qlens + rng.integers(-lbw, rbw + 1), 0, rl)
+    return qlens, rl_band, np.minimum(live, rl), lbw, rbw
+
+
+def pack4(t):
+    """4-bit packing on the card (sw_cuda.pack4_host's layout)."""
+    return (t[:, ::2] | (t[:, 1::2] << 4)).contiguous()
+
+
+def anch_live(lbw, rbw, rlen, *, wband=None, rl=None):
+    """Live width of each anchored problem (numpy), as csrc/anch_kernels.cu
+    takes it: band-relative columns min(lbw + rbw + 1, wband) for the
+    banded layout (`wband` given), else full-matrix columns 1..min(rlen,
+    rl)."""
+    if wband is not None:
+        return np.clip(np.asarray(lbw, np.int64) + np.asarray(rbw, np.int64)
+                       + 1, 0, wband)
+    return np.clip(np.asarray(rlen, np.int64), 0, rl)
+
+
+def warp_classes(sw, live):
+    """Width class of each warp of 32 consecutive problems, from its lanes'
+    live widths (anch_live): "K8", "K16" or "K32", the smallest class
+    covering every lane (band state in registers), or "wide" (a lane wider
+    than sw_cuda.ANCH_REG_COLS; state in global scratch)."""
+    live = np.asarray(live, np.int64)
+    wmax = np.pad(live, (0, -len(live) % 32)).reshape(-1, 32).max(1)
+    out = np.full(len(wmax), "wide", dtype=object)
+    for k in sorted((8, 16, sw.ANCH_REG_COLS), reverse=True):
+        out[wmax <= k] = "K%d" % k
+    return out
+
+
 def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
     from yaha_tpu_torch.utils import codec
@@ -412,9 +470,55 @@ def phase_kernels(torch, sw, errs, dev):
                   kw, out, want)
         walk_check("extension N=%d QL=%d" % (n, ql), out["bt"], out["maxi"],
                    out["maxj"], out["score"] > 0, False)
-    # Anchored, band-relative: N = 2048 at QL = 256, wband 64 and 256.
+    def anch_check(tag, args, kw, wband):
+        """The anchored kernel of the layout (banded if `wband`) against
+        its plain version; logs the warps per width class; returns the
+        kernel's output."""
+        if wband:
+            name, fn = "anchored_forward_banded", sw.anchored_forward_banded
+            want = sw.anchored_forward_banded_reference(*args, wband=wband,
+                                                        **kw)
+            live = anch_live(args[4].cpu(), args[5].cpu(), None, wband=wband)
+            kw = dict(kw, wband=wband)
+        else:
+            name, fn = "anchored_forward", sw.anchored_forward
+            want = sw.anchored_forward_reference(*args, **kw)
+            live = anch_live(None, None, args[3].cpu(), rl=args[2].shape[1])
+        classes = warp_classes(sw, live)
+        out = fn(*args, **kw)
+        sync(torch, dev)
+        check(name, "%s warps %s" % (tag, json.dumps(
+            {k: int((classes == k).sum()) for k in sorted(set(classes))})),
+            kw, out, want)
+        return out
+
+    # Warps that cycle through the register classes 8, 16 and 32 and wider
+    # (lane 0 at its class's width), both layouts, both scorings; the 4-bit
+    # packed entries against the unpacked ones.
+    for kw in (kw0, wrap):
+        n, ql, rl, wband = 4096, 64, 96, 64
+        q, r = _rand_problems(rng, n, ql, rl, similar=True)
+        qlens, rl_band, rl_full, lbw, rbw = _anch_classes(rng, n, ql, rl,
+                                                          wband)
+        band_args = up(q, qlens, r, rl_band, lbw, rbw)
+        band = anch_check("classes N=%d QL=%d wband=%d" % (n, ql, wband),
+                          band_args, kw, wband)
+        full_args = up(q, qlens, r, rl_full, lbw, rbw)
+        full = anch_check("classes N=%d QL=%d RL=%d" % (n, ql, rl),
+                          full_args, kw, 0)
+    for name, fn, args, out, akw in (
+            ("anchored_forward_banded", sw.anchored_forward_banded_p4,
+             band_args, band, dict(wrap, wband=wband)),
+            ("anchored_forward", sw.anchored_forward_p4, full_args, full,
+             wrap)):
+        got = fn(pack4(args[0]), args[1], pack4(args[2]), *args[3:], **akw)
+        sync(torch, dev)
+        compare(torch, errs, "phase2", name,
+                "%s = unpacked entry" % fn.__name__, got, out)
+    # Band-relative, mostly wide warps: N = 2048 at QL = 256, wband 64 and
+    # 256, and N = 64 at wband 1024.
     for n, ql, wband, kw in ((2048, 256, 64, kw0), (2048, 256, 256, kw0),
-                             (512, 64, 64, wrap)):
+                             (512, 64, 64, wrap), (64, 16, 1024, kw0)):
         rl = ql + wband
         q, r = _rand_problems(rng, n, ql, rl, similar=True)
         qlens = rng.integers(ql // 2, ql + 1, n)
@@ -422,11 +526,8 @@ def phase_kernels(torch, sw, errs, dev):
         lbw = rng.integers(0, wband // 2, n)
         rbw = rng.integers(0, wband // 2, n)
         args = up(q, qlens, r, rlens, lbw, rbw)
-        out = sw.anchored_forward_banded(*args, wband=wband, **kw)
-        sync(torch, dev)
-        check("anchored_forward_banded", "N=%d QL=%d wband=%d" % (
-            n, ql, wband), kw, out,
-            sw.anchored_forward_banded_reference(*args, wband=wband, **kw))
+        out = anch_check("N=%d QL=%d wband=%d" % (n, ql, wband), args, kw,
+                         wband)
         ql_d, rl_d, lb_d = args[1], args[3], args[4]
         inside = (rl_d - ql_d + lb_d >= 0) & (rl_d - ql_d + lb_d < wband)
         walk_check("banded N=%d QL=%d" % (n, ql), out["bt_b"], ql_d,
@@ -443,10 +544,7 @@ def phase_kernels(torch, sw, errs, dev):
         lbw = rng.integers(0, bmax, n)
         rbw = rng.integers(bmax // 2, bmax, n)
         args = up(q, qlens, r, rlens, lbw, rbw)
-        out = sw.anchored_forward(*args, **kw)
-        sync(torch, dev)
-        check("anchored_forward", "N=%d QL=%d RL=%d" % (n, ql, rl), kw,
-              out, sw.anchored_forward_reference(*args, **kw))
+        out = anch_check("N=%d QL=%d RL=%d" % (n, ql, rl), args, kw, 0)
         walk_check("full N=%d QL=%d RL=%d" % (n, ql, rl), out["bt"],
                    args[1], args[3], torch.ones_like(args[1], dtype=bool),
                    True)
@@ -503,6 +601,7 @@ def _recorder(StagedAligner, gap_dispatch, pack_coords):
             super().__init__(*a, **k)
             self.buckets = {}
             self.counts = {}
+            self.gap_log = []
 
         def _keep(self, key, n, arrays):
             self.counts[key] = self.counts.get(key, 0) + n
@@ -532,7 +631,11 @@ def _recorder(StagedAligner, gap_dispatch, pack_coords):
 
         def _run_gap_bucket(self, qa, qlens, ra, rlens, lbws, rbws, qg=None,
                             rg=None, dev_gather=None):
+            if qg is None:
+                qg, rg = qa.shape[1], ra.shape[1]
             wband, banded = gap_dispatch(lbws, rbws, rg)
+            self.gap_log.append((banded, qg, rg, wband, qlens, rlens, lbws,
+                                 rbws))
             name = "anchored_forward_banded" if banded else \
                 "anchored_forward"
 
@@ -616,6 +719,7 @@ def phase_main(torch, sw, host, Recorder, genome, index, aa, reads,
     _timed(torch, sw, st, pr, ref, dev, tag + " cold run")
     cold = time.time() - t0
     st.stats = {k: type(v)() for k, v in st.stats.items()}
+    st.gap_log = []
     warm, launches = _timed(torch, sw, st, pr, ref, dev, tag + " warm run")
     s = st.stats
     _report(tag, pr.n, {"native_wall_s": t_native, "cold_wall_s": cold,
@@ -734,13 +838,22 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _band_cells_each(ql, rl, lb, rb, qmax):
+    """In-band cells of each anchored problem: for every row i <= qlen, the
+    columns max(1, i - lbw) .. min(i + rbw, rlen); rows 256 at a time."""
+    ql, rl, lb, rb = (np.asarray(a, np.int64)[:, None]
+                      for a in (ql, rl, lb, rb))
+    out = np.zeros(len(ql), np.int64)
+    for i0 in range(1, qmax + 1, 256):
+        i = np.arange(i0, min(i0 + 256, qmax + 1))[None, :]
+        lo = np.maximum(1, i - lb)
+        hi = np.minimum(i + rb, rl)
+        out += (np.maximum(hi - lo + 1, 0) * (i <= ql)).sum(1)
+    return out
+
+
 def _band_cells(ql, rl, lb, rb, qmax):
-    """In-band cells of anchored problems: for every row i <= qlen, the
-    columns max(1, i - lbw) .. min(i + rbw, rlen)."""
-    i = np.arange(1, qmax + 1)[None, :]
-    lo = np.maximum(1, i - lb[:, None])
-    hi = np.minimum(i + rb[:, None], rl[:, None])
-    return int((np.maximum(hi - lo + 1, 0) * (i <= ql[:, None])).sum())
+    return int(_band_cells_each(ql, rl, lb, rb, qmax).sum())
 
 
 def _largest(st, name, prefer=None, widest=False):
@@ -907,9 +1020,7 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
     # The 4-bit packed entry (sw_cuda.extension_forward_p4: unpack on the
     # card, then the register kernel) on the same bucket, packed on the
     # card; its output must equal the unpacked entry's.
-    def pack(t):
-        return (t[:, ::2] | (t[:, 1::2] << 4)).contiguous()
-    psets = [[pack(a[0]), a[1], pack(a[2]), a[3]] for a in sets]
+    psets = [[pack4(a[0]), a[1], pack4(a[2]), a[3]] for a in sets]
     p4_ms = _time_kernel(torch, dev, lambda *a: sw.extension_forward_p4(
         *a, **ext_kw), psets)
     p4 = sw.extension_forward_p4(*psets[1], **ext_kw)
@@ -963,6 +1074,12 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
             for k, v in times10.items())))
     del sets, outs10
 
+    # The anchored entries at their largest 1 kb buckets: the kernel on
+    # shuffled copies of the bucket (as every kernel here, and as earlier
+    # versions of this script timed the first anchored kernels) and in the
+    # main path's problem order, which sets the lanes of each warp, in
+    # turns; then the plain version once; the plane's zero fill alone,
+    # which the kernel does without (it writes every byte).
     for name in ("anchored_forward_banded", "anchored_forward"):
         key, arrs = _largest(st, name)
         n = arrs[0].shape[0]
@@ -976,14 +1093,36 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
             fn, kw = sw.anchored_forward, gap_kw
             plain = sw.anchored_forward_reference
         sets = bucket_sets(arrs)
-        ms = _time_kernel(torch, dev, lambda *a: fn(*a, **kw), sets)
+        base = [a if torch.is_tensor(a) else torch.from_numpy(
+            a.astype(np.int32)).to(dev) for a in arrs]
+        tag = "bucket=%s N=%d" % (list(key[1:]), n)
+        times = {}
+        for label in ("shuffled", "main", "main", "shuffled"):
+            times.setdefault(label, []).append(_time_kernel(
+                torch, dev, lambda *a, fn=fn, kw=kw: fn(*a, **kw),
+                sets if label == "shuffled" else [base]))
+        log("phase5 %s %s: %s" % (name, tag, " ".join(
+            "%s=%s ms" % (k, ",".join("%.6f" % t for t in v))
+            for k, v in times.items())))
         plain_ms, want = _time_once(torch, dev, lambda *a: plain(*a, **kw),
                                     sets[1])
         got = fn(*sets[1], **kw)
         cells = _band_cells(ql_, rl_, lb, rb, key[1])
-        finish(name, key, n, ms, plain_ms, got, want,
-               _nbytes(*sets[1]) + _nbytes(*got.values()),
+        nbytes = _nbytes(*sets[1]) + _nbytes(*got.values())
+        ms = float(np.mean(times["shuffled"]))
+        finish(name, key, n, ms, plain_ms, got, want, nbytes,
                cells * CELL_OPS)
+        main_ms = float(np.mean(times["main"]))
+        log("phase5 %s %s: main path order %.6f ms, %.1f %% of the bound" % (
+            name, tag, main_ms,
+            100 * _bound(nbytes, cells * CELL_OPS)[0] / main_ms))
+        plane = got["bt_b" if "bt_b" in got else "bt"]
+        fill_ms = _time_kernel(torch, dev, lambda: torch.zeros(
+            plane.shape, dtype=torch.int8, device=dev), [[]])
+        log("phase5 %s %s: plane zero fill alone %.6f ms (%d bytes), %.1f "
+            "%% of the kernel's time" % (name, tag, fill_ms, plane.numel(),
+                                         100 * fill_ms / ms))
+        del sets, base, got, want, plane
 
     # The walk on the largest extension bucket's planes, from its best
     # cells, at the engine's cap: every team size in turns, then the plain
@@ -1035,6 +1174,44 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
     finish("gather_problems", key, n, ms, plain_ms,
            {"q": got[0], "r": got[1]}, {"q": want[0], "r": want[1]},
            out_bytes + copied + coords.nbytes, out_bytes * GATHER_BYTE_OPS)
+
+
+def phase_gap_histogram(sw, runs):
+    """Every gap launch of each run (the Recorder's gap log): (kernel, qg,
+    rg, plane width, N), its warps of 32 problems by width class
+    (warp_classes: K8/K16/K32 in registers, "wide" in global scratch) and
+    each class's share of the launch's in-band cells; then each run's
+    shares."""
+    for tag, st in runs:
+        total = {}
+        for banded, qg, rg, wband, ql, rl, lb, rb in st.gap_log:
+            if banded:
+                live = anch_live(lb, rb, rl, wband=wband)
+                w = wband
+            else:
+                live = anch_live(lb, rb, rl, rl=rg)
+                w = rg + 1
+            classes = warp_classes(sw, live)
+            cells = _band_cells_each(ql, rl, lb, rb, qg)
+            warp_cells = np.pad(cells, (0, -len(cells) % 32)).reshape(
+                -1, 32).sum(1)
+            by_class = {k: (int((classes == k).sum()),
+                            int(warp_cells[classes == k].sum()))
+                        for k in sorted(set(classes))}
+            for k, (_, c) in by_class.items():
+                total[k] = total.get(k, 0) + c
+            log("phase5 gap launch %s: %s qg=%d rg=%d width=%d N=%d warps=%s "
+                "cell_share=%s" % (
+                    tag, "banded" if banded else "full", qg, rg, w, len(ql),
+                    json.dumps({k: v[0] for k, v in by_class.items()}),
+                    json.dumps({k: round(v[1] / max(1, cells.sum()), 4)
+                                for k, v in by_class.items()})))
+        all_cells = max(1, sum(total.values()))
+        log("phase5 gap cells %s: %d in-band cells, by class %s; warps wider "
+            "than 32 columns carry %.2f %%" % (
+                tag, sum(total.values()), json.dumps(
+                    {k: round(v / all_cells, 4) for k, v in total.items()}),
+                100 * total.get("wide", 0) / all_cells))
 
 
 def _device_time(torch, prof, wall):
@@ -1169,6 +1346,8 @@ def main():
         if (launches[name] == 0) != (name == "extension_forward_scratch"):
             raise AssertionError("phase3: %s launched %d times" % (
                 name, launches[name]))
+    log("phase3 1kb launches by route: %s" % json.dumps(
+        {k: launches[k] for k in KERNELS}))
     kernels = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[name],
                       "max_abs_err": errs[name]}
@@ -1176,7 +1355,7 @@ def main():
     phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
              "phase3 1kb A/B", dev)
     # The scratch extension kernel's path: bands wider than -BW 8.
-    _, wide, _, _ = phase_main(
+    st_wide, wide, _, _ = phase_main(
         torch, sw, host, Recorder, genome, index,
         _aa(host, index, idx, band_width=WIDE_BW), reads[:WIDE_READS],
         threads, "phase4 1kb BW%d" % WIDE_BW, dev)
@@ -1193,12 +1372,14 @@ def main():
                       "phase4 10kb", dev)[0]
     tg_nib, tg_idx = testgen_files()
     tg_index = host.load_index(tg_idx)
-    phase_main(torch, sw, host, Recorder, host.load_genome(tg_nib),
+    st105 = phase_main(torch, sw, host, Recorder, host.load_genome(tg_nib),
                tg_index, _aa(host, tg_index, tg_idx,
                              max_query_length=150000),
-               long_read_105k(rng), threads, "phase4 105kb", dev)
+               long_read_105k(rng), threads, "phase4 105kb", dev)[0]
     phase_cli(tg_nib, tg_idx)
     phase_times(torch, sw, st, st10, kernels, errs, dev)
+    phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
+                             ("10kb", st10), ("105kb", st105)])
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

@@ -43,8 +43,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_dp_cases import (ANCH_SWEEP, EXT_SWEEP, EXT_SWEEP_IDS, KW,
-                            KW_WRAP, anchored_sweep_inputs,
+from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
+                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_edge_inputs,
+                            anchored_sweep_inputs,
                             extension_inputs, gather_aligned_coords,
                             gather_case, gather_clamp_coords, gather_coords,
                             long_run_inputs, read_rows)
@@ -58,6 +59,69 @@ C_LOOP = r"""
 #include "ext_kernels.cu"
 #include "decode_kernels.cu"
 #include "gather_kernels.cu"
+#include "anch_kernels.cu"
+
+#include <string.h>
+
+// Anchored gap fill, banded (full = 0) or full width.  tier 0: the scratch
+// body of every problem over scratch [3][cols][N] (the plane zero-filled by
+// the caller); tier 1: each problem in the smallest register class covering
+// it, raised to kmin, every row at least in `mode`, and problems wider than
+// 32 columns through the scratch body after zeroing their plane, as a wide
+// warp runs them.
+extern "C" int run_anch(int full, int tier, int kmin, int mode,
+                        const uint8_t* q, const uint8_t* r,
+                        const int32_t* qlens, const int32_t* rlens,
+                        const int32_t* lbws, const int32_t* rbws, int64_t n,
+                        int64_t ql, int64_t rl, int32_t wband,
+                        const int32_t* kw, int8_t* bt, int32_t* score,
+                        int32_t* scratch) {
+    ytsw::Scoring s;
+    s.go = kw[0];
+    s.ge = kw[1];
+    s.rc = kw[2];
+    s.ms = kw[3];
+    s.max_gap = kw[4];
+    s.max_intron = kw[5];
+    const ytsw::AnchArgs a = {q, r, qlens, rlens, lbws, rbws, ql, rl,
+                              wband, s};
+    const int64_t w = full ? rl + 1 : wband;
+    for (int64_t p = 0; p < n; p++) {
+        if (tier > 0) {
+            const int32_t live = full ? ytsw::full_live(rlens[p], rl)
+                                      : ytsw::band_live(lbws[p], rbws[p],
+                                                        wband);
+            int k = ytsw::anch_class(live);
+            if (k && k < kmin) k = kmin;
+            bool ok = true;
+            switch (k) {
+#define YT_K(kk)                                                           \
+            case kk:                                                       \
+                ok = full ? ytsw::anch_reg_problem<ytsw::AnchFull<kk>>(    \
+                                p, a, w, mode, bt, score)                  \
+                          : ytsw::anch_reg_problem<ytsw::AnchBand<kk>>(    \
+                                p, a, w, mode, bt, score);                 \
+                break;
+            YT_K(8)
+            YT_K(16)
+            YT_K(32)
+#undef YT_K
+            default:
+                memset(bt + p * (ql + 1) * w, 0, (ql + 1) * w);
+            }
+            if (!ok) return 1;
+            if (k) continue;
+        }
+        if (full)
+            ytsw::anch_full_problem(p, n, q, ql, r, rl, qlens, rlens, lbws,
+                                    rbws, s, bt, score, scratch);
+        else
+            ytsw::anch_banded_problem(p, n, q, ql, r, rl, qlens, rlens,
+                                      lbws, rbws, wband, s, bt, score,
+                                      scratch);
+    }
+    return 0;
+}
 
 // rle_walk_window by teams of `team` lanes with windows of `window` bytes.
 template <bool kFull>
@@ -178,6 +242,10 @@ def lib(tmp_path_factory):
     out.run_ext.argtypes = ([ct.c_int] + [ct.c_void_p] * 4 +
                             [ct.c_int64] * 3 + [ct.c_int32] +
                             [ct.c_void_p] * 6)
+    out.run_anch.restype = ct.c_int
+    out.run_anch.argtypes = ([ct.c_int] * 4 + [ct.c_void_p] * 6 +
+                             [ct.c_int64] * 3 + [ct.c_int32] +
+                             [ct.c_void_p] * 4)
     out.run_walk.restype = ct.c_int
     out.run_walk.argtypes = ([ct.c_int, ct.c_int64, ct.c_int, ct.c_void_p] +
                              [ct.c_int64] * 3 + [ct.c_void_p] * 3 +
@@ -264,6 +332,129 @@ def test_ptxas_report_reads_registers_and_spills():
     assert _build.ptxas_report(log) == {name: {
         "stack": 8, "spill_stores": 4, "spill_loads": 12,
         "registers": 168}}
+
+
+# ---- the anchored gap fill ----
+
+# (tier, kmin, mode) of run_anch: the scratch body alone; each problem in
+# its own register class (wide ones through the scratch body), raised to 16
+# and to 32 as in a warp with a wider lane; every row with at least the
+# right-edge predicates, or both edges.
+ANCH_ROUTES = [(0, 0, 0), (1, 8, 0), (1, 16, 0), (1, 32, 0), (1, 8, 1),
+               (1, 16, 2), (1, 32, 2)]
+UNWRITTEN_BT = 0x5A
+
+
+def _anch_body(lib, full, route, args, wband, kw):
+    q, qlens, r, rlens, lbw, rbw = (
+        np.ascontiguousarray(a.astype(np.uint8 if k in (0, 2) else np.int32))
+        for k, a in enumerate(args))
+    n, ql = q.shape
+    rl = r.shape[1]
+    w, cols = (rl + 1, rl + 2) if full else (wband, wband + 1)
+    # The scratch body writes only the bytes that are not 0; the register
+    # bodies write the whole plane.
+    bt = np.full((n, ql + 1, w), 0 if route[0] == 0 else UNWRITTEN_BT,
+                 np.int8)
+    score = np.full(n, UNWRITTEN, np.int32)
+    scratch = np.zeros((3, cols, n), np.int32)
+    params = np.array([kw[k] for k in ("go", "ge", "rc", "ms", "max_gap",
+                                       "max_intron")], np.int32)
+    rc = lib.run_anch(int(full), *route, *(a.ctypes.data for a in (
+        q, r, qlens, rlens, lbw, rbw)), n, ql, rl, wband, params.ctypes.data,
+        bt.ctypes.data, score.ctypes.data, scratch.ctypes.data)
+    assert rc == 0
+    return {"score": score, "bt": bt}
+
+
+def _anch_check(lib, args, kw, full, wband=None, routes=ANCH_ROUTES):
+    """Every route of run_anch against the plain version: score and the
+    whole plane equal.  Returns the width classes the problems took."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    if full:
+        want = sw_cuda.anchored_forward_reference(*t, **kw)
+        live = np.clip(args[3], 0, args[2].shape[1])
+    else:
+        wband = wband or 1 << int((args[4] + args[5]).max()).bit_length()
+        want = sw_cuda.anchored_forward_banded_reference(*t, wband=wband,
+                                                         **kw)
+        want["bt"] = want.pop("bt_b")
+        live = np.clip(args[4].astype(np.int64) + args[5] + 1, 0, wband)
+    for route in routes:
+        got = _anch_body(lib, full, route, args, wband or 0, kw)
+        for key in ("score", "bt"):
+            np.testing.assert_array_equal(
+                got[key], want[key].numpy(),
+                err_msg="route %s %s" % (route, key))
+    return {c for c in (8, 16, 32, 0) if (np.array(
+        [0 if v > 32 else 8 if v <= 8 else 16 if v <= 16 else 32
+         for v in live]) == c).any()}
+
+
+ANCH_CASES = ANCH_SWEEP_IDS + ["wrap", "edges"]
+
+
+def _anch_inputs(case):
+    if case == "edges":
+        return anchored_edge_inputs(5), KW
+    if case == "wrap":
+        return anchored_sweep_inputs(*ANCH_SWEEP[0][:2]), KW_WRAP
+    seed, d, mg, mi = ANCH_SWEEP[ANCH_SWEEP_IDS.index(case)]
+    return anchored_sweep_inputs(seed, d), dict(KW, max_gap=mg,
+                                                 max_intron=mi)
+
+
+@pytest.mark.parametrize("case", ANCH_CASES)
+@pytest.mark.parametrize("full", [False, True], ids=["banded", "full"])
+def test_anchored_bodies_match_plain(lib, full, case):
+    """The register bodies (AnchBand<K>, AnchFull<K> of
+    csrc/anch_kernels.cu) in every class, as a lone problem and with every
+    row predicated, the wide problems through the scratch body, and the
+    scratch bodies alone; the planes start as garbage for the register
+    routes, which must write every byte."""
+    args, kw = _anch_inputs(case)
+    classes = _anch_check(lib, args, kw, full)
+    assert classes == {8, 16, 32, 0} if case == "edges" else \
+        len(classes) >= 2
+
+
+@pytest.mark.parametrize("wband", [64, 512])
+def test_anchored_bodies_narrow_in_wide_planes(lib, wband):
+    """Narrow problems (the register classes) in planes of 64 and 512
+    band columns: every byte past the live width is written 0."""
+    args = list(anchored_edge_inputs(9, n=48, ql=24, rl=30))
+    args[4] = np.minimum(args[4], 12)
+    args[5] = np.minimum(args[5], 12)
+    assert _anch_check(lib, args, KW, False, wband=wband) == {8, 16, 32}
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["banded", "full"])
+@pytest.mark.parametrize("k", [8, 16, 32])
+def test_anchored_bodies_plane_as_wide_as_class(lib, full, k):
+    """Planes exactly as wide as the register class's staged row (wband =
+    K, RL + 1 = K + 1): the rows go out as one copy of whole words, from
+    staged rows and to plane rows at every byte offset."""
+    args = list(anchored_sweep_inputs(k, 2, n=64, ql=min(20, k), rl=k))
+    if not full:
+        args[4] = np.minimum(args[4], k // 2 - 1)
+        args[5] = np.minimum(args[5], k // 2)
+    assert k in _anch_check(lib, args, KW, full, wband=k)
+
+
+@pytest.mark.parametrize("case,classes", [
+    ("D260_banded", {0}), ("D260_full", {0}), ("I40_banded", {0}),
+    ("I260_full", {16})])
+def test_anchored_bodies_long_runs(lib, case, classes):
+    """One gap run of 40 or 260 bases: a deletion at wband 512 and at full
+    width and a 40-base insertion at wband 64 go to the wide routes (and
+    the scratch body), a 260-base insertion at full width (16 reference
+    columns) to the register class 16 for 276 rows."""
+    length = int(case[1:4].rstrip("_"))
+    args = long_run_inputs(case[0], length)
+    kw = dict(KW, max_gap=length + 40, max_intron=length + 40)
+    full = case.endswith("full")
+    assert _anch_check(lib, args, kw, full, routes=[
+        (0, 0, 0), (1, 8, 0), (1, 32, 2)]) == classes
 
 
 # ---- the backtrack walk ----

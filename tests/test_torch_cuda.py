@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card (marker `cuda`).
 
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
-(both extension kernels, at each block size of the register one) are held
+(both extension kernels, at each block size of the register one; both
+anchored kernels, on warps of every width class and wider ones) are held
 to their plain PyTorch versions on the card, on the inputs with
 which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
 hold the plain versions to the JAX package: every output equal, whole
@@ -25,7 +26,8 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_inputs,
+                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_edge_inputs,
+                            anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, indel_reads,
@@ -102,15 +104,28 @@ def test_extension_dispatch_by_band_width(dev, bw):
     _equal(got, sw_cuda.extension_forward_reference(*args, **kw))
 
 
-def _anchored_pair(dev, args, kw):
-    """Both anchored kernels against their plain versions."""
+def _anchored_pair(dev, args, kw, wband=None):
+    """Both anchored kernels against their plain versions, each launch
+    counted once."""
     args = _up(dev, *args)
-    wband = int((args[4] + args[5]).max()) + 1
+    wband = wband or int((args[4] + args[5]).max()) + 1
+    sw_cuda.reset_launches()
     _equal(sw_cuda.anchored_forward(*args, **kw),
            sw_cuda.anchored_forward_reference(*args, **kw))
     _equal(sw_cuda.anchored_forward_banded(*args, wband=wband, **kw),
            sw_cuda.anchored_forward_banded_reference(*args, wband=wband,
                                                      **kw))
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "anchored_forward": 1, "anchored_forward_banded": 1}
+
+
+def _warp_classes(live):
+    """Width class of each warp of 32 consecutive problems: the smallest
+    of 8, 16 and 32 columns covering every lane's live width, else 0 (the
+    state in global scratch)."""
+    live = np.asarray(live, np.int64)
+    wmax = np.pad(live, (0, -len(live) % 32)).reshape(-1, 32).max(1)
+    return {next((k for k in (8, 16, 32) if w <= k), 0) for w in wmax}
 
 
 @pytest.mark.parametrize("kw", [KW, KW_WRAP], ids=["default", "wrap"])
@@ -122,6 +137,28 @@ def test_anchored_kernels_match_plain(dev, kw):
 def test_anchored_kernels_match_plain_sweep(dev, seed, d, mg, mi):
     _anchored_pair(dev, anchored_sweep_inputs(seed, d),
                    dict(KW, max_gap=mg, max_intron=mi))
+
+
+@pytest.mark.parametrize("wband", [None, 64, 512])
+def test_anchored_kernels_every_class(dev, wband):
+    """Live widths at the edges of the register classes 8, 16 and 32 and
+    above them, in warps that mix classes, lbw >= qlen, rlen < qlen, empty
+    queries and references; banded planes of 64 and 512 columns."""
+    args = anchored_edge_inputs(5, n=256)
+    band = np.clip(args[4] + args[5] + 1, 0, wband or 64)
+    full = np.clip(args[3], 0, args[2].shape[1])
+    assert _warp_classes(band) == _warp_classes(full) == {8, 16, 32, 0}
+    _anchored_pair(dev, args, KW, wband=wband)
+
+
+@pytest.mark.parametrize("event,length,wband", [
+    ("D", 260, 512), ("I", 100, 128), ("D", 600, 1024)])
+def test_anchored_kernels_long_runs(dev, event, length, wband):
+    """Wide warps (wband 128 to 1024, RL 276 and 616): the state in
+    global scratch."""
+    args = long_run_inputs(event, length)
+    kw = dict(KW, max_gap=length + 40, max_intron=length + 40)
+    _anchored_pair(dev, args, kw, wband=wband)
 
 
 def test_wrappers_count_launches_and_check_inputs(dev):

@@ -73,6 +73,40 @@ def anchored_sweep_inputs(seed, d, n=300, ql=18, rl=22):
     return q, qlens, r, rlens, lbw, rbw
 
 
+def anchored_edge_inputs(seed, n=96, ql=40, rl=48):
+    """Gap fills at the anchored kernels' edges: first live widths at the
+    register classes' edges (lbw + rbw + 1 and rlen of 8/9, 16/17, 32/33),
+    lbw >= qlen (the insert boundary in every row), rlen < qlen, qlen = QL,
+    empty query or reference; then narrow problems (live widths up to 8)
+    in warps of 32 whose widest lane (lane 5) has a live width of 8, 16,
+    17, 32, 9 or 33 in turn, so that every width class runs as a warp and
+    warps mix classes."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (n, ql)).astype(np.uint8)
+    r = rng.integers(0, 5, (n, rl)).astype(np.uint8)
+    r[:, :ql] = np.where(rng.random((n, ql)) < 0.7, q, r[:, :ql])
+    qlens = rng.integers(1, ql + 1, n)
+    rlens = rng.integers(1, 9, n)
+    lbw = rng.integers(0, 4, n)
+    rbw = rng.integers(0, 4, n)
+    rows = []
+    for live in (8, 9, 16, 17, 32, 33):
+        lb = live // 3
+        rows += [(30, min(rl, 30 + live - 1 - 2 * lb), lb, live - 1 - lb),
+                 (ql, live, 2, live - 3)]
+    rows += [(10, 20, 12, 10), (5, 6, 6, 1), (35, 20, 17, 3), (30, 5, 27, 2),
+             (ql, 44, 3, 7), (ql, rl, 4, 12), (0, 5, 2, 3), (7, 0, 8, 1)]
+    for w, live in enumerate((8, 16, 17, 32, 9, 33)):
+        if 32 * (w + 1) + 5 < n:
+            rows += [(0, 0, 0, 0)] * (32 * (w + 1) + 5 - len(rows))
+            lb = live // 3
+            rows.append((int(qlens[len(rows)]), live, lb, live - 1 - lb))
+    for k, row in enumerate(rows):
+        if row != (0, 0, 0, 0):
+            qlens[k], rlens[k], lbw[k], rbw[k] = row
+    return q, qlens, r, rlens, lbw, rbw
+
+
 def indel_reads(fasta, n, seed):
     """FASTA of n 1 kb reads from the first sequence of `fasta` with 5 %
     substitutions and short insertions/deletions: their gap fills put

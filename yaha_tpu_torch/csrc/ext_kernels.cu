@@ -45,14 +45,6 @@
 
 namespace ytsw {
 
-YT_HD int32_t ld_u8(const uint8_t* p) {
-#if defined(__CUDA_ARCH__)
-    return (int32_t)__ldg(p);
-#else
-    return (int32_t)*p;
-#endif
-}
-
 // One problem's extension state, the band in registers.  Rows are computed
 // by row<kPred>(i, out), which writes the row's W plane bytes to `out`.
 // Every per-column step is a template on its column J, expanded by a fold

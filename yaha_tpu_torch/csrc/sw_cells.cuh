@@ -61,6 +61,15 @@ YT_HD uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 #endif
 }
 
+// A code byte through the read-only data cache.
+YT_HD int32_t ld_u8(const uint8_t* p) {
+#if defined(__CUDA_ARCH__)
+    return (int32_t)__ldg(p);
+#else
+    return (int32_t)*p;
+#endif
+}
+
 // Byte idx of a reference row of length len; 255 (a mismatch with every
 // code) outside it.
 YT_HD int32_t ref_at(const uint8_t* row, int64_t len, int64_t idx) {

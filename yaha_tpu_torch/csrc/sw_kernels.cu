@@ -8,12 +8,10 @@
 //                        forward extension, phase B, for bands wider than
 //                        -BW 8 (ext_kernels.cu keeps narrower bands in
 //                        registers)
-//   yt_anch_banded       anchored_forward_pallas_banded
-//                        (_anch_banded_kernel): anchored gap fill in
-//                        band-relative columns, phase A
-//   yt_anch_full         anchored_forward_pallas (_anch_kernel): anchored
-//                        gap fill over all RL+1 columns, phase A's wide
-//                        problems
+//
+// and holds the two anchored gap-fill bodies, anch_banded_problem and
+// anch_full_problem, which anch_kernels.cu runs for its warps wider than
+// 32 columns (its own kernels keep narrower bands in registers).
 //
 // Layout.  One thread owns one problem (grid-stride loop over N); it walks
 // the query rows and, inside a row, the band columns in order, like the
@@ -41,6 +39,9 @@
 // so each byte store is its own memory transaction.  ext_kernels.cu
 // shows the repair for the extension: band state in registers with the
 // width as a template constant, plane rows staged in shared memory.
+#ifndef YT_SW_KERNELS_CU
+#define YT_SW_KERNELS_CU
+
 #include "sw_cells.cuh"
 
 namespace ytsw {
@@ -291,7 +292,8 @@ YT_HD void anch_banded_problem(int64_t p, int64_t n, const uint8_t* q,
 
 }  // namespace ytsw
 
-#if defined(__CUDACC__)
+// anch_kernels.cu includes this file for the two anchored bodies alone.
+#if defined(__CUDACC__) && !defined(YT_SW_BODIES_ONLY)
 
 #include <cuda_runtime.h>
 
@@ -314,32 +316,6 @@ __global__ void ext_kernel(int64_t n, const uint8_t* q, int64_t ql,
          p += (int64_t)gridDim.x * blockDim.x)
         ytsw::ext_problem(p, n, q, ql, r, rl, qlens, rlens, bw2, s,
                           x_cutoff, bt, score, maxi, maxj, scr);
-}
-
-__global__ void anch_full_kernel(int64_t n, const uint8_t* q, int64_t ql,
-                                 const uint8_t* r, int64_t rl,
-                                 const int32_t* qlens, const int32_t* rlens,
-                                 const int32_t* lbws, const int32_t* rbws,
-                                 ytsw::Scoring s, int8_t* bt,
-                                 int32_t* score, int32_t* scr) {
-    for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < n;
-         p += (int64_t)gridDim.x * blockDim.x)
-        ytsw::anch_full_problem(p, n, q, ql, r, rl, qlens, rlens, lbws,
-                                rbws, s, bt, score, scr);
-}
-
-__global__ void anch_banded_kernel(int64_t n, const uint8_t* q, int64_t ql,
-                                   const uint8_t* r, int64_t rl,
-                                   const int32_t* qlens,
-                                   const int32_t* rlens,
-                                   const int32_t* lbws, const int32_t* rbws,
-                                   int32_t wband, ytsw::Scoring s,
-                                   int8_t* bt, int32_t* score,
-                                   int32_t* scr) {
-    for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < n;
-         p += (int64_t)gridDim.x * blockDim.x)
-        ytsw::anch_banded_problem(p, n, q, ql, r, rl, qlens, rlens, lbws,
-                                  rbws, wband, s, bt, score, scr);
 }
 
 ytsw::Scoring scoring(int32_t go, int32_t ge, int32_t rc, int32_t ms,
@@ -375,31 +351,8 @@ int yt_ext_forward(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
     return (int)cudaGetLastError();
 }
 
-int yt_anch_full(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
-                 const int32_t* rlens, const int32_t* lbws,
-                 const int32_t* rbws, int64_t n, int64_t ql, int64_t rl,
-                 int32_t go, int32_t ge, int32_t rc, int32_t ms,
-                 int32_t max_gap, int32_t max_intron, int8_t* bt,
-                 int32_t* score, int32_t* scratch, void* stream) {
-    anch_full_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        n, q, ql, r, rl, qlens, rlens, lbws, rbws,
-        scoring(go, ge, rc, ms, max_gap, max_intron), bt, score, scratch);
-    return (int)cudaGetLastError();
-}
-
-int yt_anch_banded(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
-                   const int32_t* rlens, const int32_t* lbws,
-                   const int32_t* rbws, int64_t n, int64_t ql, int64_t rl,
-                   int32_t wband, int32_t go, int32_t ge, int32_t rc,
-                   int32_t ms, int32_t max_gap, int32_t max_intron,
-                   int8_t* bt, int32_t* score, int32_t* scratch,
-                   void* stream) {
-    anch_banded_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        n, q, ql, r, rl, qlens, rlens, lbws, rbws, wband,
-        scoring(go, ge, rc, ms, max_gap, max_intron), bt, score, scratch);
-    return (int)cudaGetLastError();
-}
-
 }  // extern "C"
 
 #endif  // __CUDACC__
+
+#endif  // YT_SW_KERNELS_CU

@@ -18,11 +18,12 @@ Each takes its device from the input tensors.  On a CUDA tensor it checks
 dtype, shape and contiguity, allocates the outputs, and launches its
 hand-written kernel on the current stream, raising if the launch fails:
 csrc/ext_kernels.cu (band state in registers) for extensions up to -BW 8,
-csrc/sw_kernels.cu for wider extension bands and for both anchored
-entries.  On a CPU tensor it runs its plain PyTorch version
-(``*_reference``), which loops over rows and band columns, vectorised
-over problems, with the same tie rules and int32 wrap-around as the
-kernel.  Unlike the Pallas entries, N may be any size.
+csrc/sw_kernels.cu for wider extension bands, csrc/anch_kernels.cu (band
+state in registers, a width class per warp) for both anchored entries.
+On a CPU tensor it runs its plain PyTorch version (``*_reference``),
+which loops over rows and band columns, vectorised over problems, with
+the same tie rules and int32 wrap-around as the kernel.  Unlike the
+Pallas entries, N may be any size.
 
 Packed backtrack byte: bits 0-2 the op code, bit 3 (BT_CD) "delete run
 continues one cell left", bit 4 (BT_CF) "insert run continues up the
@@ -56,6 +57,10 @@ _launches = {"extension_forward": 0, "extension_forward_scratch": 0,
 REG_WIDTHS = (5, 9, 13, 17, 21, 25, 29, 33)
 REG_BLOCKS = (32, 64, 128)
 EXT_BLOCK = 64
+# Columns of band state the anchored kernels keep in registers, at most
+# (width classes 8, 16 and 32); a warp with a wider lane runs with its
+# state in global scratch.
+ANCH_REG_COLS = 32
 _launch_lock = threading.Lock()
 
 
@@ -350,7 +355,7 @@ def _launched(name, err):
 
 
 def _p(t):
-    return t.data_ptr()
+    return None if t is None else t.data_ptr()
 
 
 def ext_variant(band_width):
@@ -422,12 +427,17 @@ def anchored_forward_banded(q, qlens, r, rlens, left_bw, right_bw, *, wband,
     name = "anchored_forward_banded"
     qlens, rlens, lbw, rbw = _check(name, q, r,
                                     (qlens, rlens, left_bw, right_bw))
+    if wband < 1:
+        raise ValueError("%s: wband must be at least 1" % name)
     n, ql = q.shape
     dev = q.device
-    bt = torch.zeros((n, ql + 1, wband), dtype=torch.int8, device=dev)
+    # The kernel writes every byte of its planes.
+    bt = torch.empty((n, ql + 1, wband), dtype=torch.int8, device=dev)
     score = torch.empty(n, dtype=I32, device=dev)
     if n:
-        scratch = torch.empty((3, wband + 1, n), dtype=I32, device=dev)
+        # State of the warps wider than 32 columns (none below that).
+        scratch = torch.empty((3, wband + 1, n), dtype=I32, device=dev) \
+            if wband > ANCH_REG_COLS else None
         from . import _build
         _launched(name, _build.load().yt_anch_banded(
             _p(q), _p(r), _p(qlens), _p(rlens), _p(lbw), _p(rbw), n, ql,
@@ -455,10 +465,11 @@ def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
     n, ql = q.shape
     rl = r.shape[1]
     dev = q.device
-    bt = torch.zeros((n, ql + 1, rl + 1), dtype=torch.int8, device=dev)
+    bt = torch.empty((n, ql + 1, rl + 1), dtype=torch.int8, device=dev)
     score = torch.empty(n, dtype=I32, device=dev)
     if n:
-        scratch = torch.empty((3, rl + 2, n), dtype=I32, device=dev)
+        scratch = torch.empty((3, rl + 2, n), dtype=I32, device=dev) \
+            if rl > ANCH_REG_COLS else None
         from . import _build
         _launched(name, _build.load().yt_anch_full(
             _p(q), _p(r), _p(qlens), _p(rlens), _p(lbw), _p(rbw), n, ql,

@@ -13,7 +13,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      library; ptxas's registers, stack frame and spills for every kernel,
      and no spill and no stack frame in any instance of the register
      extension kernel, the two anchored register kernels, the windowed
-     walk kernel or the gather kernel;
+     walk kernel, the gather kernel or either seed kernel;
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size, the scratch kernel at W = 21
@@ -25,7 +25,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      1,044 bytes, clamped sources) and the backtrack walk
      (teams of 8, 16 and 32 lanes; counts, and items up to the counts, the
      only slots the kernel writes; a too-small cap and gap runs of 100-300
-     bases included): all outputs equal;
+     bases included), and the seed expansion on two synthetic indexes (the
+     wrapped run of tests/test_seeds_jax.py:76-124 at the end of a 128-slot
+     tier and past a 64-slot one; hits of diag >= 2^31 and 0xFFFFFFFF
+     beside the sentinel): all outputs equal;
   3. the main path: the staged engine of --engine batch-cuda in its
      default configuration (problems assembled on the card, planes walked
      on the card, run-length items back) over one default batch of 16,384
@@ -41,7 +44,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and the 105 kb split read of tests/test_long_reads.py, through the
      default configuration; SAM bytes equal to the native engine's each
      time (counts set to 0 before each run and read after it); the port's
-     CLI on the repository's golden test set with --device cuda;
+     CLI on the repository's golden test set with --device cuda, with the
+     host seed scan and with --seed device;
   5. kernel and plain-version times (CUDA events, distinct inputs) at the
      main path's largest buckets, for every kernel, each beside its bound
      (bytes over the memory rate or int32 operations over the int32 rate,
@@ -54,11 +58,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      4-bit packed extension entry (unpack + kernel) at the largest 1 kb
      bucket; a histogram of every gap launch of the 1 kb, -BW 9, 10 kb and
      105 kb runs: (qg, rg, plane width, N), its warps by width class and
-     each class's share of the in-band cells.
+     each class's share of the in-band cells;
+  6. the device seed phase (--seed device): the 1 kb batch with the
+     seeder, the full L15 index uploaded to the card (bytes and seconds),
+     a cold and a warm run (counts set to 0 just before the warm run and
+     read after it), SAM bytes equal to the native engine's, the seeder's
+     stats (launches, bytes, tier-2 retries, phantom and host-scan rows,
+     seed wall); the host seed scan and the seeder in turns (begin_s and
+     warm wall); the 10 kb reads (tier 2, host-scan rows) and the golden
+     readsC_1kb.fasta at -BW 3 -G 20 -M 15 -X 15 (phantom, retry and
+     host-scan rows all present) with the seeder, SAM parity each time;
+     both seed kernels against their plain versions on the main path's
+     own strand rows and tier launches (C = 1,024 on the batch, 8,192 and
+     1,024 on its tier-2 population), and timed at their largest launch
+     beside their bounds, the expansion beside torch.sort(dim=1) of the
+     same keys.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
-A/B configuration: three warm runs of each, interleaved, with parity
-(walls, device term, bytes); then one run of each under cProfile (host
+A/B configuration and in the default one with the device seeder: three
+warm runs of each, interleaved, with parity (walls, device term, seed
+wall, bytes, host terms); then one run of each under cProfile (host
 time by function, DIR/cprofile_*.txt) and one under torch.profiler
 (device busy time, idle share of the wall, device time by kind and by
 name, DIR/device_*.txt).
@@ -102,10 +121,18 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                         "yaha_tpu/ops/gather_dp.py:61"),
     "rle_walk": ("yaha_tpu_torch/csrc/decode_kernels.cu",
                  "yaha_tpu/ops/decode_jax.py:208"),
+    "seed_hashes": ("yaha_tpu_torch/csrc/seed_kernels.cu",
+                    "yaha_tpu/ops/seeds_jax.py:30"),
+    "expand_sort_hits": ("yaha_tpu_torch/csrc/seed_kernels.cu",
+                         "yaha_tpu/ops/seeds_jax.py:63"),
 }
+# The device seed phase's kernels (--seed device, phase 6); the other
+# kernels run on the host-seed path of phases 3-4.
+SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
+DP_KERNELS = [k for k in KERNELS if k not in SEED_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
 NO_SPILL = re.compile(r"ext_reg_kernel|anch_reg_kernel|rle_win_kernel|"
-                      r"gather_kernel")
+                      r"gather_kernel|seed_hash_kernel|expand_sort_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide-band path (W = 37: scratch kernel)
 WIDE_READS = 2048
@@ -120,6 +147,10 @@ INT32_OPS_S = 64 * 132 * 1.98e9
 CELL_OPS = 25            # int32 operations of one DP cell (sw_cells.cuh)
 WALK_STEP_OPS = 8        # one walk step: load, mask, compare, move, merge
 GATHER_BYTE_OPS = 6      # one gathered byte: index, compare, select
+HASH_WINDOW_OPS = 5      # one window's hash, rolled from the last window's:
+                         # shift, or, mask, bad-code count, compare
+WINDOW_OPS = 8           # one window's SO run: index, loads, subtract, tests
+SORT_CMP_OPS = 2         # one compare of 64-bit keys, in int32 operations
 
 
 def sync(torch, dev):
@@ -368,6 +399,46 @@ def _anch_classes(rng, n, ql, rl, wband):
     return qlens, rl_band, np.minimum(live, rl), lbw, rbw
 
 
+def _seed_synthetic():
+    """[(tag, (hashes, clean, SO, ROA, max_hits), capacities)] of synthetic
+    seed indexes (word length 4), rows of 40 windows.  The first is the
+    index and windows of tests/test_seeds_jax.py:76-124: windows 0, 2 and 4
+    hit a 40-hit run at
+    10,000 and up, window 6 a 2-hit run [1, 2] (wrapped), whose slots are
+    the last of a 122-hit row: at the end of a 128-slot tier, past a 64-slot
+    one (the row overflows).  The second has hits with ro < qo (diag >=
+    2^31), ro = qo - 1 (diag 0xFFFFFFFF, a valid hit just before the
+    sentinel), ro = qo and ro far above qo, a run past max_hits, a wrapped
+    window and a row with no clean window."""
+    out = []
+    for tag, runs, rows, max_hits, caps in (
+            ("wrapped run", {5: 10_000 + np.arange(40), 9: [1, 2]},
+             [((0, 5), (2, 5), (4, 5), (6, 9))], 650, (64, 128)),
+            ("unsigned order", {3: [0, 5, 20, 100], 7: [30, 31],
+                                11: [1, 2], 13: np.arange(6),
+                                2: [4_000_000_000, 7]},
+             [((10, 3), (31, 7), (25, 3), (35, 11)),
+              ((8, 13), (31, 7), (32, 7), (0, 2), (39, 2)),
+              ((5, 11), (6, 11), (30, 3), (31, 3)), ()], 5,
+             (8, 16, 1024))):
+        counts = np.zeros(256, np.uint32)
+        for h, run in runs.items():
+            counts[h] = len(run)
+        so = np.zeros(257, np.uint32)
+        so[1:] = np.cumsum(counts)
+        roa = np.zeros(int(so[-1]), np.uint32)
+        for h, run in runs.items():
+            roa[so[h]:so[h] + len(run)] = run
+        n = 40
+        hashes = np.zeros((len(rows), n), np.int32)
+        clean = np.zeros((len(rows), n), bool)
+        for r, wins in enumerate(rows):
+            for w, h in wins:
+                hashes[r, w], clean[r, w] = h, True
+        out.append((tag, (hashes, clean, so, roa, max_hits), caps))
+    return out
+
+
 def pack4(t):
     """4-bit packing on the card (sw_cuda.pack4_host's layout)."""
     return (t[:, ::2] | (t[:, 1::2] << 4)).contiguous()
@@ -400,7 +471,7 @@ def warp_classes(sw, live):
 def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
     from yaha_tpu_torch.utils import codec
-    from yaha_tpu_torch.ops import decode, gather_dp
+    from yaha_tpu_torch.ops import decode, gather_dp, seeds
     rng = np.random.default_rng(SEED)
     kw0 = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
     # At this gap-open cost DP_WORST - (go + ge) wraps int32: the kernels
@@ -590,6 +661,17 @@ def phase_kernels(torch, sw, errs, dev):
         compare(torch, errs, "phase2", "gather_problems", "m=%d qg=%d rg=%d "
                 "rpad=%d" % (m, qg, rg, rpad), {"q": got[0], "r": got[1]},
                 {"q": want[0], "r": want[1]})
+    # The seed expansion on synthetic indexes (its main-path shapes are
+    # phase 6's).
+    for tag, (hashes, clean, so, roa, max_hits), caps in _seed_synthetic():
+        args = up(hashes, clean, so.view(np.int32), roa.view(np.int32))
+        for cap in caps:
+            got = seeds.expand_sort_hits(*args, max_hits=max_hits,
+                                         capacity=cap)
+            sync(torch, dev)
+            compare(torch, errs, "phase2", "expand_sort_hits", "%s C=%d" % (
+                tag, cap), got, seeds.expand_sort_hits_reference(
+                    *args, max_hits=max_hits, capacity=cap))
 
 
 def _recorder(StagedAligner, gap_dispatch, pack_coords):
@@ -778,27 +860,31 @@ def long_read_105k(rng):
 
 
 def phase_cli(nib, idx):
-    """The port's CLI with --device cuda on the golden test set."""
+    """The port's CLI with --device cuda on the golden test set, with the
+    host seed scan and with --seed device."""
     gold = os.path.join(REPO, "tests", "golden")
     with tempfile.TemporaryDirectory(dir=CACHE) as d:
         for f in (nib, idx, os.path.join(REPO, "tests", "data",
                                          "readsA_100bp.fasta")):
             os.symlink(f, os.path.join(d, os.path.basename(f)))
         env = dict(os.environ, PYTHONPATH=REPO)
-        run([sys.executable, "-m", "yaha_tpu_torch.cli", "-x",
-             "testgen.X11_01_65525S", "-q", "readsA_100bp.fasta",
-             "--engine", "batch-cuda", "--device", "cuda", "-osh",
-             "A.sam"], cwd=d, env=env)
 
         def body(p):
             with open(p, "rb") as f:
                 return [ln for ln in f.read().split(b"\n")
                         if not ln.startswith(b"@PG")]
-        if body(os.path.join(d, "A.sam")) != body(
-                os.path.join(gold, "A_default.sam")):
-            raise AssertionError("CLI --device cuda: SAM differs from "
-                                 "tests/golden/A_default.sam")
-    log("phase4 cli: --engine batch-cuda --device cuda == A_default.sam")
+        for seed in ("host", "device"):
+            run([sys.executable, "-m", "yaha_tpu_torch.cli", "-x",
+                 "testgen.X11_01_65525S", "-q", "readsA_100bp.fasta",
+                 "--engine", "batch-cuda", "--device", "cuda", "--seed",
+                 seed, "-osh", "A.sam"], cwd=d, env=env)
+            if body(os.path.join(d, "A.sam")) != body(
+                    os.path.join(gold, "A_default.sam")):
+                raise AssertionError("CLI --device cuda --seed %s: SAM "
+                                     "differs from tests/golden/"
+                                     "A_default.sam" % seed)
+            log("phase4 cli: --engine batch-cuda --device cuda --seed %s == "
+                "A_default.sam" % seed)
 
 
 def _time_kernel(torch, dev, fn, sets, reps=8):
@@ -836,6 +922,22 @@ def _bound(nbytes, ops):
 
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _record(torch, kernels, errs, phase, name, tag, ms, plain_ms, got,
+            want, nbytes, ops, library_ms=None):
+    """Hold a timed kernel's output to its plain version's and enter its
+    times and bound in the kernels line."""
+    compare(torch, errs, phase, name, tag, got, want)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    kernels[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         max_abs_err=errs[name])
+    log("%s %s %s: kernel %.6f ms, plain %.3f ms, library %s ms, bound "
+        "%.6f ms (%s: %d bytes, %d int32 ops), %.1f %% of the bound" % (
+            phase, name, tag, ms, plain_ms, "none" if library_ms is None
+            else "%.6f" % library_ms, bound_ms, bound_by, nbytes, ops,
+            100 * bound_ms / ms))
 
 
 def _band_cells_each(ql, rl, lb, rb, qmax):
@@ -958,16 +1060,8 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
                 for _ in range(4)]
 
     def finish(name, key, n, ms, plain_ms, got, want, nbytes, ops):
-        compare(torch, errs, "phase5", name, "bucket=%s N=%d" % (
-            list(key[1:]), n), got, want)
-        bound_ms, bound_by = _bound(nbytes, ops)
-        kernels[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None,
-                             max_abs_err=errs[name])
-        log("phase5 %s bucket=%s N=%d: kernel %.6f ms, plain %.3f ms, bound "
-            "%.6f ms (%s: %d bytes, %d int32 ops), %.1f %% of the bound" % (
-                name, list(key[1:]), n, ms, plain_ms, bound_ms, bound_by,
-                nbytes, ops, 100 * bound_ms / ms))
+        _record(torch, kernels, errs, "phase5", name, "bucket=%s N=%d" % (
+            list(key[1:]), n), ms, plain_ms, got, want, nbytes, ops)
 
     def bucket_sets(arrs):
         base = [a if torch.is_tensor(a) else torch.from_numpy(
@@ -1176,6 +1270,243 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
            out_bytes + copied + coords.nbytes, out_bytes * GATHER_BYTE_OPS)
 
 
+def _seed_recorder(torch, DeviceSeeder):
+    """A DeviceSeeder that keeps, for phase 6's checks and times, the
+    strand rows and lengths of its largest chunk ("rows") and the hashes
+    and clean flags of its largest launch at each capacity tier."""
+    class SeedRecorder(DeviceSeeder):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.kept = {}
+
+        def _keep(self, key, arrays):
+            if key not in self.kept or (arrays[0].shape[0] >
+                                        self.kept[key][0].shape[0]):
+                self.kept[key] = arrays
+
+        def seed_chunk(self, pr, lo, hi, rows2=None):
+            if rows2 is not None:
+                offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
+                lens = np.repeat(np.diff(offs[lo:hi + 1]), 2)
+                self._keep("rows", (rows2, torch.from_numpy(lens.astype(
+                    np.int32)).to(rows2.device)))
+            return super().seed_chunk(pr, lo, hi, rows2)
+
+        def _expand(self, hashes, clean, capacity):
+            self._keep(capacity, (hashes, clean))
+            return super()._expand(hashes, clean, capacity)
+    return SeedRecorder
+
+
+def _reset_stats(*objs):
+    """Zero the run stats of aligners and seeders (a seeder's index upload
+    figures stay)."""
+    for o in objs:
+        o.stats.update({k: type(v)() for k, v in o.stats.items()
+                        if not k.startswith("index_upload")})
+
+
+def _seed_report(tag, seeder):
+    s = seeder.stats
+    log("%s seeder: seed_launches=%d seed_h2d_mb=%.3f seed_d2h_mb=%.3f "
+        "cap_retries=%d phantom_rows=%d fallback_rows=%d seed_device_s=%.4f"
+        % (tag, s["seed_launches"], s["seed_h2d_bytes"] / 1e6,
+           s["seed_d2h_bytes"] / 1e6, s["cap_retries"], s["phantom_rows"],
+           s["fallback_rows"], s["seed_device_s"]))
+
+
+def phase_seed(torch, sw, StagedAligner, SeedRecorder, genome, index, aa,
+               pr, ref, threads, dev):
+    """The 1 kb batch with the device seeder (--seed device, the full L15
+    index resident on the card): the seeder's construction (the index's
+    upload) and a cold run, then a warm run with the launch counts reset
+    just before it, SAM bytes equal to the native engine's each time; then
+    the host seed scan and the device seeder in turns (host, device,
+    device, host) with begin_s and the warm wall.  Returns (seeder,
+    launches of the warm run)."""
+    t0 = time.time()
+    seeder = SeedRecorder(aa, index, device=dev)
+    s = seeder.stats
+    log("phase6 index upload: %d bytes (SO %d + ROA %d entries) in %.3f s, "
+        "%.2f GB/s" % (s["index_upload_bytes"],
+                       seeder.iview.starting_offs.size, seeder.iview.roa.size,
+                       s["index_upload_s"], s["index_upload_bytes"] / 1e9 /
+                       s["index_upload_s"]))
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads,
+                       seeder=seeder)
+    _timed(torch, sw, st, pr, ref, dev, "phase6 1kb seed cold run")
+    cold = time.time() - t0
+    _reset_stats(st, seeder)
+    warm, launches = _timed(torch, sw, st, pr, ref, dev,
+                            "phase6 1kb seed warm run")
+    _report("phase6 1kb seed", pr.n, {"cold_wall_s": cold,
+                                      "warm_wall_s": warm}, st.stats,
+            launches)
+    _seed_report("phase6 1kb", seeder)
+    for name in KERNELS:
+        if (launches[name] == 0) != (name == "extension_forward_scratch"):
+            raise AssertionError("phase6: %s launched %d times" % (
+                name, launches[name]))
+    # The host seed scan (a fresh default aligner) and the device seeder
+    # in turns.
+    host_st = StagedAligner(aa, genome, index, device=dev, n_threads=threads)
+    _timed(torch, sw, host_st, pr, ref, dev, "phase6 host-seed first run")
+    for label in ("host", "device", "device", "host"):
+        a = host_st if label == "host" else st
+        _reset_stats(a, seeder)
+        wall, _ = _timed(torch, sw, a, pr, ref, dev, "phase6 turn " + label)
+        log("phase6 1kb turn seed=%s: warm_wall_s=%.4f seed_device_s=%.4f "
+            "device_s=%.4f host_s=%s" % (
+                label, wall, seeder.stats["seed_device_s"] if a is st else 0,
+                a.stats["device_s"], json.dumps({k[:-2]: round(
+                    a.stats[k], 4) for k in ("begin_s", "gap_host_s",
+                                             "phase2_s", "ext_host_s",
+                                             "finish_s")})))
+    return seeder, launches
+
+
+def phase_seed_reads(torch, sw, host, StagedAligner, DeviceSeeder, seeder,
+                     genome, index, aa10, pr10, ref10, tg_nib, tg_idx,
+                     threads, dev):
+    """The device seeder on the 10 kb reads (their rows pass 1,024 hits:
+    the tier-2 retry and the host-scan rows) and on the golden test set
+    (readsC_1kb.fasta at -BW 3 -G 20 -M 15 -X 15 against the L11 test
+    index: phantom, retry and host-scan rows all occur); SAM bytes equal to
+    the native engine's each time."""
+    _reset_stats(seeder)
+    st = StagedAligner(aa10, genome, index, device=dev, n_threads=threads,
+                       seeder=seeder)
+    wall, launches = _timed(torch, sw, st, pr10, ref10, dev,
+                            "phase6 10kb seed")
+    _report("phase6 10kb seed", pr10.n, {"warm_wall_s": wall}, st.stats,
+            launches)
+    _seed_report("phase6 10kb", seeder)
+    if not seeder.stats["cap_retries"]:
+        raise AssertionError("phase6 10kb: no row went to the second tier")
+    tg_index = host.load_index(tg_idx)
+    tg_genome = host.load_genome(tg_nib)
+    aa = _aa(host, tg_index, tg_idx, band_width=3, max_gap=20, min_match=15,
+             x_cutoff=15)
+    with open(os.path.join(REPO, "tests", "data", "readsC_1kb.fasta"),
+              "rb") as f:
+        pr = host.parse_queries_native(f.read(), False, aa.max_query_length,
+                                       aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, tg_genome, tg_index, aa,
+                                  n_threads=threads)[0]
+    tg_seeder = DeviceSeeder(aa, tg_index, device=dev)
+    st = StagedAligner(aa, tg_genome, tg_index, device=dev,
+                       n_threads=threads, seeder=tg_seeder)
+    wall, launches = _timed(torch, sw, st, pr, ref, dev,
+                            "phase6 readsC params seed")
+    _seed_report("phase6 readsC params", tg_seeder)
+    s = tg_seeder.stats
+    if not (s["phantom_rows"] and s["cap_retries"] and s["fallback_rows"]):
+        raise AssertionError("phase6 readsC params: phantom, retry and "
+                             "host-scan rows must all occur: %s" % s)
+    log("phase6 readsC params: reads=%d parity=true wall_s=%.4f launches=%s"
+        % (pr.n, wall, json.dumps({k: launches[k] for k in SEED_KERNELS})))
+
+
+def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
+    """Both seed kernels against their plain versions at the 1 kb batch's
+    shapes, on the main path's own inputs (the recorder's strand rows and
+    tier launches): seed_hashes on the rows, expand_sort_hits on the whole
+    batch at C = 1,024 and on the tier-2 population at C = 8,192 and 1,024;
+    then each kernel's time at its largest launch (CUDA events, 4 shuffled
+    copies) beside its bound and its plain version's time, and beside the
+    expansion, torch.sort(dim=1) of the same keys (int64 with the sign bit
+    flipped, so that the order is diag's unsigned one) as its library
+    yardstick."""
+    rng = np.random.default_rng(SEED)
+    wl = seeder.word_len
+    so, roa = seeder.so_dev, seeder.roa_dev
+    mh = int(seeder.aa.max_hits)
+    rows2, lengths = seeder.kept["rows"]
+    b, l = rows2.shape
+    n = l - wl + 1
+    hkw = dict(word_len=wl)
+
+    def shuffled(arrs):
+        perms = [torch.from_numpy(rng.permutation(arrs[0].shape[0])).to(dev)
+                 for _ in range(4)]
+        return [[a.index_select(0, p) for a in arrs] for p in perms]
+
+    sets = shuffled([rows2, lengths])
+    ms = _time_kernel(torch, dev, lambda *a: seeds.seed_hashes(*a, **hkw),
+                      sets)
+    plain_ms, want = _time_once(
+        torch, dev, lambda *a: seeds.seed_hashes_reference(*a, **hkw), sets[1])
+    got = seeds.seed_hashes(*sets[1], **hkw)
+    sync(torch, dev)
+    _record(torch, kernels, errs, "phase6", "seed_hashes",
+            "rows=%d L=%d wl=%d" % (b, l, wl), ms, plain_ms,
+            {"hashes": got[0], "clean": got[1]},
+            {"hashes": want[0], "clean": want[1]},
+            b * l + 4 * b + 5 * b * n, b * n * HASH_WINDOW_OPS)
+    del sets, got, want
+    for cap, (hashes, clean) in sorted((k, v) for k, v in seeder.kept.items()
+                                       if k != "rows"):
+        for c in sorted({cap, seeder.CAP_TIERS[0]}):
+            kw = dict(max_hits=mh, capacity=c)
+            got = seeds.expand_sort_hits(hashes, clean, so, roa, **kw)
+            sync(torch, dev)
+            compare(torch, errs, "phase6", "expand_sort_hits",
+                    "tier-%d population rows=%d N=%d C=%d" % (
+                        seeder.CAP_TIERS.index(cap) + 1, hashes.shape[0],
+                        hashes.shape[1], c), got,
+                    seeds.expand_sort_hits_reference(hashes, clean, so, roa,
+                                                     **kw))
+            del got
+    for cap in seeder.CAP_TIERS:
+        hashes, clean = seeder.kept[cap]
+        kw = dict(max_hits=mh, capacity=cap)
+        sets = shuffled([hashes, clean])
+        ms = _time_kernel(torch, dev, lambda *a: seeds.expand_sort_hits(
+            *a, so, roa, **kw), sets)
+        plain_ms, want = _time_once(
+            torch, dev, lambda *a: seeds.expand_sort_hits_reference(
+                *a, so, roa, **kw), sets[1])
+        got = seeds.expand_sort_hits(*sets[1], so, roa, **kw)
+        # The sort's yardstick on the plain expansion's unsorted keys:
+        # (diag << 32 | qo) ^ (1 << 63), written (diag - 2^31) << 32 | qo so
+        # that no shift leaves the int64 range.
+        keys = []
+        for h, c in sets:
+            pre = seeds._expand_reference(h, c, so, roa, **kw)
+            keys.append([((pre["diag"] - (1 << 31)) << 32) | pre["qo"]])
+            del pre
+        lib_ms = _time_kernel(torch, dev, lambda k: torch.sort(k, dim=1),
+                              keys)
+        lib = torch.sort(keys[1][0], dim=1).values
+        sync(torch, dev)
+        if not (torch.equal((lib >> 32) + (1 << 31), got["diag"].to(
+                torch.int64) & 0xFFFFFFFF) and torch.equal(
+                    lib & 0xFFFFFFFF, got["qo"].to(torch.int64))):
+            raise AssertionError("phase6 expand_sort_hits C=%d: torch.sort "
+                                 "of the keys differs from the kernel" % cap)
+        del keys, lib
+        rows, windows = hashes.shape
+        valid = want["total"].to(torch.int64).clamp(0, cap)
+        steps = torch.where(valid > 1, valid * torch.ceil(torch.log2(
+            valid.clamp(min=2).double())).to(torch.int64), 0)
+        nbytes = (_nbytes(hashes, clean) + 8 * int(clean.sum()) +
+                  4 * int(valid.sum()) + _nbytes(*got.values()))
+        ops = SORT_CMP_OPS * int(steps.sum()) + WINDOW_OPS * rows * windows
+        tag = "C=%d rows=%d N=%d" % (cap, rows, windows)
+        if cap == seeder.CAP_TIERS[0]:
+            _record(torch, kernels, errs, "phase6", "expand_sort_hits", tag,
+                    ms, plain_ms, got, want, nbytes, ops, library_ms=lib_ms)
+        else:
+            compare(torch, errs, "phase6", "expand_sort_hits", tag, got,
+                    want)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            log("phase6 expand_sort_hits %s (tier 2): kernel %.6f ms, plain "
+                "%.3f ms, torch.sort %.6f ms, bound %.6f ms (%s), %.1f %% of "
+                "the bound" % (tag, ms, plain_ms, lib_ms, bound_ms, bound_by,
+                               100 * bound_ms / ms))
+        del sets, got, want
+
+
 def phase_gap_histogram(sw, runs):
     """Every gap launch of each run (the Recorder's gap log): (kernel, qg,
     rg, plane width, N), its warps of 32 problems by width class
@@ -1238,9 +1569,10 @@ def _device_time(torch, prof, wall):
     return busy / 1e3, 1 - busy / 1e3 / (wall * 1e3), kinds, top
 
 
-def phase_profile(torch, sw, host, StagedAligner, genome, index, aa, reads,
-                  threads, out, dev):
-    """--profile: the 1 kb batch in the default and the A/B configuration."""
+def phase_profile(torch, sw, host, StagedAligner, DeviceSeeder, genome,
+                  index, aa, reads, threads, out, dev):
+    """--profile: the 1 kb batch in the default and the A/B configuration,
+    and in the default one with the device seeder ("seed")."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out, exist_ok=True)
@@ -1251,19 +1583,27 @@ def phase_profile(torch, sw, host, StagedAligner, genome, index, aa, reads,
                                   n_threads=threads)[0]
     log("profile native: wall_s=%.4f" % (time.time() - t0))
     kw = dict(device=dev, n_threads=threads)
+    seeder = DeviceSeeder(aa, index, device=dev)
     aligners = {"default": StagedAligner(aa, genome, index, **kw),
-                "ab": StagedAligner(aa, genome, index, **kw, **AB)}
+                "ab": StagedAligner(aa, genome, index, **kw, **AB),
+                "seed": StagedAligner(aa, genome, index, **kw,
+                                      seeder=seeder)}
     for name, st in aligners.items():
         _timed(torch, sw, st, pr, ref, dev, "profile %s first run" % name)
-    for name in ("default", "ab", "ab", "default", "default", "ab"):
+    for name in ("default", "ab", "seed", "seed", "ab", "default",
+                 "default", "ab", "seed"):
         st = aligners[name]
-        st.stats = {k: type(v)() for k, v in st.stats.items()}
+        _reset_stats(st, seeder)
         wall, _ = _timed(torch, sw, st, pr, ref, dev, "profile " + name)
         s = st.stats
-        log("profile %s: warm_wall_s=%.4f device_s=%.4f h2d_mb=%.3f "
-            "d2h_mb=%.3f plane_d2h_mb=%.3f" % (
-                name, wall, s["device_s"], s["h2d_bytes"] / 1e6,
-                s["d2h_bytes"] / 1e6, s["plane_d2h_bytes"] / 1e6))
+        log("profile %s: warm_wall_s=%.4f device_s=%.4f seed_device_s=%.4f "
+            "h2d_mb=%.3f d2h_mb=%.3f plane_d2h_mb=%.3f host_s=%s" % (
+                name, wall, s["device_s"], seeder.stats["seed_device_s"],
+                s["h2d_bytes"] / 1e6, s["d2h_bytes"] / 1e6,
+                s["plane_d2h_bytes"] / 1e6, json.dumps({
+                    k[:-2]: round(s[k], 4) for k in (
+                        "begin_s", "gap_host_s", "phase2_s", "ext_host_s",
+                        "finish_s")})))
     for name, st in aligners.items():
         pf = cProfile.Profile()
         pf.enable()
@@ -1300,8 +1640,9 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
     from yaha_tpu_torch.models.staged import StagedAligner, gap_dispatch
-    from yaha_tpu_torch.ops import sw_cuda as sw
+    from yaha_tpu_torch.ops import seeds, sw_cuda as sw
     from yaha_tpu_torch.ops.gather_dp import pack_coords
     dev = torch.device("cuda")
     threads = os.cpu_count() or 1
@@ -1334,23 +1675,25 @@ def main():
                              BATCH - len(sv) - n_half, len(sv)))
     aa = _aa(host, index, idx)
     if args.profile:
-        phase_profile(torch, sw, host, StagedAligner, genome, index, aa,
-                      reads, threads, args.profile, dev)
+        phase_profile(torch, sw, host, StagedAligner, DeviceSeeder, genome,
+                      index, aa, reads, threads, args.profile, dev)
         log("total: %.1f s" % (time.time() - t_start))
         return 0
     st, launches, pr, ref = phase_main(torch, sw, host, Recorder, genome,
                                        index, aa, reads, threads,
                                        "phase3 1kb", dev)
-    # At -BW 5 (W = 21) every extension goes through the register kernel.
+    # At -BW 5 (W = 21) every extension goes through the register kernel;
+    # the host seed scan launches no seed kernel.
     for name in KERNELS:
-        if (launches[name] == 0) != (name == "extension_forward_scratch"):
+        if (launches[name] == 0) != (name == "extension_forward_scratch" or
+                                     name in SEED_KERNELS):
             raise AssertionError("phase3: %s launched %d times" % (
                 name, launches[name]))
     log("phase3 1kb launches by route: %s" % json.dumps(
-        {k: launches[k] for k in KERNELS}))
+        {k: launches[k] for k in DP_KERNELS}))
     kernels = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches[name],
-                      "max_abs_err": errs[name]}
+                      "max_abs_err": errs.get(name, 0)}
                for name, (src, rep) in KERNELS.items()}
     phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
              "phase3 1kb A/B", dev)
@@ -1367,9 +1710,10 @@ def main():
 
     long_reads = (sample_reads(seqs, 128, 10000, rng, b"long", False) +
                   sample_reads(seqs, 128, 10000, rng, b"longindel", True))
-    st10 = phase_main(torch, sw, host, Recorder, genome, index,
-                      _aa(host, index, idx), long_reads, threads,
-                      "phase4 10kb", dev)[0]
+    aa10 = _aa(host, index, idx)
+    st10, _, pr10, ref10 = phase_main(torch, sw, host, Recorder, genome,
+                                      index, aa10, long_reads, threads,
+                                      "phase4 10kb", dev)
     tg_nib, tg_idx = testgen_files()
     tg_index = host.load_index(tg_idx)
     st105 = phase_main(torch, sw, host, Recorder, host.load_genome(tg_nib),
@@ -1377,7 +1721,18 @@ def main():
                              max_query_length=150000),
                long_read_105k(rng), threads, "phase4 105kb", dev)[0]
     phase_cli(tg_nib, tg_idx)
+    # The device seed phase: its counts are set to 0 just before its warm
+    # run and read just after it.
+    seeder, seed_launches = phase_seed(
+        torch, sw, StagedAligner, _seed_recorder(torch, DeviceSeeder),
+        genome, index, aa, pr, ref, threads, dev)
+    for name in SEED_KERNELS:
+        kernels[name]["launches"] = seed_launches[name]
+    phase_seed_reads(torch, sw, host, StagedAligner, DeviceSeeder, seeder,
+                     genome, index, aa10, pr10, ref10, tg_nib, tg_idx,
+                     threads, dev)
     phase_times(torch, sw, st, st10, kernels, errs, dev)
+    phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev)
     phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
                              ("10kb", st10), ("105kb", st105)])
 

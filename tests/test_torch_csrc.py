@@ -29,10 +29,19 @@ ends before the last column);
     16-byte chunk of both rows through gather_chunk / gather_store), held
     to gather_dp.gather_reference from every source alignment, forward
     and reversed, with output rows at every alignment, short copies, both
-    pads and clamped sources.
+    pads and clamped sources;
+  * the seed phase of csrc/seed_kernels.cu: seed_hash_window over every
+    window, held to seeds.seed_hashes_reference at word lengths 4, 11 and
+    15, and window_run / expand_window with a sequential scan and
+    std::sort in place of the block's, held to
+    seeds.expand_sort_hits_reference on the golden index's seed rows at
+    capacities 64, 1,024 and 8,192, on the wrapped run at a tier's last
+    slots and on unsigned-order and sentinel edges; every output
+    prefilled with garbage.
 
-The plain versions are held to the JAX package in test_torch_decode.py
-and test_torch_gather.py.  The test skips only where g++ is missing.
+The plain versions are held to the JAX package in test_torch_decode.py,
+test_torch_gather.py and test_torch_seeds.py.  The test skips only where
+g++ is missing.
 """
 import ctypes as ct
 import os
@@ -44,12 +53,14 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_edge_inputs,
+                            EXT_SWEEP_IDS, KW, KW_WRAP, SEED_CASES,
+                            anchored_edge_inputs,
                             anchored_sweep_inputs,
                             extension_inputs, gather_aligned_coords,
                             gather_case, gather_clamp_coords, gather_coords,
-                            long_run_inputs, read_rows)
-from yaha_tpu_torch.ops import decode, gather_dp, sw_cuda
+                            long_run_inputs, read_rows, seed_case,
+                            seed_rows)
+from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "yaha_tpu_torch", "csrc")
@@ -60,8 +71,12 @@ C_LOOP = r"""
 #include "decode_kernels.cu"
 #include "gather_kernels.cu"
 #include "anch_kernels.cu"
+#include "seed_kernels.cu"
 
 #include <string.h>
+
+#include <algorithm>
+#include <vector>
 
 // Anchored gap fill, banded (full = 0) or full width.  tier 0: the scratch
 // body of every problem over scratch [3][cols][N] (the plane zero-filled by
@@ -173,6 +188,57 @@ extern "C" void run_gather(const uint8_t* rows2, int64_t nrows, int64_t lpad,
                              r);
 }
 
+// seed_hash_window over every window of every row.
+extern "C" void run_seed_hashes(const uint8_t* codes, int64_t b, int64_t l,
+                                const int32_t* lengths, int32_t wl,
+                                int32_t* hashes, uint8_t* clean) {
+    const int64_t n = l - wl + 1;
+    for (int64_t r = 0; r < b; r++)
+        for (int64_t p = 0; p < n; p++)
+            ytsw::seed_hash_window(codes + r * l, lengths[r], wl, p,
+                                   hashes + r * n + p, clean + r * n + p);
+}
+
+// expand_sort_kernel's rows through its per-window bodies: a sequential
+// scan of the kept counts in place of the block's, the windows expanded
+// last to first (the block's chunks store their slots in no set order),
+// and std::sort in place of the bitonic sort.
+extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
+                                int64_t b, int64_t n, const uint32_t* so,
+                                const uint32_t* roa, int32_t max_hits,
+                                int64_t cap, uint32_t* diag, int32_t* qo,
+                                int32_t* total, uint8_t* overflow,
+                                uint8_t* wrapped, uint8_t* allwrapped) {
+    std::vector<uint64_t> keys((size_t)cap);
+    std::vector<ytsw::WindowRun> runs((size_t)n);
+    std::vector<int32_t> start((size_t)n);
+    for (int64_t r = 0; r < b; r++) {
+        std::fill(keys.begin(), keys.end(), ytsw::kSeedSentinel);
+        uint32_t carry = 0;
+        for (int64_t w = 0; w < n; w++) {
+            runs[w] = ytsw::window_run(hashes[r * n + w],
+                                       clean[r * n + w] != 0, so, max_hits);
+            start[w] = (int32_t)carry;
+            carry += (uint32_t)runs[w].kept;
+        }
+        bool any = false;
+        for (int64_t w = n - 1; w >= 0; w--) {
+            const bool wr = ytsw::expand_window(w, runs[w], start[w], roa,
+                                                cap, keys.data());
+            wrapped[r * n + w] = wr ? 1 : 0;
+            any = any || wr;
+        }
+        std::sort(keys.begin(), keys.end());
+        for (int64_t t = 0; t < cap; t++) {
+            diag[r * cap + t] = (uint32_t)(keys[t] >> 32);
+            qo[r * cap + t] = (int32_t)(uint32_t)keys[t];
+        }
+        total[r] = (int32_t)carry;
+        overflow[r] = (int32_t)carry > cap ? 1 : 0;
+        allwrapped[r] = any ? 1 : 0;
+    }
+}
+
 // variant 0: ext_problem (scratch [3][W+2][N]); 1: ext_problem_reg<W>;
 // 2: ext_problem_reg<W> with every row predicated.
 extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
@@ -255,6 +321,15 @@ def lib(tmp_path_factory):
                                 ct.c_void_p, ct.c_int64, ct.c_void_p] +
                                [ct.c_int64] * 3 + [ct.c_int32] +
                                [ct.c_void_p] * 2 + [ct.c_int])
+    out.run_seed_hashes.restype = None
+    out.run_seed_hashes.argtypes = [ct.c_void_p, ct.c_int64, ct.c_int64,
+                                    ct.c_void_p, ct.c_int32, ct.c_void_p,
+                                    ct.c_void_p]
+    out.run_expand_sort.restype = None
+    out.run_expand_sort.argtypes = ([ct.c_void_p] * 2 + [ct.c_int64] * 2 +
+                                    [ct.c_void_p] * 2 +
+                                    [ct.c_int32, ct.c_int64] +
+                                    [ct.c_void_p] * 6)
     return out
 
 
@@ -634,3 +709,64 @@ def test_gather_body_matches_plain(lib, qg, rg, rpad, src_off):
             np.testing.assert_array_equal(
                 g_, w_.numpy(), err_msg="%s out_off %d backwards %s" % (
                     name, out_off, backwards))
+
+
+# ---- the seed phase ----
+
+@pytest.mark.parametrize("wl", [4, 11, 15])
+def test_seed_hash_body_matches_plain(lib, wl):
+    """seed_hash_window over the seed rows (N and X codes, reads shorter
+    than the word, pad code 4), outputs prefilled with garbage."""
+    codes, lens = seed_rows(wl, n_wrapped=2)
+    b, l = codes.shape
+    n = l - wl + 1
+    hashes = np.full((b, n), UNWRITTEN, np.int32)
+    clean = np.full((b, n), 0x5A, np.uint8)
+    lib.run_seed_hashes(codes.ctypes.data, b, l, lens.ctypes.data, wl,
+                        hashes.ctypes.data, clean.ctypes.data)
+    want = seeds.seed_hashes_reference(torch.from_numpy(codes),
+                                       torch.from_numpy(lens), word_len=wl)
+    np.testing.assert_array_equal(hashes, want[0].numpy())
+    np.testing.assert_array_equal(clean, want[1].numpy())
+
+
+def _seed_inputs(case):
+    """(hashes, clean, SO, ROA, max_hits, capacity) of a SEED_CASES id."""
+    src, so, roa, max_hits, cap = seed_case(case)
+    if src[0] == "rows":
+        h, c = seeds.seed_hashes_reference(torch.from_numpy(src[1]),
+                                           torch.from_numpy(src[2]),
+                                           word_len=src[3])
+        src = (None, h.numpy(), c.numpy())
+    return src[1], src[2], so, roa, max_hits, cap
+
+
+@pytest.mark.parametrize("case", SEED_CASES)
+def test_expand_bodies_match_plain(lib, case):
+    """window_run and expand_window, with a sequential scan and sort, on
+    the golden index's seed rows (rows that overflow 64 and 1,024 hits,
+    wrapped windows), the wrapped run at the end of a 128-slot buffer and
+    past a 64-slot one, and hits of diag >= 2^31 and 0xFFFFFFFF beside
+    the sentinel; every output prefilled with garbage."""
+    hashes, clean, so, roa, max_hits, cap = _seed_inputs(case)
+    b, n = hashes.shape
+    out = {"diag": np.full((b, cap), UNWRITTEN, np.uint32),
+           "qo": np.full((b, cap), UNWRITTEN, np.int32),
+           "total": np.full(b, UNWRITTEN, np.int32),
+           "overflow": np.full(b, 0x5A, np.uint8),
+           "wrapped": np.full((b, n), 0x5A, np.uint8),
+           "allwrapped": np.full(b, 0x5A, np.uint8)}
+    arrs = [np.ascontiguousarray(a) for a in (hashes, clean, so, roa)]
+    lib.run_expand_sort(arrs[0].ctypes.data, arrs[1].ctypes.data, b, n,
+                        arrs[2].ctypes.data, arrs[3].ctypes.data, max_hits,
+                        cap, *(out[k].ctypes.data for k in (
+                            "diag", "qo", "total", "overflow", "wrapped",
+                            "allwrapped")))
+    want = seeds.expand_sort_hits_reference(
+        *(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+          for a in arrs), max_hits=max_hits, capacity=cap)
+    for key, w in want.items():
+        got = out[key].view(np.int32) if key == "diag" else out[key]
+        np.testing.assert_array_equal(got, w.numpy().astype(got.dtype),
+                                      err_msg=key)
+    assert out["wrapped"].any()

@@ -8,9 +8,13 @@ which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
 hold the plain versions to the JAX package: every output equal, whole
 backtrack planes, assembled problem planes and walk items included
 (integer arrays, tolerance zero).  The walk kernel, at each team size, is held
-to its plain version on the items up to n_ops, the only slots it writes.  The engine is held to the native C++
-engine, SAM bytes equal, in its default configuration (device assembly +
-device walk) and in the A/B one.  Neither jax nor tests/conftest.py is
+to its plain version on the items up to n_ops, the only slots it writes.
+Both seed kernels are held to their plain versions on the seed rows of the
+golden index at capacities 64 to 16,384 (both tiers) and on the
+unsigned-order, sentinel and wrapped-run edges (tests/test_torch_seeds.py
+holds the plain versions to the JAX package).  The engine is held to the
+native C++ engine, SAM bytes equal, in its default configuration (device
+assembly + device walk) and in the A/B one, and with the device seeder.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
 with
 
@@ -26,13 +30,15 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_edge_inputs,
+                            EXT_SWEEP_IDS, KW, KW_WRAP, SEED_CASES,
+                            anchored_edge_inputs,
                             anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, indel_reads,
-                            long_run_inputs, read_rows)
-from yaha_tpu_torch.ops import decode, gather_dp, sw_cuda
+                            long_run_inputs, read_rows, seed_case,
+                            seed_rows)
+from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -299,6 +305,55 @@ def test_walk_refused_launch_raises(dev):
     assert not any(sw_cuda.launches().values())
 
 
+@pytest.mark.parametrize("wl", [4, 11, 15])
+def test_seed_hash_kernel_matches_plain(dev, wl):
+    codes, lens = _up(dev, *seed_rows(wl))
+    sw_cuda.reset_launches()
+    got = seeds.seed_hashes(codes, lens, word_len=wl)
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "seed_hashes": 1}
+    want = seeds.seed_hashes_reference(codes, lens, word_len=wl)
+    _equal({"h": got[0], "c": got[1]}, {"h": want[0], "c": want[1]})
+
+
+@pytest.mark.parametrize("case", SEED_CASES + ["golden16384",
+                                               "unsigned1024"])
+def test_expand_sort_kernel_matches_plain(dev, case):
+    """Every output equal, the sentinel slots and the wrapped flags of
+    overflowed rows included; one launch."""
+    src, so, roa, max_hits, cap = seed_case(case)
+    if src[0] == "rows":
+        codes, lens = _up(dev, src[1], src[2])
+        hashes, clean = seeds.seed_hashes_reference(codes, lens,
+                                                    word_len=src[3])
+    else:
+        hashes, clean = _up(dev, src[1], src[2])
+    so, roa = _up(dev, so.view(np.int32), roa.view(np.int32))
+    kw = dict(max_hits=max_hits, capacity=cap)
+    sw_cuda.reset_launches()
+    got = seeds.expand_sort_hits(hashes, clean, so, roa, **kw)
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "expand_sort_hits": 1}
+    _equal(got, seeds.expand_sort_hits_reference(hashes, clean, so, roa,
+                                                 **kw))
+
+
+def test_seed_wrappers_refuse_shapes(dev):
+    """A capacity that is not a power of two or is past MAX_CAPACITY, and a
+    word length past 15, raise and launch nothing."""
+    codes, lens = _up(dev, *seed_rows(1, n_sampled=4, n_wrapped=0))
+    hashes, clean = seeds.seed_hashes_reference(codes, lens, word_len=11)
+    so, roa = _up(dev, np.zeros(8, np.int32), np.zeros(4, np.int32))
+    sw_cuda.reset_launches()
+    for cap in (1000, 2 * seeds.MAX_CAPACITY):
+        with pytest.raises(ValueError):
+            seeds.expand_sort_hits(hashes, clean, so, roa, max_hits=650,
+                                   capacity=cap)
+    with pytest.raises(ValueError):
+        seeds.seed_hashes(codes, lens, word_len=16)
+    assert not any(sw_cuda.launches().values())
+
+
 @pytest.fixture(scope="module")
 def testgen(dev, tmp_path_factory):
     from yaha_tpu_torch import host
@@ -360,3 +415,44 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over, config):
     assert (launched["gather_problems"] > 0) == default
     assert (launched["rle_walk"] > 0) == default
     assert (st.stats["plane_d2h_bytes"] == 0) == default
+
+
+@pytest.mark.parametrize("qfile,over", [
+    ("readsC_1kb.fasta", {"band_width": 3, "max_gap": 20, "min_match": 15,
+                          "x_cutoff": 15}),
+    ("readsA_100bp.fasta", {}),
+], ids=["C_params", "A_default"])
+def test_staged_cuda_with_seeder_matches_native(dev, testgen, qfile, over):
+    """The engine with the device seeder (--seed device) on the card: SAM
+    bytes equal the native engine's; both seed kernels launched; on
+    C_params the phantom, retry and host-scan rows all occur."""
+    from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = testgen
+    aa = host.AlignmentArgs()
+    aa.xfile_name = INDEX
+    aa.ofile_name = "out.sam"
+    for k, v in over.items():
+        setattr(aa, k, v)
+    aa.post_process(True)
+    aa.word_len = index.word_len
+    aa.max_hits = min(aa.max_hits, index.max_hits)
+    pr = host.parse_queries_native(_reads(qfile), False,
+                                   aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=4)
+    seeder = DeviceSeeder(aa, index, device=dev)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=4,
+                       seeder=seeder)
+    sw_cuda.reset_launches()
+    text, sm, nr = st.align_chunk(pr, 0, pr.n)
+    assert text == ref[0]
+    assert (sm, nr) == (ref[2], ref[3])
+    launched = sw_cuda.launches()
+    assert launched["seed_hashes"] == 1
+    assert launched["expand_sort_hits"] == seeder.stats["seed_launches"]
+    if qfile == "readsC_1kb.fasta":
+        s = seeder.stats
+        assert s["phantom_rows"] > 0 and s["cap_retries"] > 0
+        assert s["fallback_rows"] > 0

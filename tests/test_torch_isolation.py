@@ -40,6 +40,8 @@ def _reference_imports(path, root=REPO):
 def test_scan_covers_the_port():
     assert "yaha_tpu_torch/models/staged.py" in PORT_FILES
     assert "yaha_tpu_torch/native/host.py" in PORT_FILES
+    assert "yaha_tpu_torch/models/seeder.py" in PORT_FILES
+    assert "yaha_tpu_torch/ops/seeds.py" in PORT_FILES
     assert len(PORT_FILES) > 15
 
 

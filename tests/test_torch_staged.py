@@ -286,6 +286,6 @@ def test_cli_device_cuda_without_card_fails(scratch):
 
 def test_cli_rejects_unported_flags(scratch):
     r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
-                           "--device", "cpu", "--seed", "device"])
+                           "--device", "cpu", "--model-shards", "2"])
     assert r.returncode != 0
     assert b"not ported" in r.stderr

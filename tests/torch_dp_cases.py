@@ -8,9 +8,14 @@ kernels and the engine to the same references on the card.  This module
 imports neither jax nor torch, so the card tests run where jax is not
 installed.
 """
+import gzip
+import os
+
 import numpy as np
 
 from yaha_tpu.utils import codec
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
 
 KW = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
 # DP_WORST - (go + ge) wraps int32 at this gap-open cost; the kernels must
@@ -276,3 +281,131 @@ def read_rows(corpus, fwd, lens):
     seq = chars[np.arange(fwd.shape[1])[None, :] < lens[:, None]]
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
     return corpus.read_rows(seq, starts, lens, fwd.shape[1])
+
+
+# ---- the seed phase ----
+
+def golden_index():
+    """(word_len, max_hits, SO, ROA) of the golden L11 test index
+    (tests/golden/testgen.X11_01_65525S.gz), the tables as uint32 arrays."""
+    with gzip.open(os.path.join(TESTS, "golden",
+                                "testgen.X11_01_65525S.gz")) as f:
+        data = np.frombuffer(bytearray(f.read()), np.uint32)
+    wl = int(data[1])
+    ht = 1 << (2 * wl)
+    return wl, int(data[2]), data[4:4 + ht + 1], data[4 + ht + 1:]
+
+
+def _fasta_codes(path):
+    """4-bit code arrays of the records of a FASTA file."""
+    with open(path, "rb") as f:
+        recs = f.read().split(b">")[1:]
+    tab = np.asarray(codec.FOUR_BIT_CODES, np.uint8)
+    return [tab[np.frombuffer(r.split(b"\n", 1)[1].replace(b"\n", b""),
+                              np.uint8)] for r in recs]
+
+
+def seed_rows(seed, n_sampled=24, n_wrapped=8, lpad=1024):
+    """Code rows [b, lpad] u8 (code 4 past each length) and lengths [b]
+    int32 for the seed phase at L11: the 1 kb reads of
+    tests/data/readsC_1kb.fasta (some overflow 1,024 hits, one 8,192);
+    reads sampled from tests/data/testgen.fasta with 5 % substitutions and
+    a few N and X codes, three of them shorter than the word length; and
+    reads that end in the genome's first 100 bases, whose windows there
+    wrap (every hit has ro < qo)."""
+    rng = np.random.default_rng(seed)
+    chrom = _fasta_codes(os.path.join(TESTS, "data", "testgen.fasta"))[0]
+    reads = _fasta_codes(os.path.join(TESTS, "data", "readsC_1kb.fasta"))
+    for k in range(n_sampled):
+        ln = int(rng.integers(1, 11)) if k < 3 else int(rng.integers(60,
+                                                                     lpad))
+        p = int(rng.integers(0, len(chrom) - ln))
+        r = chrom[p:p + ln].copy()
+        m = rng.random(ln) < 0.05
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        r[rng.random(ln) < 0.005] = 4
+        r[rng.random(ln) < 0.002] = 14
+        reads.append(r)
+    for k in range(n_wrapped):
+        pre = rng.integers(0, 4, int(rng.integers(20, 300))).astype(np.uint8)
+        reads.append(np.concatenate([pre, chrom[:100]]))
+    codes = np.full((len(reads), lpad), 4, np.uint8)
+    lens = np.array([min(len(r), lpad) for r in reads], np.int32)
+    for k, r in enumerate(reads):
+        codes[k, :lens[k]] = r[:lpad]
+    return codes, lens
+
+
+def wrapped_case():
+    """The synthetic index and row of tests/test_seeds_jax.py:76-124 (word
+    length 4): hash 5 holds a 40-hit run at 10,000 and up, hash 9 a 2-hit
+    run [1, 2]; windows 0, 2 and 4 hit hash 5, window 6 hash 9, so window
+    6's run (wrapped: ro < qo) fills the last slots of a row of 122 hits.
+    Returns (hashes [1, 8] int32, clean [1, 8] bool, SO, ROA uint32)."""
+    ht = 1 << 8
+    counts = np.zeros(ht, np.uint32)
+    counts[5], counts[9] = 40, 2
+    so = np.zeros(ht + 1, np.uint32)
+    so[1:] = np.cumsum(counts)
+    roa = np.zeros(int(so[-1]), np.uint32)
+    roa[so[5]:so[5] + 40] = 10_000 + np.arange(40)
+    roa[so[9]:so[9] + 2] = [1, 2]
+    hashes = np.zeros((1, 8), np.int32)
+    clean = np.zeros((1, 8), bool)
+    for w, h in ((0, 5), (2, 5), (4, 5), (6, 9)):
+        hashes[0, w], clean[0, w] = h, True
+    return hashes, clean, so, roa
+
+
+def unsigned_case():
+    """A synthetic index (word length 4, max_hits 5) and four rows of 40
+    windows whose hits have ro < qo (diag >= 2^31), ro = qo - 1 (diag =
+    0xFFFFFFFF, a valid hit just below the sentinel), ro = qo (diag 0) and
+    ro far above qo; a hash with 6 hits (past max_hits, not kept), a
+    wrapped window, and a row with no clean window.  Returns (hashes,
+    clean, SO, ROA, max_hits)."""
+    runs = {3: [0, 5, 20, 100], 7: [30, 31], 11: [1, 2],
+            13: [0, 1, 2, 3, 4, 5], 2: [4_000_000_000, 7]}
+    ht = 1 << 8
+    counts = np.zeros(ht, np.uint32)
+    for h, run in runs.items():
+        counts[h] = len(run)
+    so = np.zeros(ht + 1, np.uint32)
+    so[1:] = np.cumsum(counts)
+    roa = np.zeros(int(so[-1]) + 3, np.uint32)
+    roa[-3:] = [3, 50, 9]      # entries past the last run
+    for h, run in runs.items():
+        roa[so[h]:so[h] + len(run)] = run
+    hashes = np.zeros((4, 40), np.int32)
+    clean = np.zeros((4, 40), bool)
+    for r, wins in enumerate((((10, 3), (31, 7), (25, 3), (35, 11)),
+                              ((8, 13), (31, 7), (32, 7), (0, 2), (39, 2)),
+                              ((5, 11), (6, 11), (30, 3), (31, 3)),
+                              ())):
+        for w, h in wins:
+            hashes[r, w], clean[r, w] = h, True
+    return hashes, clean, so, roa, 5
+
+
+# Seed-phase cases: the golden index's seed rows at capacities 64 to 16,384
+# (rows overflow 64 and 1,024), the wrapped run at a tier's last slots (128)
+# and past them (64), and the unsigned-order edges with and without room
+# for sentinels.
+SEED_CASES = ["golden64", "golden1024", "golden8192", "wrapped64",
+              "wrapped128", "unsigned8", "unsigned16"]
+
+
+def seed_case(case):
+    """(source, SO, ROA, max_hits, capacity) of a SEED_CASES id (or one
+    with another capacity): source is ("rows", codes, lens, word_len), the
+    golden index's seed rows, or ("hashes", hashes, clean) over a synthetic
+    index."""
+    cap = int(case.lstrip("abcdefghijklmnopqrstuvwxyz"))
+    if case.startswith("golden"):
+        wl, _, so, roa = golden_index()
+        return ("rows",) + seed_rows(5) + (wl,), so, roa, 650, cap
+    if case.startswith("wrapped"):
+        hashes, clean, so, roa = wrapped_case()
+        return ("hashes", hashes, clean), so, roa, 650, cap
+    hashes, clean, so, roa, max_hits = unsigned_case()
+    return ("hashes", hashes, clean), so, roa, max_hits, cap

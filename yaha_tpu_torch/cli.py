@@ -21,6 +21,10 @@ Counterpart of yaha_tpu/cli.py, with the reference's four operations
   --device cuda|cpu     where the kernels run (default cuda); cpu runs
                         their plain PyTorch versions.  With cuda and no
                         card the run stops with an error.
+  --seed host|device    where the seed scan runs (default host, the native
+                        library); device hashes and expands every read's
+                        seeds on the --device against the index resident
+                        there (models/seeder.py).
   --prewarm             accepted and does nothing: nothing is cached
 
 The host work runs in the port's own native library (native/host.py).
@@ -69,12 +73,14 @@ Compress / uncompress a genome:
 Align queries:
   python -m yaha_tpu_torch.cli -x <indexFile> -q <queryFile (fa|fastq)>
            [-osh|-oss|-o8 <outFile>] [reference options]
-           [--engine batch-cuda] [--device cuda|cpu] [--batch-size N]
-           [--max-query-length N] [--max-region-frags N] [--resume]
+           [--engine batch-cuda] [--device cuda|cpu] [--seed host|device]
+           [--batch-size N] [--max-query-length N] [--max-region-frags N]
+           [--resume]
 --engine batch-cuda assembles the DP problems and walks their backtrack
 planes on the device; YT_STAGED_DEVRES=0 / YT_STAGED_RLE=0 select the
-host-fetch / plane-transfer A/B configurations.
-Not ported yet: --seed device, %s.""" % ", ".join(_NOT_PORTED)
+host-fetch / plane-transfer A/B configurations.  --seed device runs the
+seed scan on the device as well.
+Not ported yet: %s.""" % ", ".join(_NOT_PORTED)
 
 
 def _fail(msg):
@@ -131,10 +137,9 @@ def parse_args(argv):
     i = 0
     while i < len(argv):
         a = argv[i]
-        if a in _NOT_PORTED or (a == "--seed" and i + 1 < len(argv)
-                                and argv[i + 1] == "device"):
+        if a in _NOT_PORTED:
             _fail("%s is not ported to yaha_tpu_torch yet (not ported: "
-                  "--seed device, %s); use python -m yaha_tpu.cli."
+                  "%s); use python -m yaha_tpu.cli."
                   % (a, ", ".join(_NOT_PORTED)))
         if a in _SWITCHES:
             setattr(aa, _SWITCHES[a], True)
@@ -172,8 +177,9 @@ def parse_args(argv):
                 _fail("--device must be one of: %s" % ", ".join(DEVICES))
             device = val
         elif a == "--seed":
-            if val != "host":
+            if val not in ("host", "device"):
                 _fail("--seed must be host or device")
+            aa.seed = val
         else:
             _fail("%s is not a valid option.\n" % a)
         i += 2
@@ -309,14 +315,14 @@ def _iter_query_chunks(path, block_size=64 << 20):
             carry = data[cut:]
 
 
-def _run_native_engine(aa, genome, align_fn, dp_stats):
+def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
     """The streaming query loop: the file streams through bounded chunks,
     each parsed natively and aligned in batches by `align_fn(pr, lo, hi,
     dist, want_stats) -> (text, stats, seed_matches, records)`; output is
     emitted per batch by a writer thread, with the --resume cursor.  With
     YT_STAGED_PREFETCH on (default), batch k+1's host phases overlap
-    batch k.  `dp_stats` is the engine's launch/byte accounting, reported
-    under -v."""
+    batch k.  `dp_stats` is the engine's launch/byte accounting and
+    `seed_stats` the device seeder's (or None), reported under -v."""
     import concurrent.futures as cf
     import ctypes as ct
     import queue
@@ -464,7 +470,7 @@ def _run_native_engine(aa, genome, align_fn, dp_stats):
             raise emit_err[0]
         if aa.verbose:
             _report(timers, n - start_read, seed_total, rec_total,
-                    dp_stats, dist_acc)
+                    dp_stats, dist_acc, seed_stats)
     finally:
         if writer.is_alive():
             try:
@@ -480,9 +486,11 @@ def _run_native_engine(aa, genome, align_fn, dp_stats):
                 os.unlink(cursor_path)
 
 
-def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc):
+def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
+            seed_stats=None):
     """The -v run summary (the STATS compile-switch analog,
-    Query.c:519-536), with the device DP's launch/byte budget."""
+    Query.c:519-536), with the device DP's launch/byte budget and the
+    device seeder's."""
     timers.print_report()
     total_s = sum(timers.totals.values())
     print("Processed %d reads: %d seed matches, %d alignments printed."
@@ -496,6 +504,17 @@ def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc):
              dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
              dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"]),
           file=sys.stderr)
+    if seed_stats is not None:
+        print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %d "
+              "retries, %d phantom rows, %d host-scan rows, %.2fs; index "
+              "%.1f MB placed in %.2fs."
+              % (seed_stats["seed_launches"],
+                 seed_stats["seed_h2d_bytes"] / 1e6,
+                 seed_stats["seed_d2h_bytes"] / 1e6,
+                 seed_stats["cap_retries"], seed_stats["phantom_rows"],
+                 seed_stats["fallback_rows"], seed_stats["seed_device_s"],
+                 seed_stats["index_upload_bytes"] / 1e6,
+                 seed_stats["index_upload_s"]), file=sys.stderr)
     if dist_acc[0] <= 0:
         return
     q, qlt, qlmin, qlmax = dist_acc[0:4]
@@ -541,8 +560,12 @@ def _do_query(aa, device):
         aa.max_hits = index.max_hits
     if not getattr(aa, "batch_size", 0):
         aa.batch_size = 16384
+    seeder = None
+    if getattr(aa, "seed", "host") == "device":
+        from .models.seeder import DeviceSeeder
+        seeder = DeviceSeeder(aa, index, device=device)
     aligner = StagedAligner(aa, genome, index, device=device,
-                            n_threads=aa.num_threads)
+                            n_threads=aa.num_threads, seeder=seeder)
 
     def _align(pr, lo, hi, dist=None, want_stats=False):
         if want_stats:
@@ -551,7 +574,8 @@ def _do_query(aa, device):
             return text, stats, sm, nr
         text, sm, nr = aligner.align_chunk(pr, lo, hi, dist=dist)
         return text, None, sm, nr
-    _run_native_engine(aa, genome, _align, aligner.stats)
+    _run_native_engine(aa, genome, _align, aligner.stats,
+                       seeder.stats if seeder else None)
 
 
 def main(argv=None):

@@ -27,6 +27,12 @@ Both off is the A/B configuration (YT_STAGED_DEVRES=0 YT_STAGED_RLE=0).
 Nothing switches configuration on an error.  Every configuration is
 byte-identical to the per-read native engine.
 
+With a seeder (models/seeder.DeviceSeeder, --seed device) the seed scan
+runs on the device too: the chunk's strand rows are hashed and expanded
+against the index resident there, and phase 1 takes the sorted hit rows in
+place of its host scan (a row the seeder sends back with total -1 still
+takes the host scan).
+
 Small problems (<= 24 rows) run inline on the native small-DP fast paths
 during the host phases by default (YT_STAGED_INLINE=0 sends every problem
 to the DP kernels).
@@ -43,11 +49,13 @@ import torch
 
 from ..native import host
 from ..ops import decode, sw_cuda
-from ..ops.gather_dp import COORD_BYTES, DeviceCorpus
+from ..ops.gather_dp import (COORD_BYTES, DeviceCorpus, chunk_strand_rows,
+                             code_tables)
 
 _u8p = ct.POINTER(ct.c_uint8)
 _i32p = ct.POINTER(ct.c_int32)
 _i64p = ct.POINTER(ct.c_int64)
+_u32p = ct.POINTER(ct.c_uint32)
 
 # Plane formats of the native yt_batch_*_apply entries that the port feeds
 # (0 and 1, the inline and eo/idc formats, are the JAX package's).
@@ -124,10 +132,13 @@ class StagedAligner:
     inline_small: None takes YT_STAGED_INLINE (default on).
     device_assembly, rle: see the module docstring; None takes
     YT_STAGED_DEVRES / YT_STAGED_RLE (default on).
+    seeder: a models/seeder.DeviceSeeder runs the seed phase on its
+    device (--seed device); None keeps the native host seed scan.
     """
 
     def __init__(self, aa, genome, index, device="cuda", n_threads=1,
-                 inline_small=None, device_assembly=None, rle=None):
+                 inline_small=None, device_assembly=None, rle=None,
+                 seeder=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StagedAligner: device %s requested but no "
@@ -136,6 +147,7 @@ class StagedAligner:
         self.genome = genome
         self.index = index
         self.n_threads = max(1, int(n_threads))
+        self.seeder = seeder
         if inline_small is None:
             inline_small = _env_on("YT_STAGED_INLINE")
         self.inline_small = inline_small
@@ -150,6 +162,8 @@ class StagedAligner:
                 ct.cast(genome.codes_buf, _u8p),
                 shape=(int(genome.codes_len),))
             self.corpus = DeviceCorpus(codes, self.device)
+        self.tables = (self.corpus.tables if self.corpus is not None
+                       else code_tables(self.device))
         # Launch/byte accounting and the host-phase decomposition.
         # gap_banded / gap_full / gap_fallback count the gap problems the
         # band-relative kernel serves, and the full-width kernel serves at
@@ -186,17 +200,17 @@ class StagedAligner:
         """Device strand rows of reads [lo, hi): their sequence bytes
         upload as one contiguous slice of the parser's buffer, with their
         starts and lengths, and become codes on the device
-        (DeviceCorpus.read_rows).  The reference's version maps and pads
-        every base on the host first, which costs more than the transfer
-        it halves."""
+        (gather_dp.chunk_strand_rows).  The reference's version maps and
+        pads every base on the host first, which costs more than the
+        transfer it halves."""
         offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
         seg0, seg1 = int(offs[lo]), int(offs[hi])
         seqs = np.ctypeslib.as_array(pr.seqs, shape=(max(seg1, 1),))
         lens = np.diff(offs[lo:hi + 1])
         lpad = _pow2(max(int(lens.max()) if hi > lo else 1, 64), 64)
         self._acc(h2d_bytes=(seg1 - seg0) + 16 * (hi - lo))
-        return self.corpus.read_rows(seqs[seg0:seg1], offs[lo:hi] - seg0,
-                                     lens, lpad)
+        return chunk_strand_rows(seqs[seg0:seg1], offs[lo:hi] - seg0, lens,
+                                 lpad, self.tables)
 
     def _planes(self, dev_gather, n):
         """(q, r) u8 planes of a whole bucket assembled on the device, or
@@ -497,17 +511,21 @@ class StagedAligner:
         genome = self.genome
         index = self.index
         ip, fp = host._pack_params_ct(aa, self.n_threads)
-        t_begin = time.time()
         rows2 = None
-        if self.corpus is not None:
+        if self.corpus is not None or self.seeder is not None:
             # The chunk's read bytes upload before the native phase 1, so
             # the copy overlaps the seed/chain/clump host work; the
             # dispatch counts as device time.
             t_up = time.time()
             rows2 = self._chunk_rows(pr, lo, hi)
-            dt_up = time.time() - t_up
-            self._acc(device_s=dt_up)
-            t_begin += dt_up
+            self._acc(device_s=time.time() - t_up)
+        seeds = None
+        if self.seeder is not None:
+            # Device seed phase: sorted hit rows per (read, strand); rows
+            # with total -1 take the host scan inside phase 1.  Its wall is
+            # the seeder's seed_device_s, not part of begin_s.
+            seeds = self.seeder.seed_chunk(pr, lo, hi, rows2)
+        t_begin = time.time()
         ctx = lib.yt_batch_begin(
             pr.seqs, host.off64(pr.seq_offs, lo), pr.ids,
             host.off64(pr.id_offs, lo), pr.quals if aa.fastq else None,
@@ -518,7 +536,11 @@ class StagedAligner:
             ct.cast(genome._name_offs, _i64p),
             index.so_ptr, index.roa_ptr, index.roa_len,
             ct.cast(ip, _i64p), ct.cast(fp, ct.POINTER(ct.c_double)),
-            1 if self.inline_small else 0, None, None, None, None)
+            1 if self.inline_small else 0,
+            *((seeds[0].ctypes.data_as(_u32p), _p32(seeds[1]),
+               _p64(seeds[2]), _p64(seeds[3])) if seeds else (None,) * 4))
+        if self.corpus is None:
+            rows2 = None     # problems are fetched on the host
         if not ctx:
             raise RuntimeError("yt_batch_begin failed")
         try:

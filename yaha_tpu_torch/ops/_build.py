@@ -148,4 +148,10 @@ def load():
     lib.yt_rle_walk.argtypes = (
         [_vp] + [_i64] * 3 + [_vp] * 3 + [_i64, _i32] + [_vp] * 2 +
         [_i32, _i64, _vp])
+    lib.yt_seed_hashes.restype = ct.c_int
+    lib.yt_seed_hashes.argtypes = [_vp, _i64, _i64, _vp, _i32, _vp, _vp,
+                                   _vp]
+    lib.yt_expand_sort.restype = ct.c_int
+    lib.yt_expand_sort.argtypes = (
+        [_vp, _vp, _i64, _i64, _vp, _vp, _i32, _i64] + [_vp] * 7)
     return lib

@@ -13,7 +13,10 @@ gather signature that StagedAligner._mk_gather
                                 PyTorch ops, one elementwise pass per
                                 chunk); it takes the place of the JAX
                                 corpus's chunk_rows, whose rows are coded
-                                and padded on the host
+                                and padded on the host; the module function
+                                chunk_strand_rows builds them, and the
+                                device seeder calls it when the engine has
+                                no corpus (models/seeder.py)
   gather(rows2, q_row, ...)     the problem planes, cut by the CUDA kernel
                                 csrc/gather_kernels.cu (gather_problems)
                                 from per-problem coordinates
@@ -51,6 +54,33 @@ def strand_rows(fwd, lens, comp):
     rev = torch.where(j[None, :] < lens[:, None], rev,
                       torch.full_like(rev, 4))
     return torch.stack([fwd, rev], dim=1).reshape(2 * n, lpad)
+
+
+def code_tables(device):
+    """(character -> 4-bit code, code -> complement code) u8 tables on
+    `device` (codec.FOUR_BIT_CODES, codec.FOUR_BIT_COMP_CODES)."""
+    return tuple(torch.from_numpy(np.asarray(t, np.uint8)).to(device)
+                 for t in (codec.FOUR_BIT_CODES, codec.FOUR_BIT_COMP_CODES))
+
+
+def chunk_strand_rows(seq, starts, lens, lpad, tables):
+    """Device [2n, lpad] strand rows of a chunk's n reads, back to back in
+    seq: their sequence characters (u8), read k at [starts[k], starts[k] +
+    lens[k]).  The characters upload as they are (one contiguous copy, no
+    host pass) with one [2, n] int64 array of starts and lengths, and map
+    to 4-bit codes on the device of `tables` (code_tables); columns past a
+    read's length hold code 4."""
+    codes_of, comp = tables
+    dev = codes_of.device
+    chars = torch.from_numpy(seq if len(seq) else
+                             np.zeros(1, np.uint8)).to(dev)
+    meta = torch.from_numpy(np.stack([starts, lens]).astype(
+        np.int64)).to(dev)
+    j = torch.arange(lpad, device=dev)
+    idx = (meta[0][:, None] + j).clamp(max=chars.shape[0] - 1)
+    fwd = torch.where(j < meta[1][:, None],
+                      codes_of[chars[idx].to(torch.int64)], 4)
+    return strand_rows(fwd.to(torch.uint8), meta[1], comp)
 
 
 def gather_reference(rows2, codes, coords, *, qg, rg, rpad):
@@ -132,31 +162,14 @@ class DeviceCorpus:
         self.codes = torch.from_numpy(np.ascontiguousarray(
             genome_codes, np.uint8)).to(self.device, copy=True)
         self.genome_bytes = int(self.codes.numel())
-        self._comp = torch.from_numpy(np.asarray(
-            codec.FOUR_BIT_COMP_CODES, np.uint8)).to(self.device)
-        self._codes_of = torch.from_numpy(np.asarray(
-            codec.FOUR_BIT_CODES, np.uint8)).to(self.device)
+        self.tables = code_tables(self.device)
 
     def read_rows(self, seq: np.ndarray, starts: np.ndarray,
                   lens: np.ndarray, lpad: int):
-        """Device [2n, lpad] strand rows of a chunk's n reads, back to
-        back in seq: their sequence characters (u8), read k at [starts[k],
-        starts[k] + lens[k]).  Returned to the caller, never stored here:
-        the CLI's prefetch runs chunks concurrently, so each align_chunk
-        call owns its rows.  The characters upload as they are (one
-        contiguous copy, no host pass) with one [2, n] int64 array of
-        starts and lengths, and map to 4-bit codes (codec.FOUR_BIT_CODES)
-        on the device; columns past a read's length hold code 4."""
-        dev = self.device
-        chars = torch.from_numpy(seq if len(seq) else
-                                 np.zeros(1, np.uint8)).to(dev)
-        meta = torch.from_numpy(np.stack([starts, lens]).astype(
-            np.int64)).to(dev)
-        j = torch.arange(lpad, device=dev)
-        idx = (meta[0][:, None] + j).clamp(max=chars.shape[0] - 1)
-        fwd = torch.where(j < meta[1][:, None],
-                          self._codes_of[chars[idx].to(torch.int64)], 4)
-        return strand_rows(fwd.to(torch.uint8), meta[1], self._comp)
+        """A chunk's strand rows on the corpus's device (chunk_strand_rows).
+        Returned to the caller, never stored here: the CLI's prefetch runs
+        chunks concurrently, so each align_chunk call owns its rows."""
+        return chunk_strand_rows(seq, starts, lens, lpad, self.tables)
 
     def gather(self, rows2, q_row, q_src, q_copy, qlen, r_src, r_copy,
                rlen, rev=None, *, qg, rg, rpad=0, pack=True):

@@ -46,13 +46,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      time (counts set to 0 before each run and read after it); the port's
      CLI on the repository's golden test set with --device cuda, with the
      host seed scan and with --seed device;
-  5. kernel and plain-version times (CUDA events, distinct inputs) at the
-     main path's largest buckets, for every kernel, each beside its bound
-     (bytes over the memory rate or int32 operations over the int32 rate,
-     from this run's inputs); the two extension kernels, and the register
-     kernel's block sizes, in turns at the largest 1 kb bucket and at the
-     10 kb run's widest bucket, and so the walk's team sizes; the two
-     anchored kernels at their largest 1 kb buckets both on shuffled
+  5. kernel and plain-version times (CUDA events; a kernel's launches
+     queued behind a spin on the card, so that the host's time to issue
+     them stays out; distinct inputs) at the main path's largest buckets,
+     for every kernel, each beside its bound (bytes over the memory rate
+     or int32 operations over the int32 rate, from this run's inputs); the
+     two extension kernels, and the register kernel's block sizes, in
+     turns at the largest 1 kb bucket and at the 10 kb run's widest
+     bucket, and so the walk's team sizes; the two anchored kernels at
+     their largest 1 kb buckets both on shuffled
      copies of the bucket and in the main path's problem order (which
      sets the lanes of a warp), with the plane's zero fill alone; the
      4-bit packed extension entry (unpack + kernel) at the largest 1 kb
@@ -72,7 +74,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      own strand rows and tier launches (C = 1,024 on the batch, 8,192 and
      1,024 on its tier-2 population), and timed at their largest launch
      beside their bounds, the expansion beside torch.sort(dim=1) of the
-     same keys.
+     same keys; the tier-2 launch's time beside its own bound; each
+     tier's breakdown on (i) the main path's inputs, (ii) the same at
+     max_hits = 1, (iv) at max_hits = 0, (iii) with no clean window and
+     (v) the same kept runs from an index held in L2, beside torch.take
+     of one SO word a window (the whole table, and folded into its first
+     64 MB).
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
 A/B configuration and in the default one with the device seeder: three
@@ -151,6 +158,7 @@ HASH_WINDOW_OPS = 5      # one window's hash, rolled from the last window's:
                          # shift, or, mask, bad-code count, compare
 WINDOW_OPS = 8           # one window's SO run: index, loads, subtract, tests
 SORT_CMP_OPS = 2         # one compare of 64-bit keys, in int32 operations
+QUEUE_CYCLES = 20_000_000  # ~10 ms of card clock ahead of a timed window
 
 
 def sync(torch, dev):
@@ -283,6 +291,11 @@ def phase_build():
     if len(anch) != 2:
         raise AssertionError("phase1: anchored register kernels %s, want "
                              "the banded and the full layout" % anch)
+    hashes = [k for k in report if "seed_hash_kernel" in k]
+    expands = [k for k in report if "expand_sort_kernel" in k]
+    if not (hashes and expands):
+        raise AssertionError("phase1: seed kernel instances %s and %s" % (
+            hashes, expands))
     bad = {k: i for k, i in report.items() if NO_SPILL.search(k) and (
         i.get("stack", 1) or i.get("spill_stores", 1) or
         i.get("spill_loads", 1))}
@@ -889,9 +902,13 @@ def phase_cli(nib, idx):
 
 def _time_kernel(torch, dev, fn, sets, reps=8):
     """Mean ms of `fn` over `reps` launches cycling through the input sets,
-    after one warm-up (CUDA events)."""
+    after one warm-up (CUDA events).  The launches queue up behind a spin
+    of QUEUE_CYCLES on the card, so the host's time to issue them (the
+    wrappers' Python, tens of microseconds a call) is not in the window
+    unless the card outruns it."""
     fn(*sets[0])
     sync(torch, dev)
+    torch.cuda._sleep(QUEUE_CYCLES)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -1407,6 +1424,26 @@ def phase_seed_reads(torch, sw, host, StagedAligner, DeviceSeeder, seeder,
         % (pr.n, wall, json.dumps({k: launches[k] for k in SEED_KERNELS})))
 
 
+def _mean(v):
+    return sum(v) / len(v)
+
+
+def _cached_index(torch, seeds, hashes, clean, so, max_hits):
+    """The same kept runs from an index that stays in L2: each kept window's
+    hash becomes its count v, whose run in an SO of max_hits + 2 words
+    (so[v] = v (v - 1) / 2) is v words of a random ROA of 845 KB at 650
+    hits; windows not kept are not clean.  Row totals, slots and sort sizes
+    are the main path's; only the SO and ROA reads hit the cache."""
+    cnt, _ = seeds.seed_counts(hashes, clean, so)
+    kept = (cnt > 0) & (cnt <= max_hits)
+    v = torch.arange(max_hits + 2, dtype=torch.int64, device=so.device)
+    so2 = (v * (v - 1) // 2).to(torch.int32)
+    gen = torch.Generator(device=so.device).manual_seed(SEED)
+    roa2 = torch.randint(-2 ** 31, 2 ** 31, (int(so2[-1]),), generator=gen,
+                         dtype=torch.int32, device=so.device)
+    return torch.where(kept, cnt, 0).to(torch.int32), kept, so2, roa2
+
+
 def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
     """Both seed kernels against their plain versions at the 1 kb batch's
     shapes, on the main path's own inputs (the recorder's strand rows and
@@ -1416,7 +1453,8 @@ def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
     copies) beside its bound and its plain version's time, and beside the
     expansion, torch.sort(dim=1) of the same keys (int64 with the sign bit
     flipped, so that the order is diag's unsigned one) as its library
-    yardstick."""
+    yardstick; the tier-2 launch's time beside its own bound; each tier's
+    breakdown (PERF.md section 6) and torch.take of its SO words."""
     rng = np.random.default_rng(SEED)
     wl = seeder.word_len
     so, roa = seeder.so_dev, seeder.roa_dev
@@ -1438,8 +1476,8 @@ def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
         torch, dev, lambda *a: seeds.seed_hashes_reference(*a, **hkw), sets[1])
     got = seeds.seed_hashes(*sets[1], **hkw)
     sync(torch, dev)
-    _record(torch, kernels, errs, "phase6", "seed_hashes",
-            "rows=%d L=%d wl=%d" % (b, l, wl), ms, plain_ms,
+    tag = "rows=%d L=%d wl=%d" % (b, l, wl)
+    _record(torch, kernels, errs, "phase6", "seed_hashes", tag, ms, plain_ms,
             {"hashes": got[0], "clean": got[1]},
             {"hashes": want[0], "clean": want[1]},
             b * l + 4 * b + 5 * b * n, b * n * HASH_WINDOW_OPS)
@@ -1493,6 +1531,7 @@ def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
                   4 * int(valid.sum()) + _nbytes(*got.values()))
         ops = SORT_CMP_OPS * int(steps.sum()) + WINDOW_OPS * rows * windows
         tag = "C=%d rows=%d N=%d" % (cap, rows, windows)
+        entry = kernels["expand_sort_hits"]
         if cap == seeder.CAP_TIERS[0]:
             _record(torch, kernels, errs, "phase6", "expand_sort_hits", tag,
                     ms, plain_ms, got, want, nbytes, ops, library_ms=lib_ms)
@@ -1500,11 +1539,66 @@ def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
             compare(torch, errs, "phase6", "expand_sort_hits", tag, got,
                     want)
             bound_ms, bound_by = _bound(nbytes, ops)
+            entry["tier2"] = {"rows": rows, "capacity": cap, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by}
             log("phase6 expand_sort_hits %s (tier 2): kernel %.6f ms, plain "
                 "%.3f ms, torch.sort %.6f ms, bound %.6f ms (%s), %.1f %% of "
                 "the bound" % (tag, ms, plain_ms, lib_ms, bound_ms, bound_by,
                                100 * bound_ms / ms))
-        del sets, got, want
+        del got, want
+        # The breakdown (PERF.md section 6): the launch on (i) the main
+        # path's inputs, (ii) the same at max_hits = 1 (the same SO reads
+        # and scan; only single-hit windows expanded and sorted), (iv) at
+        # max_hits = 0 (the SO reads and the scan; nothing kept), (iii) the
+        # same hashes with no clean window (the scan of zeros and the
+        # C-slot write alone) and (v) the main path's kept runs from an
+        # index held in L2 (_cached_index: the same slots and sorts, the
+        # reads out of the way); kernel = plain on one copy of each, then
+        # the variants timed in turns, first to last and back.
+        dst = entry if cap == seeder.CAP_TIERS[0] else entry["tier2"]
+        cached = [_cached_index(torch, seeds, h, c, so, mh) for h, c in sets]
+        variants = {
+            "i_main": ([(h, c, so, roa) for h, c in sets], kw),
+            "ii_max_hits_1": ([(h, c, so, roa) for h, c in sets],
+                              dict(kw, max_hits=1)),
+            "iv_max_hits_0": ([(h, c, so, roa) for h, c in sets],
+                              dict(kw, max_hits=0)),
+            "iii_no_clean": ([(h, torch.zeros_like(c), so, roa)
+                              for h, c in sets], kw),
+            "v_cached_index": (cached, kw)}
+        for name, (vsets, vkw) in variants.items():
+            if name != "i_main":
+                got = seeds.expand_sort_hits(*vsets[1], **vkw)
+                sync(torch, dev)
+                compare(torch, errs, "phase6", "expand_sort_hits",
+                        "%s %s" % (name, tag), got,
+                        seeds.expand_sort_hits_reference(*vsets[1], **vkw))
+                del got
+        times = {}
+        for name in list(variants) + list(variants)[::-1]:
+            vsets, vkw = variants[name]
+            times.setdefault(name, []).append(_time_kernel(
+                torch, dev, lambda *a: seeds.expand_sort_hits(*a, **vkw),
+                vsets))
+        dst["breakdown_ms"] = {k: _mean(v) for k, v in times.items()}
+        log("phase6 expand_sort_hits %s breakdown: %s" % (tag, " ".join(
+            "%s=%s ms" % (k, ",".join("%.6f" % t for t in v))
+            for k, v in times.items())))
+        del cached, variants
+        # The SO reads' yardstick: torch.take of one SO word a window at
+        # the same hashes (0 where not clean, as the kernel reads), over
+        # the whole 4^wl + 1 table and folded into its first 64 MB.
+        idx = [[h.to(torch.int64)] for h, _ in sets]
+        near = [[i[0] & ((1 << 24) - 1)] for i in idx]
+        dst["so_take_ms"] = {
+            "all": _time_kernel(torch, dev, lambda i: torch.take(so, i), idx),
+            "first_64mb": _time_kernel(torch, dev,
+                                       lambda i: torch.take(so, i), near)}
+        log("phase6 expand_sort_hits %s: torch.take of one SO word a "
+            "window: %s" % (tag, json.dumps(dst["so_take_ms"])))
+        del idx, near
+        del sets
 
 
 def phase_gap_histogram(sw, runs):

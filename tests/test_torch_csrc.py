@@ -30,14 +30,17 @@ ends before the last column);
     to gather_dp.gather_reference from every source alignment, forward
     and reversed, with output rows at every alignment, short copies, both
     pads and clamped sources;
-  * the seed phase of csrc/seed_kernels.cu: seed_hash_window over every
-    window, held to seeds.seed_hashes_reference at word lengths 4, 11 and
-    15, and window_run / expand_window with a sequential scan and
-    std::sort in place of the block's, held to
-    seeds.expand_sort_hits_reference on the golden index's seed rows at
-    capacities 64, 1,024 and 8,192, on the wrapped run at a tier's last
-    slots and on unsigned-order and sentinel edges; every output
-    prefilled with garbage.
+  * the seed phase of csrc/seed_kernels.cu: seed_hash_run<WL> over every
+    16-window run (runs across row ends, rows of fewer windows than a
+    run, a short last run, rows at three alignments), held to
+    seeds.seed_hashes_reference; window_run, slot_window, slot_key and
+    the sort's steps (sort_span, smem_step, reg_steps, the lane strides
+    as an emulated shuffle) with a sequential scan in place of the
+    block's, held to seeds.expand_sort_hits_reference on every SEED_CASES
+    entry (the golden index's seed rows at capacities 64, 1,024 and 8,192,
+    the wrapped run at a tier's last slots, unsigned-order and sentinel
+    edges, 650-hit runs across C in rows of three batches, row totals
+    around every sort size); every output prefilled with garbage.
 
 The plain versions are held to the JAX package in test_torch_decode.py,
 test_torch_gather.py and test_torch_seeds.py.  The test skips only where
@@ -53,13 +56,14 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, SEED_CASES,
+                            EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
+                            KW_WRAP, SEED_CASES,
                             anchored_edge_inputs,
                             anchored_sweep_inputs,
                             extension_inputs, gather_aligned_coords,
                             gather_case, gather_clamp_coords, gather_coords,
-                            long_run_inputs, read_rows, seed_case,
-                            seed_rows)
+                            hash_rows, long_run_inputs, read_rows,
+                            seed_case, seed_rows)
 from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -188,53 +192,130 @@ extern "C" void run_gather(const uint8_t* rows2, int64_t nrows, int64_t lpad,
                              r);
 }
 
-// seed_hash_window over every window of every row.
-extern "C" void run_seed_hashes(const uint8_t* codes, int64_t b, int64_t l,
-                                const int32_t* lengths, int32_t wl,
-                                int32_t* hashes, uint8_t* clean) {
-    const int64_t n = l - wl + 1;
-    for (int64_t r = 0; r < b; r++)
-        for (int64_t p = 0; p < n; p++)
-            ytsw::seed_hash_window(codes + r * l, lengths[r], wl, p,
-                                   hashes + r * n + p, clean + r * n + p);
+// seed_hash_run<WL> over every 16-window run of the flat output, as the
+// kernel's threads take them (any word length a template instance of the
+// kernel takes).
+template <int WL>
+static int hash_runs(int32_t wl, const uint8_t* codes, int64_t b, int64_t l,
+                     const int32_t* lengths, int32_t* hashes,
+                     uint8_t* clean) {
+    if (wl != WL) {
+        if constexpr (WL > 1)
+            return hash_runs<WL - 1>(wl, codes, b, l, lengths, hashes, clean);
+        return 1;
+    }
+    const int64_t total = b * (l - WL + 1);
+    for (int64_t k0 = 0; k0 < total; k0 += ytsw::kHashRun)
+        ytsw::seed_hash_run<WL>(codes, b, l, lengths, k0, hashes, clean);
+    return 0;
 }
 
-// expand_sort_kernel's rows through its per-window bodies: a sequential
-// scan of the kept counts in place of the block's, the windows expanded
-// last to first (the block's chunks store their slots in no set order),
-// and std::sort in place of the bitonic sort.
+extern "C" int run_seed_hashes(const uint8_t* codes, int64_t b, int64_t l,
+                               const int32_t* lengths, int32_t wl,
+                               int32_t* hashes, uint8_t* clean) {
+    return hash_runs<15>(wl, codes, b, l, lengths, hashes, clean);
+}
+
+// lane_steps of expand_sort_kernel for the 32 lanes of a warp whose
+// kRegKeys-key registers are v[lane * kRegKeys ..], lane 0's first element
+// i0: the lane strides as a shuffle (each lane reads its partner lane's old
+// value), then reg_steps.
+static void lane_steps(uint64_t* v, int64_t i0, int64_t k) {
+    const int R = ytsw::kRegKeys;
+    const int64_t span = ytsw::kWarpKeys;
+    std::vector<uint64_t> old(v, v + span);
+    for (int m = 16; m > 0; m >>= 1) {
+        if ((int64_t)m * R >= k) continue;
+        old.assign(v, v + span);
+        for (int64_t x = 0; x < span; x++) {
+            const int64_t t = x / R, e = x % R;
+            v[x] = ytsw::keep(old[x], old[(t ^ m) * R + e],
+                              ytsw::bitonic_keeps_min(i0 + x, m * R, k));
+        }
+    }
+    auto* r = (uint64_t(*)[ytsw::kRegKeys])v;
+    for (int t = 0; t < 32; t++)
+        ytsw::reg_steps(r[t], i0 + (int64_t)t * R, k);
+}
+
+// sort_row of expand_sort_kernel: keys[valid, p) the sentinel, each
+// stage's long strides through smem_step and its short ones through
+// lane_steps, warp by warp.
+static void sort_row(std::vector<uint64_t>& keys, int64_t valid,
+                     int64_t p) {
+    const int64_t span = ytsw::kWarpKeys;
+    for (int64_t i = valid; i < p; i++) keys[i] = ytsw::kSeedSentinel;
+    for (int64_t k = span; k <= p; k <<= 1) {
+        for (int64_t j = k >> 1; k > span && j >= span; j >>= 1)
+            for (int64_t q = 0; q < p / 2; q++)
+                ytsw::smem_step(keys.data(), q, j, k);
+        for (int64_t i0 = 0; i0 < p; i0 += span)
+            for (int64_t s = k == span ? 2 : k; s <= k; s <<= 1)
+                lane_steps(keys.data() + i0, i0, s);
+    }
+}
+
+// expand_sort_kernel's rows through its bodies: windows in batches of
+// kBatch with a sequential scan in place of the block's, the batch's slots
+// below cap expanded last to first (the threads store them in no set
+// order) through slot_window and slot_key, the wrapped bits, and the sort
+// (sort_row emulated); key slots the sort may not read hold garbage.
 extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
                                 int64_t b, int64_t n, const uint32_t* so,
                                 const uint32_t* roa, int32_t max_hits,
                                 int64_t cap, uint32_t* diag, int32_t* qo,
                                 int32_t* total, uint8_t* overflow,
                                 uint8_t* wrapped, uint8_t* allwrapped) {
-    std::vector<uint64_t> keys((size_t)cap);
-    std::vector<ytsw::WindowRun> runs((size_t)n);
-    std::vector<int32_t> start((size_t)n);
+    const int nb = ytsw::kBatch;
+    std::vector<uint64_t> keys((size_t)std::max<int64_t>(cap, 256));
+    std::vector<ytsw::WindowRun> runs(nb);
+    std::vector<uint32_t> cum(nb);
+    std::vector<uint8_t> ok(nb);
     for (int64_t r = 0; r < b; r++) {
-        std::fill(keys.begin(), keys.end(), ytsw::kSeedSentinel);
+        std::fill(keys.begin(), keys.end(), 0x5A5A5A5A5A5A5A5Aull);
         uint32_t carry = 0;
-        for (int64_t w = 0; w < n; w++) {
-            runs[w] = ytsw::window_run(hashes[r * n + w],
-                                       clean[r * n + w] != 0, so, max_hits);
-            start[w] = (int32_t)carry;
-            carry += (uint32_t)runs[w].kept;
-        }
         bool any = false;
-        for (int64_t w = n - 1; w >= 0; w--) {
-            const bool wr = ytsw::expand_window(w, runs[w], start[w], roa,
-                                                cap, keys.data());
-            wrapped[r * n + w] = wr ? 1 : 0;
-            any = any || wr;
+        for (int64_t w0 = 0; w0 < n; w0 += nb) {
+            uint32_t at = carry;
+            for (int lw = 0; lw < nb; lw++) {
+                const int64_t w = w0 + lw;
+                runs[lw] = {0, 0};
+                if (w < n)
+                    runs[lw] = ytsw::window_run(hashes[r * n + w],
+                                                clean[r * n + w] != 0, so,
+                                                max_hits);
+                at += (uint32_t)runs[lw].kept;
+                cum[lw] = at;
+            }
+            std::fill(ok.begin(), ok.end(), 0);
+            const int64_t t_lo = carry;
+            const int64_t t_hi = std::min<int64_t>(t_lo + (at - carry), cap);
+            for (int64_t t = t_hi - 1; t >= t_lo; t--) {
+                const int win = ytsw::slot_window(cum.data(), t);
+                const uint32_t base = win > 0 ? cum[win - 1] : carry;
+                const uint32_t ro = roa[(uint64_t)runs[win].so_lo +
+                                        (uint32_t)(t - base)];
+                keys[t] = ytsw::slot_key(ro, w0 + win);
+                if (ro >= (uint32_t)(w0 + win)) ok[win] = 1;
+            }
+            for (int lw = 0; lw < nb && w0 + lw < n; lw++) {
+                const bool wr = runs[lw].kept > 0 && !ok[lw];
+                wrapped[r * n + w0 + lw] = wr ? 1 : 0;
+                any = any || wr;
+            }
+            carry = at;
         }
-        std::sort(keys.begin(), keys.end());
+        const int32_t tot = (int32_t)carry;
+        const int64_t valid = tot <= 0 ? 0 : std::min<int64_t>(tot, cap);
+        const int64_t p = ytsw::sort_span(valid);
+        sort_row(keys, valid, p);
         for (int64_t t = 0; t < cap; t++) {
-            diag[r * cap + t] = (uint32_t)(keys[t] >> 32);
-            qo[r * cap + t] = (int32_t)(uint32_t)keys[t];
+            const uint64_t key = t < p ? keys[t] : ytsw::kSeedSentinel;
+            diag[r * cap + t] = (uint32_t)(key >> 32);
+            qo[r * cap + t] = (int32_t)(uint32_t)key;
         }
-        total[r] = (int32_t)carry;
-        overflow[r] = (int32_t)carry > cap ? 1 : 0;
+        total[r] = tot;
+        overflow[r] = tot > cap ? 1 : 0;
         allwrapped[r] = any ? 1 : 0;
     }
 }
@@ -321,7 +402,7 @@ def lib(tmp_path_factory):
                                 ct.c_void_p, ct.c_int64, ct.c_void_p] +
                                [ct.c_int64] * 3 + [ct.c_int32] +
                                [ct.c_void_p] * 2 + [ct.c_int])
-    out.run_seed_hashes.restype = None
+    out.run_seed_hashes.restype = ct.c_int
     out.run_seed_hashes.argtypes = [ct.c_void_p, ct.c_int64, ct.c_int64,
                                     ct.c_void_p, ct.c_int32, ct.c_void_p,
                                     ct.c_void_p]
@@ -713,21 +794,51 @@ def test_gather_body_matches_plain(lib, qg, rg, rpad, src_off):
 
 # ---- the seed phase ----
 
-@pytest.mark.parametrize("wl", [4, 11, 15])
-def test_seed_hash_body_matches_plain(lib, wl):
-    """seed_hash_window over the seed rows (N and X codes, reads shorter
-    than the word, pad code 4), outputs prefilled with garbage."""
-    codes, lens = seed_rows(wl, n_wrapped=2)
+def _hash_body(lib, codes, lens, wl, shift=0):
+    """run_seed_hashes on codes placed `shift` bytes past a 16-byte
+    boundary, outputs prefilled with garbage."""
     b, l = codes.shape
     n = l - wl + 1
+    buf = np.zeros(codes.size + 32, np.uint8)
+    start = (-buf.ctypes.data) % 16 + shift
+    placed = buf[start:start + codes.size].reshape(codes.shape)
+    placed[...] = codes
     hashes = np.full((b, n), UNWRITTEN, np.int32)
     clean = np.full((b, n), 0x5A, np.uint8)
-    lib.run_seed_hashes(codes.ctypes.data, b, l, lens.ctypes.data, wl,
-                        hashes.ctypes.data, clean.ctypes.data)
-    want = seeds.seed_hashes_reference(torch.from_numpy(codes),
+    assert lib.run_seed_hashes(placed.ctypes.data, b, l, lens.ctypes.data,
+                               wl, hashes.ctypes.data, clean.ctypes.data) == 0
+    return hashes, clean
+
+
+def _hash_plain(codes, lens, wl):
+    h, c = seeds.seed_hashes_reference(torch.from_numpy(codes),
                                        torch.from_numpy(lens), word_len=wl)
-    np.testing.assert_array_equal(hashes, want[0].numpy())
-    np.testing.assert_array_equal(clean, want[1].numpy())
+    return h.numpy(), c.numpy()
+
+
+# (word length, row length, shift): the seed rows (l None), and rows
+# whose 16-window runs cross row ends (hash_rows) at three alignments.
+HASH_BODY_CASES = [pytest.param(wl, None, 0, id=str(wl))
+                   for wl in (4, 11, 15)] + [
+    pytest.param(wl, l, shift, id="%s-shift%d" % (i, shift))
+    for (wl, l), i in zip(HASH_SHAPES, HASH_SHAPE_IDS) for shift in (0, 5, 15)]
+
+
+@pytest.mark.parametrize("wl,l,shift", HASH_BODY_CASES)
+def test_seed_hash_body_matches_plain(lib, wl, l, shift):
+    """seed_hash_run over every 16-window run: the seed rows (N and X
+    codes, reads shorter than the word, pad code 4; N = 1,021, 1,014 and
+    1,010, so runs cross row ends), and rows whose window counts end at
+    every place of a run, rows of fewer windows than a run and a short
+    last run, placed at every alignment; outputs prefilled with
+    garbage."""
+    codes, lens = (seed_rows(wl, n_wrapped=2) if l is None else
+                   hash_rows(wl + l, wl, l))
+    got = _hash_body(lib, codes, lens, wl, shift)
+    want = _hash_plain(codes, lens, wl)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert want[1].any() and not want[1].all()
 
 
 def _seed_inputs(case):
@@ -743,11 +854,13 @@ def _seed_inputs(case):
 
 @pytest.mark.parametrize("case", SEED_CASES)
 def test_expand_bodies_match_plain(lib, case):
-    """window_run and expand_window, with a sequential scan and sort, on
-    the golden index's seed rows (rows that overflow 64 and 1,024 hits,
-    wrapped windows), the wrapped run at the end of a 128-slot buffer and
-    past a 64-slot one, and hits of diag >= 2^31 and 0xFFFFFFFF beside
-    the sentinel; every output prefilled with garbage."""
+    """window_run, slot_window, slot_key and the sort's steps, with a
+    sequential scan and the shuffles emulated, on the golden index's seed
+    rows (rows that overflow 64 and 1,024 hits, wrapped windows), the
+    wrapped run at the end of a 128-slot buffer and past a 64-slot one,
+    hits of diag >= 2^31 and 0xFFFFFFFF beside the sentinel, 650-hit runs
+    across C in rows of three batches and row totals around every sort
+    size; every output prefilled with garbage."""
     hashes, clean, so, roa, max_hits, cap = _seed_inputs(case)
     b, n = hashes.shape
     out = {"diag": np.full((b, cap), UNWRITTEN, np.uint32),

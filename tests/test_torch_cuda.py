@@ -10,9 +10,12 @@ backtrack planes, assembled problem planes and walk items included
 (integer arrays, tolerance zero).  The walk kernel, at each team size, is held
 to its plain version on the items up to n_ops, the only slots it writes.
 Both seed kernels are held to their plain versions on the seed rows of the
-golden index at capacities 64 to 16,384 (both tiers) and on the
-unsigned-order, sentinel and wrapped-run edges (tests/test_torch_seeds.py
-holds the plain versions to the JAX package).  The engine is held to the
+golden index at capacities 64 to 16,384 (both tiers), on the
+unsigned-order, sentinel and wrapped-run edges, on 650-hit runs across C
+in rows of three expansion batches, on row totals around every sort size,
+and on hash rows whose 16-window runs cross row ends, at two alignments
+(tests/test_torch_seeds.py holds the plain versions to the JAX
+package).  The engine is held to the
 native C++ engine, SAM bytes equal, in its default configuration (device
 assembly + device walk) and in the A/B one, and with the device seeder.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
@@ -30,14 +33,15 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, SEED_CASES,
+                            EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
+                            KW_WRAP, SEED_CASES,
                             anchored_edge_inputs,
                             anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
                             gather_aligned_coords, gather_case,
-                            gather_clamp_coords, gather_coords, indel_reads,
-                            long_run_inputs, read_rows, seed_case,
-                            seed_rows)
+                            gather_clamp_coords, gather_coords, hash_rows,
+                            indel_reads, long_run_inputs, read_rows,
+                            seed_case, seed_rows)
 from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
 pytestmark = pytest.mark.cuda
@@ -305,14 +309,27 @@ def test_walk_refused_launch_raises(dev):
     assert not any(sw_cuda.launches().values())
 
 
-@pytest.mark.parametrize("wl", [4, 11, 15])
-def test_seed_hash_kernel_matches_plain(dev, wl):
-    codes, lens = _up(dev, *seed_rows(wl))
+# (word length, row length, shift): the seed rows (l None), and rows
+# whose 16-window runs cross row ends (hash_rows), also starting 5 bytes
+# past a 16-byte boundary (a view into a larger tensor).
+HASH_KERNEL_CASES = [pytest.param(wl, None, 0, id=str(wl))
+                     for wl in (4, 11, 15)] + [
+    pytest.param(wl, l, shift, id="%s-shift%d" % (i, shift))
+    for (wl, l), i in zip(HASH_SHAPES, HASH_SHAPE_IDS) for shift in (0, 5)]
+
+
+@pytest.mark.parametrize("wl,l,shift", HASH_KERNEL_CASES)
+def test_seed_hash_kernel_matches_plain(dev, wl, l, shift):
+    codes, lens = (seed_rows(wl) if l is None else hash_rows(wl + l, wl, l))
+    buf = torch.zeros(codes.size + 16, dtype=torch.uint8, device=dev)
+    codes_d = buf[shift:shift + codes.size].view(codes.shape)
+    codes_d.copy_(torch.from_numpy(codes))
+    lens_d, = _up(dev, lens)
     sw_cuda.reset_launches()
-    got = seeds.seed_hashes(codes, lens, word_len=wl)
+    got = seeds.seed_hashes(codes_d, lens_d, word_len=wl)
     assert {k: v for k, v in sw_cuda.launches().items() if v} == {
         "seed_hashes": 1}
-    want = seeds.seed_hashes_reference(codes, lens, word_len=wl)
+    want = seeds.seed_hashes_reference(codes_d, lens_d, word_len=wl)
     _equal({"h": got[0], "c": got[1]}, {"h": want[0], "c": want[1]})
 
 

@@ -7,8 +7,11 @@ zero): the window hashes (word lengths 4, 11 and 15, N and X codes inside
 reads, reads shorter than the word, pad code 4), the hit expansion and
 sort on the golden L11 index at capacities 64, 1,024 and 8,192 (rows that
 overflow each of the first two), on the synthetic index of
-test_seeds_jax.py's tier-capacity test and on hits whose diag is 2^31 or
-more (the uint32 order), and the three plain ops with no kernel.  The
+test_seeds_jax.py's tier-capacity test, on hits whose diag is 2^31 or
+more (the uint32 order), on 650-hit runs across C in rows of three
+expansion batches and on row totals around every sort size; hashes also
+on rows whose 16-window runs cross row ends; and the three plain ops with
+no kernel.  The
 port's DeviceSeeder.seed_chunk must return the JAX DeviceSeeder's hit rows
 on the read sets of tests/test_seeder.py, with phantom, retry and
 host-scan rows, also from 24 concurrent calls with no stats update lost;
@@ -26,8 +29,9 @@ import pytest
 import torch
 
 from conftest import DATA, GOLD
-from torch_dp_cases import (golden_index, seed_rows, unsigned_case,
-                            wrapped_case)
+from torch_dp_cases import (HASH_SHAPE_IDS, HASH_SHAPES, SEED_CASES,
+                            SIZE_TOTALS, golden_index, hash_rows, seed_case,
+                            seed_rows, unsigned_case, wrapped_case)
 from yaha_tpu.ops import seeds_jax
 from yaha_tpu_torch.ops import seeds
 
@@ -70,9 +74,17 @@ def _code_batch(seed, wl, b=40, l=96):
     return codes, lens.astype(np.int32)
 
 
-@pytest.mark.parametrize("wl", [4, 11, 15])
-def test_seed_hashes_match_jax(wl):
-    codes, lens = _code_batch(wl, wl)
+# (word length, row length): random rows of 96 codes (l None), and the
+# rows whose 16-window runs cross row ends (hash_rows).
+HASH_CASES = [pytest.param(wl, None, id=str(wl)) for wl in (4, 11, 15)] + [
+    pytest.param(wl, l, id=i) for (wl, l), i in zip(HASH_SHAPES,
+                                                     HASH_SHAPE_IDS)]
+
+
+@pytest.mark.parametrize("wl,l", HASH_CASES)
+def test_seed_hashes_match_jax(wl, l):
+    codes, lens = (_code_batch(wl, wl) if l is None else
+                   hash_rows(wl + l, wl, l))
     hashes, clean = seeds.seed_hashes(_t(codes), _t(lens), word_len=wl)
     want = seeds_jax.batched_seed_hashes(codes, lens, word_len=wl)
     _equal_jax({"h": hashes, "c": clean}, {"h": want[0], "c": want[1]})
@@ -137,6 +149,34 @@ def test_expand_sort_unsigned_order_and_sentinel(capacity):
         assert (diag[0, :11] < 0xFFFFFFFF).all() and (diag[0, 4] >= 1 << 31)
         assert (got["qo"][0, 12:] == seeds.QO_SENTINEL).all()
         assert got["total"].tolist() == [12, 8, 12, 0]
+
+
+# The seed cases no test above runs: 650-hit runs across C in rows of
+# three batches, and row totals around every sort size.
+EDGE_CASES = [c for c in SEED_CASES if c.startswith(("longrun", "sizes"))]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_expand_sort_matches_jax_cases(case):
+    """The seed cases of the kernel's edges (the g++ and card tests run
+    them too): whole dicts equal."""
+    src, so, roa, max_hits, cap = seed_case(case)
+    hashes, clean = _t(src[1]), _t(src[2])
+    got = seeds.expand_sort_hits(hashes, clean, _t(so), _t(roa),
+                                 max_hits=max_hits, capacity=cap)
+    _equal_jax(got, seeds_jax.expand_sort_hits_device(
+        hashes.numpy(), clean.numpy(), so, roa, max_hits=max_hits,
+        capacity=cap))
+    if case == "sizes1024":
+        assert got["total"].tolist() == list(SIZE_TOTALS)
+    if case.startswith("longrun"):
+        total = got["total"].tolist()
+        # the 650 runs of rows 1 and 2 start at slots 600 and 500 and
+        # straddle 1,024, row 4's starts there; row 2's run is wrapped (all
+        # its slots below C have ro < qo)
+        assert [total[1], total[2], total[4]] == [1350, 1250, 1684]
+        assert bool(got["wrapped"][2, 900])
+        assert bool(got["overflow"][3]) == (cap < total[3])
 
 
 # ---- the plain ops with no kernel ----

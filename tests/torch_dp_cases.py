@@ -387,12 +387,120 @@ def unsigned_case():
     return hashes, clean, so, roa, 5
 
 
+def _runs_index(runs, wl, extra=3):
+    """SO and ROA (uint32) of a synthetic index of word length wl whose
+    hash h holds the ROA run runs[h] (the others none), with `extra`
+    entries past the last run."""
+    ht = 1 << (2 * wl)
+    counts = np.zeros(ht, np.uint32)
+    for h, run in runs.items():
+        counts[h] = len(run)
+    so = np.zeros(ht + 1, np.uint32)
+    so[1:] = np.cumsum(counts)
+    roa = np.zeros(int(so[-1]) + extra, np.uint32)
+    for h, run in runs.items():
+        roa[so[h]:so[h] + len(run)] = run
+    return so, roa
+
+
+def longrun_case(seed=11, n=2600):
+    """Rows of n windows (more than one expansion batch of 1,024) on a
+    synthetic index (word length 6, max_hits 650): hash 5 holds a run of
+    650 hits (ro random, some below qo), hash 6 one of 650 hits all below
+    qo past window 700, hash 7 one of 651 (past max_hits, not kept), and
+    hashes 16 up single hits.  Row 0: the 650-hit run at window 10 beside
+    single hits; row 1: 600 single hits, then the 650 run straddling slot
+    1,024; row 2: the all-below run straddling 1,024 from window 900 (its
+    window is wrapped); row 3: two 650 runs and hits in the third batch of
+    windows (past 8,192 slots at no capacity; slots of every batch below
+    8,192); row 4: a run that starts exactly at slot 1,024; row 5: twenty
+    650-hit runs among single hits (13,000 hits and more: the register
+    sorts of 32 and 64 keys a thread at C = 8,192 and 16,384).  Returns
+    (hashes, clean, SO, ROA, max_hits)."""
+    rng = np.random.default_rng(seed)
+    wl = 6
+    runs = {5: rng.integers(0, 3000, 650).astype(np.uint32),
+            6: rng.integers(0, 600, 650).astype(np.uint32),
+            7: rng.integers(0, 3000, 651).astype(np.uint32)}
+    singles = list(range(16, 1 << (2 * wl)))
+    for h in singles:
+        runs[h] = rng.integers(0, 4000, 1).astype(np.uint32)
+    so, roa = _runs_index(runs, wl)
+    hashes = np.zeros((6, n), np.int32)
+    clean = np.zeros((6, n), bool)
+
+    def put(r, w, h):
+        hashes[r, w], clean[r, w] = h, True
+
+    def single(r, ws):
+        for w in ws:
+            put(r, w, singles[int(rng.integers(len(singles)))])
+
+    single(0, range(0, 10))
+    put(0, 10, 5)
+    single(0, range(11, 300))
+    put(0, 400, 7)
+    single(1, range(0, 1200, 2))
+    put(1, 1300, 5)
+    single(1, range(1400, 1500))
+    single(2, range(0, 500))
+    put(2, 900, 6)
+    single(2, range(1000, 1100))
+    put(3, 5, 5)
+    single(3, range(100, 2600, 3))
+    put(3, 2100, 5)
+    put(3, 2500, 6)
+    single(4, range(0, 1024))
+    put(4, 1030, 5)
+    single(4, range(1100, 1110))
+    single(5, range(1, n, 7))
+    for w in range(0, n, 130):
+        put(5, w, 5 if w % 260 else 6)
+    return hashes, clean, so, roa, 650
+
+
+# The row totals of sizes_case: around the warp sort (32) and the
+# register sorts of 256 and 1,024 keys.
+SIZE_TOTALS = (0, 1, 31, 32, 33, 255, 256, 257, 1023, 1024, 1025)
+
+
+def sizes_case(seed=12, n=1100):
+    """One row per total of SIZE_TOTALS, n windows a row (two expansion
+    batches), on a synthetic index of word length 6 whose every hash holds
+    1 to 3 hits of random ro (ties in diag occur); the windows that carry
+    hits are random, the last one sized to the total.  Returns (hashes,
+    clean, SO, ROA, max_hits)."""
+    rng = np.random.default_rng(seed)
+    wl = 6
+    ht = 1 << (2 * wl)
+    runs = {h: rng.integers(0, 1500, int(rng.integers(1, 4))).astype(
+        np.uint32) for h in range(ht)}
+    by_len = {c: [h for h, r in runs.items() if len(r) == c]
+              for c in (1, 2, 3)}
+    so, roa = _runs_index(runs, wl)
+    hashes = np.zeros((len(SIZE_TOTALS), n), np.int32)
+    clean = np.zeros((len(SIZE_TOTALS), n), bool)
+    for r, want in enumerate(SIZE_TOTALS):
+        ws = np.sort(rng.choice(n, n, replace=False))
+        left, k = want, 0
+        while left:
+            c = min(left, int(rng.integers(1, 4)))
+            h = by_len[c][int(rng.integers(len(by_len[c])))]
+            hashes[r, ws[k]], clean[r, ws[k]] = h, True
+            left -= c
+            k += 1
+    return hashes, clean, so, roa, 3
+
+
 # Seed-phase cases: the golden index's seed rows at capacities 64 to 16,384
 # (rows overflow 64 and 1,024), the wrapped run at a tier's last slots (128)
-# and past them (64), and the unsigned-order edges with and without room
-# for sentinels.
+# and past them (64), the unsigned-order edges with and without room for
+# sentinels, 650-hit runs beside single hits and across C in rows of three
+# expansion batches (longrun), and row totals around the sort's sizes
+# (sizes).
 SEED_CASES = ["golden64", "golden1024", "golden8192", "wrapped64",
-              "wrapped128", "unsigned8", "unsigned16"]
+              "wrapped128", "unsigned8", "unsigned16", "longrun1024",
+              "longrun8192", "longrun16384", "sizes1024"]
 
 
 def seed_case(case):
@@ -407,5 +515,32 @@ def seed_case(case):
     if case.startswith("wrapped"):
         hashes, clean, so, roa = wrapped_case()
         return ("hashes", hashes, clean), so, roa, 650, cap
-    hashes, clean, so, roa, max_hits = unsigned_case()
+    make = {"unsigned": unsigned_case, "longrun": longrun_case,
+            "sizes": sizes_case}[case.rstrip("0123456789")]
+    hashes, clean, so, roa, max_hits = make()
     return ("hashes", hashes, clean), so, roa, max_hits, cap
+
+
+# Hash rows: (word length, row length); N = L - wl + 1 is not a multiple of
+# 16 in any, so 16-window runs cross row ends, and 6 rows of 20 codes at
+# word length 15 have fewer windows (6) than a run.
+HASH_SHAPES = [(11, 1024), (15, 1024), (15, 20), (4, 37)]
+HASH_SHAPE_IDS = ["wl11_L1024", "wl15_L1024", "wl15_L20", "wl4_L37"]
+
+
+def hash_rows(seed, wl, l, b=45):
+    """[b, l] u8 code rows (N and X codes inside the reads, code 4 past
+    each length) and lengths whose count of windows takes every residue
+    mod 16 (lengths 0, 1, wl - 1, wl and l among them); b * N is not a
+    multiple of 16, so the last 16-window run is short."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (b, l)).astype(np.uint8)
+    bad = rng.random((b, l)) < 0.02
+    codes[bad] = rng.choice(np.array([4, 14], np.uint8), int(bad.sum()))
+    n = l - wl + 1
+    lens = np.minimum(wl - 1 + rng.integers(1, n + 1, b) // 16 * 16 +
+                      np.arange(b) % 16, l)
+    lens[:4] = [0, 1, wl - 1, wl]
+    lens[-1] = l
+    codes[np.arange(l)[None, :] >= lens[:, None]] = 4
+    return codes, lens.astype(np.int32)

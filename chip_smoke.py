@@ -16,8 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      walk kernel, the gather kernel or either seed kernel;
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
-     W = 13, 21 and 33 and every block size, the scratch kernel at W = 21
-     and 37), the two anchored kernels (on warps of each width class 8,
+     W = 13, 21 and 33 and every block size; the wide kernel at W = 1,
+     21, 37 and 65, with the int32-wrap scoring, an early X-drop, short
+     references and reads with an indel of up to 2*bw bases), the two
+     anchored kernels (on warps of each width class 8,
      16 and 32 and wider ones, whose state is in global scratch; backtrack
      planes included; both scorings) and the anchored `*_p4` entries
      against the unpacked ones, the problem gather
@@ -39,8 +41,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      counts of every kernel over the warm run, every extension through
      the register kernel.  Then the A/B configuration (host fetch, planes to the native walkers)
      once on the same batch, with parity;
-  4. the scratch extension kernel's path: 2,048 of those reads at -BW 9
-     (W = 37), every extension through that kernel; 256 reads of 10 kb,
+  4. the wide extension kernel's path: the whole batch at -BW 9 (W = 37)
+     and 2,048 of its reads at -BW 16 (W = 65), every extension through
+     that kernel; 256 reads of 10 kb,
      and the 105 kb split read of tests/test_long_reads.py, through the
      default configuration; SAM bytes equal to the native engine's each
      time (counts set to 0 before each run and read after it); the port's
@@ -53,13 +56,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      or int32 operations over the int32 rate, from this run's inputs); the
      two extension kernels, and the register kernel's block sizes, in
      turns at the largest 1 kb bucket and at the 10 kb run's widest
-     bucket, and so the walk's team sizes; the two anchored kernels at
+     bucket, and so the walk's team sizes; the wide kernel at the largest
+     -BW 9 and -BW 16 buckets (its plain version on their first 2,048
+     problems) with its lanes' busy share; the two anchored kernels at
      their largest 1 kb buckets both on shuffled
      copies of the bucket and in the main path's problem order (which
      sets the lanes of a warp), with the plane's zero fill alone; the
      4-bit packed extension entry (unpack + kernel) at the largest 1 kb
-     bucket; a histogram of every gap launch of the 1 kb, -BW 9, 10 kb and
-     105 kb runs: (qg, rg, plane width, N), its warps by width class and
+     bucket; a histogram of every gap launch of the 1 kb, -BW 9, -BW 16,
+     10 kb and 105 kb runs: (qg, rg, plane width, N), its warps by width class and
      each class's share of the in-band cells;
   6. the device seed phase (--seed device): the 1 kb batch with the
      seeder, the full L15 index uploaded to the card (bytes and seconds),
@@ -118,8 +123,8 @@ BATCH = 16384            # the staged engine's default batch
 KERNELS = {   # launch counter -> (source, the TPU program it replaces)
     "extension_forward": ("yaha_tpu_torch/csrc/ext_kernels.cu",
                           "yaha_tpu/ops/sw_pallas.py:764"),
-    "extension_forward_scratch": ("yaha_tpu_torch/csrc/sw_kernels.cu",
-                                  "yaha_tpu/ops/sw_pallas.py:764"),
+    "extension_forward_wide": ("yaha_tpu_torch/csrc/ext_wide_kernels.cu",
+                               "yaha_tpu/ops/sw_pallas.py:764"),
     "anchored_forward_banded": ("yaha_tpu_torch/csrc/anch_kernels.cu",
                                 "yaha_tpu/ops/sw_pallas.py:554"),
     "anchored_forward": ("yaha_tpu_torch/csrc/anch_kernels.cu",
@@ -138,11 +143,14 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
 SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
 DP_KERNELS = [k for k in KERNELS if k not in SEED_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
-NO_SPILL = re.compile(r"ext_reg_kernel|anch_reg_kernel|rle_win_kernel|"
-                      r"gather_kernel|seed_hash_kernel|expand_sort_kernel")
+NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|anch_reg_kernel|"
+                      r"rle_win_kernel|gather_kernel|seed_hash_kernel|"
+                      r"expand_sort_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
-WIDE_BW = 9              # -BW of the wide-band path (W = 37: scratch kernel)
-WIDE_READS = 2048
+WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
+WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
+WIDER_READS = 2048
+PLAIN_SLICE = 2048       # problems of a wide bucket the plain version runs
 
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its bytes (each input read once, each output written once) over the
@@ -485,6 +493,8 @@ def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
     from yaha_tpu_torch.utils import codec
     from yaha_tpu_torch.ops import decode, gather_dp, seeds
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import indel_extension_inputs
     rng = np.random.default_rng(SEED)
     kw0 = dict(go=5, ge=2, rc=3, ms=1, max_gap=50, max_intron=50)
     # At this gap-open cost DP_WORST - (go + ge) wraps int32: the kernels
@@ -518,26 +528,40 @@ def phase_kernels(torch, sw, errs, dev):
                         {"rle": want[0], "n_ops": want[1]})
 
     # Extension, both kernels: N = 4096 at QL = 256 for BW 5 (the register
-    # kernel at each block size, and the scratch kernel) and BW 3; a few
-    # hundred problems at QL = 4096 (the read lengths the Pallas entry sent
-    # to its windowed variant); BW 8 (W = 33, the widest register
-    # instance) and BW 9 (W = 37: the scratch kernel, by dispatch).  A
-    # quarter of the references end before qlen + 2*bw2.
+    # kernel at each block size, and the wide kernel at W = 21) and BW 3; a
+    # few hundred problems at QL = 4096 (the read lengths the Pallas entry
+    # sent to its windowed variant); BW 8 (W = 33, the widest register
+    # instance); by dispatch the wide kernel at BW 0, 9 and 16 (W = 1, 37,
+    # 65), with an early X-drop (x_cutoff 4), the int32-wrap scoring, and
+    # reads with an indel of up to 2*bw bases (X-drop 60: paths out to the
+    # band's outer columns survive their gap).  A quarter of the references
+    # end before qlen + 2*bw2.
     default = [(None, sw.EXT_BLOCK)]
-    for n, ql, bw, xc, kw, kernels in (
-            (4096, 256, 5, 25, kw0, default + [("reg", 32), ("reg", 128),
-                                               ("scratch", 64)]),
-            (4096, 256, 3, 15, kw0, default),
-            (256, 4096, 5, 25, kw0, default),
-            (1024, 128, 8, 25, kw0, default),
-            (1024, 128, WIDE_BW, 25, kw0, default),
-            (512, 64, 5, 25, wrap, default + [("scratch", 64)]),
-            (512, 64, 8, 25, wrap, default)):
+    forced = [("reg", 32), ("reg", 128), ("wide", sw.EXT_BLOCK)]
+    for n, ql, bw, xc, kw, kernels, indel in (
+            (4096, 256, 5, 25, kw0, default + forced, False),
+            (4096, 256, 3, 15, kw0, default, False),
+            (256, 4096, 5, 25, kw0, default, False),
+            (1024, 128, 8, 25, kw0, default, False),
+            (1024, 128, 0, 25, kw0, default, False),
+            (1024, 128, WIDE_BW, 25, kw0, default, False),
+            (1024, 128, WIDE_BW, 4, kw0, default, False),
+            (1024, 128, WIDER_BW, 25, kw0, default, False),
+            (1024, 256, WIDE_BW, 60, kw0, default, True),
+            (1024, 256, WIDER_BW, 60, kw0, default, True),
+            (512, 64, 5, 25, wrap, default + forced[2:], False),
+            (512, 64, 8, 25, wrap, default, False),
+            (512, 64, WIDE_BW, 25, wrap, default, False),
+            (512, 64, WIDER_BW, 25, wrap, default, False)):
         bw2 = 2 * bw
         rl = ql + 2 * bw2
-        q, r = _rand_problems(rng, n, ql, rl, similar=True)
-        qlens = rng.integers(ql // 2, ql + 1, n)
-        rlens = np.minimum(qlens + bw2, rl)
+        if indel:
+            q, qlens, r, rlens = indel_extension_inputs(
+                int(rng.integers(1 << 30)), n, ql, bw)
+        else:
+            q, r = _rand_problems(rng, n, ql, rl, similar=True)
+            qlens = rng.integers(ql // 2, ql + 1, n)
+            rlens = np.minimum(qlens + bw2, rl)
         rlens = np.where(rng.random(n) < 0.25, rng.integers(1, rlens + 1),
                          rlens)
         r[np.arange(rl)[None, :] >= rlens[:, None]] = 255
@@ -549,9 +573,10 @@ def phase_kernels(torch, sw, errs, dev):
                                        **kw)
             sync(torch, dev)
             name = ("extension_forward" if (variant or sw.ext_variant(bw))
-                    == "reg" else "extension_forward_scratch")
-            check(name, "N=%d QL=%d BW=%d block=%d" % (n, ql, bw, block),
-                  kw, out, want)
+                    == "reg" else "extension_forward_wide")
+            check(name, "N=%d QL=%d BW=%d X=%d block=%d%s" % (
+                n, ql, bw, xc, block, " indel" if indel else ""), kw, out,
+                want)
         walk_check("extension N=%d QL=%d" % (n, ql), out["bt"], out["maxi"],
                    out["maxj"], out["score"] > 0, False)
     def anch_check(tag, args, kw, wband):
@@ -944,12 +969,13 @@ def _nbytes(*ts):
 def _record(torch, kernels, errs, phase, name, tag, ms, plain_ms, got,
             want, nbytes, ops, library_ms=None):
     """Hold a timed kernel's output to its plain version's and enter its
-    times and bound in the kernels line."""
+    times and bound in the kernels line (unless `kernels` is None)."""
     compare(torch, errs, phase, name, tag, got, want)
     bound_ms, bound_by = _bound(nbytes, ops)
-    kernels[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms,
-                         max_abs_err=errs[name])
+    if kernels is not None:
+        kernels[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms,
+                             max_abs_err=errs[name])
     log("%s %s %s: kernel %.6f ms, plain %.3f ms, library %s ms, bound "
         "%.6f ms (%s: %d bytes, %d int32 ops), %.1f %% of the bound" % (
             phase, name, tag, ms, plain_ms, "none" if library_ms is None
@@ -988,35 +1014,71 @@ def _largest(st, name, prefer=None, widest=False):
     return key, st.buckets[key][1]
 
 
-# Extension kernels timed in turns: (label, variant, block).
-EXT_TURNS = [("reg64", "reg", 64), ("scratch", "scratch", 64),
-             ("reg32", "reg", 32), ("reg128", "reg", 128),
-             ("reg128", "reg", 128), ("reg32", "reg", 32),
-             ("scratch", "scratch", 64), ("reg64", "reg", 64)]
+# Extension kernels timed in turns, by label: the register kernel in blocks
+# of B threads ("regB") and the wide kernel.
+EXT_TURNS = ["reg64", "wide", "reg32", "reg128", "reg128", "reg32", "wide",
+             "reg64"]
+WIDE_TURNS = ["wide", "wide"]
 
 
-def _ext_turns(torch, sw, dev, kw, sets, tag):
-    """The register kernel (blocks of 64, 32 and 128 threads) and the
-    scratch kernel timed in turns on the same inputs; returns {label: [ms,
-    ms]} and the register kernel's output on sets[1], which must equal the
-    scratch kernel's."""
+def _ext_turns(torch, sw, dev, kw, sets, tag, order, keep):
+    """The extension kernels of `order` timed in turns on the same inputs
+    (labels: "regB" the register kernel in blocks of B threads, "wide");
+    returns {label: [ms, ...]} and the output of the kernel labelled
+    `keep` on sets[1], which every other kernel's must equal."""
+    def kernel(label):
+        if label == "wide":
+            return lambda *a: sw.extension_forward(*a, variant="wide", **kw)
+        return lambda *a: sw.extension_forward(
+            *a, variant="reg", block=int(label[3:]), **kw)
     times = {}
-    for label, variant, block in EXT_TURNS:
-        fn = (lambda v, b: lambda *a: sw.extension_forward(
-            *a, variant=v, block=b, **kw))(variant, block)
-        times.setdefault(label, []).append(_time_kernel(torch, dev, fn,
-                                                        sets))
+    for label in order:
+        times.setdefault(label, []).append(_time_kernel(
+            torch, dev, kernel(label), sets))
     log("phase5 extension %s: %s" % (tag, " ".join(
         "%s=%s ms" % (k, ",".join("%.6f" % t for t in v))
         for k, v in times.items())))
-    reg = sw.extension_forward(*sets[1], variant="reg", **kw)
-    scr = sw.extension_forward(*sets[1], variant="scratch", **kw)
-    sync(torch, dev)
-    for key in reg:
-        if not torch.equal(reg[key], scr[key]):
-            raise AssertionError("phase5 extension %s: register and scratch "
-                                 "kernels differ in %s" % (tag, key))
-    return times, reg
+    kept = kernel(keep)(*sets[1])
+    for label in times:
+        other = kernel(label)(*sets[1])
+        sync(torch, dev)
+        for key in kept:
+            if not torch.equal(other[key], kept[key]):
+                raise AssertionError("phase5 extension %s: %s and %s "
+                                     "kernels differ in %s" % (
+                                         tag, label, keep, key))
+    return times, kept
+
+
+def _ext_plane_work(torch, bt):
+    """(cells computed, last computed row of each problem) of an
+    extension plane: every computed cell's byte is nonzero, and the other
+    nonzero bytes of rows 1.. are the anti-diagonal insert cells (i,
+    bw2 - i), i <= bw2."""
+    h, w = bt.shape[1], bt.shape[2]
+    bw2 = (w - 1) // 2
+    fill = torch.zeros((h, w), dtype=torch.bool, device=bt.device)
+    fill[0] = True
+    for i in range(1, min(bw2, h - 1) + 1):
+        fill[i, bw2 - i] = True
+    rows = ((bt != 0) & ~fill).sum(-1)
+    cells = int(rows.sum())
+    idx = torch.arange(h, device=bt.device)
+    return cells, ((rows > 0) * idx).max(-1).values
+
+
+def _wide_lanes(torch, cells, last, w, tag):
+    """The wide kernel's lane-step share: cells computed over 32 x its
+    wavefront steps (a problem whose last computed row is in strip s takes
+    s * P + 62 + W steps, P = max(W + 1, 64))."""
+    period = max(w + 1, 64)
+    steps = torch.where(last > 0, torch.div(last - 1, 32,
+                                            rounding_mode="floor") * period +
+                        62 + w, 0)
+    total = int(steps.sum())
+    log("phase5 extension_forward_wide %s: %d cells over %d wavefront steps "
+        "x 32 lanes: %.1f %% of lane-steps busy" % (
+            tag, cells, total, 100 * cells / max(1, 32 * total)))
 
 
 # Walk team sizes timed in turns (lanes per problem).
@@ -1058,13 +1120,14 @@ def _walk_work(torch, rle, n_ops, cap, inputs):
     return steps + 4 * stored + _nbytes(*inputs) + _nbytes(n_ops), steps
 
 
-def phase_times(torch, sw, st, st10, kernels, errs, dev):
+def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
     """Kernel (wrapper: output allocation + launch) and plain-version times
     at the main path's largest buckets, on the inputs the main path
     assembled on the card; CUDA events, distinct inputs (4 permutations of
     the bucket).  The kernel's output on the bucket must equal the plain
     version's.  The two extension kernels run in turns at the largest 1 kb
-    bucket and at the 10 kb run's widest bucket.  Each kernel's bound comes
+    bucket and at the 10 kb run's widest bucket, and the wide kernel at the
+    -BW 9 and -BW 16 runs' largest buckets.  Each kernel's bound comes
     from this run's inputs: the cells its DP computed (the X-drop exits
     counted from the extension's plane), its walk's steps, its gather's
     bytes."""
@@ -1092,39 +1155,31 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
     n = arrs[0].shape[0]
     sets = bucket_sets(arrs)
     times, got = _ext_turns(torch, sw, dev, ext_kw, sets, "1kb bucket=%s N=%d"
-                            % (list(ext_key[1:]), n))
+                            % (list(ext_key[1:]), n), EXT_TURNS, "reg64")
     plain_ms, want = _time_once(
         torch, dev, lambda *a: sw.extension_forward_reference(*a, **ext_kw),
         sets[1])
-    w = got["bt"].shape[2]
-    bw2 = (w - 1) // 2
-    # Cells computed: every computed cell's byte is nonzero; the other
-    # nonzero bytes of rows 1.. are the anti-diagonal insert cells.
-    cells = int(torch.count_nonzero(got["bt"][:, 1:])) - n * min(
-        bw2, got["bt"].shape[1] - 1)
+    h, w = got["bt"].shape[1], got["bt"].shape[2]
+    cells, last = _ext_plane_work(torch, got["bt"])
     nbytes = _nbytes(*sets[1]) + _nbytes(*got.values())
-    for name, label in (("extension_forward", "reg64"),
-                        ("extension_forward_scratch", "scratch")):
-        finish(name, ext_key, n, float(np.mean(times[label])), plain_ms,
-               got, want, nbytes, cells * CELL_OPS)
+    finish("extension_forward", ext_key, n, float(np.mean(times["reg64"])),
+           plain_ms, got, want, nbytes, cells * CELL_OPS)
+    bound = _bound(nbytes, cells * CELL_OPS)[0]
+    wide_ms = float(np.mean(times["wide"]))
+    log("phase5 extension 1kb: wide kernel %.6f ms, %.1f %% of the bound" % (
+        wide_ms, 100 * bound / wide_ms))
     log("phase5 extension cells computed: %d of %d (%.1f %%)" % (
-        cells, n * (got["bt"].shape[1] - 1) * w,
-        100 * cells / (n * (got["bt"].shape[1] - 1) * w)))
-    # Rows each problem computed (rows with a computed cell: the plane's
-    # nonzero bytes other than the anti-diagonal insert cells), against
-    # the row steps of warps whose 32 lanes run in step.
-    h = got["bt"].shape[1]
-    diag = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    for i in range(1, min(bw2, h - 1) + 1):
-        diag[i, bw2 - i] = True
-    rows = ((got["bt"] != 0) & ~diag)[:, 1:].any(-1).sum(-1)
+        cells, n * (h - 1) * w, 100 * cells / (n * (h - 1) * w)))
+    _wide_lanes(torch, cells, last, w, "1kb W=%d" % w)
+    # Rows each problem computed, against the row steps of warps whose 32
+    # lanes run in step (the register kernel).
+    rows = last
     warp_rows = torch.nn.functional.pad(rows, (0, -n % 32)).view(
         -1, 32).max(-1).values
     log("phase5 extension rows: computed %d, longest problem %d, warp "
         "row steps x 32 lanes %d (%.1f %% of lane-rows busy)" % (
             int(rows.sum()), int(rows.max()), 32 * int(warp_rows.sum()),
             100 * int(rows.sum()) / (32 * int(warp_rows.sum()))))
-    del diag
     ext_out = got
     del want
 
@@ -1147,7 +1202,34 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
         "%.1f %% of the bound; output = unpacked entry's" % (
             list(ext_key[1:]), n, p4_ms, float(np.mean(times["reg64"])),
             p4_bound, p4_by, 100 * p4_bound / p4_ms))
-    del p4, psets
+    del p4, psets, sets
+
+    # The wide kernel at the largest -BW 9 and -BW 16 buckets (the first
+    # enters the kernels line), its plain version on the first
+    # PLAIN_SLICE problems (the plain version's time is about that of its
+    # longest problem).
+    for wst, record in ((st_wide, True), (st_wider, False)):
+        key, arrs = _largest(wst, "extension_forward", 1024)
+        n = arrs[0].shape[0]
+        sets = bucket_sets(arrs)
+        kw = wst.ext_kw
+        tag = "bucket=%s N=%d BW=%d" % (list(key[1:]), n, kw["band_width"])
+        times, got = _ext_turns(torch, sw, dev, kw, sets, tag, WIDE_TURNS,
+                                "wide")
+        m = min(n, PLAIN_SLICE)
+        part = [t[:m].contiguous() for t in sets[1]]
+        plain_ms, want = _time_once(
+            torch, dev, lambda *a: sw.extension_forward_reference(*a, **kw),
+            part)
+        cells, last = _ext_plane_work(torch, got["bt"])
+        nbytes = _nbytes(*sets[1]) + _nbytes(*got.values())
+        ms = float(np.mean(times["wide"]))
+        _record(torch, kernels if record else None, errs, "phase5",
+                "extension_forward_wide", tag + " (plain: first %d)" % m, ms,
+                plain_ms, {k: v[:m] for k, v in got.items()}, want, nbytes,
+                cells * CELL_OPS)
+        _wide_lanes(torch, cells, last, got["bt"].shape[2], tag)
+        del sets, got, want, part, last
 
     # The extension at the 10 kb run's widest bucket: both kernels in turns
     # (the plain version would take minutes there; both kernels are held to
@@ -1155,15 +1237,16 @@ def phase_times(torch, sw, st, st10, kernels, errs, dev):
     key10, arrs10 = _largest(st10, "extension_forward", widest=True)
     times10, got10 = _ext_turns(torch, sw, dev, st10.ext_kw,
                                 bucket_sets(arrs10), "10kb bucket=%s N=%d" % (
-                                    list(key10[1:]), arrs10[0].shape[0]))
-    cells10 = int(torch.count_nonzero(got10["bt"][:, 1:])) - \
-        arrs10[0].shape[0] * min(bw2, got10["bt"].shape[1] - 1)
+                                    list(key10[1:]), arrs10[0].shape[0]),
+                                EXT_TURNS, "reg64")
+    cells10, last10 = _ext_plane_work(torch, got10["bt"])
     b10, by10 = _bound(_nbytes(*bucket_sets(arrs10)[0]) +
                        _nbytes(*got10.values()), cells10 * CELL_OPS)
-    log("phase5 extension 10kb: bound %.6f ms (%s), cells computed %d; "
-        "reg64 %.1f %%, scratch %.1f %% of the bound" % (
-            b10, by10, cells10, 100 * b10 / np.mean(times10["reg64"]),
-            100 * b10 / np.mean(times10["scratch"])))
+    log("phase5 extension 10kb: bound %.6f ms (%s), cells computed %d; %s" % (
+        b10, by10, cells10, ", ".join(
+            "%s %.1f %%" % (k, 100 * b10 / np.mean(v))
+            for k, v in times10.items())))
+    _wide_lanes(torch, cells10, last10, got10["bt"].shape[2], "10kb")
     # The walk on those planes, every team size in turns (the plain version
     # would take minutes there; every team size is held to it above).
     cap10 = 1 << (2 * key10[1] + got10["bt"].shape[2] + 1).bit_length()
@@ -1361,7 +1444,7 @@ def phase_seed(torch, sw, StagedAligner, SeedRecorder, genome, index, aa,
             launches)
     _seed_report("phase6 1kb", seeder)
     for name in KERNELS:
-        if (launches[name] == 0) != (name == "extension_forward_scratch"):
+        if (launches[name] == 0) != (name == "extension_forward_wide"):
             raise AssertionError("phase6: %s launched %d times" % (
                 name, launches[name]))
     # The host seed scan (a fresh default aligner) and the device seeder
@@ -1779,7 +1862,7 @@ def main():
     # At -BW 5 (W = 21) every extension goes through the register kernel;
     # the host seed scan launches no seed kernel.
     for name in KERNELS:
-        if (launches[name] == 0) != (name == "extension_forward_scratch" or
+        if (launches[name] == 0) != (name == "extension_forward_wide" or
                                      name in SEED_KERNELS):
             raise AssertionError("phase3: %s launched %d times" % (
                 name, launches[name]))
@@ -1791,16 +1874,21 @@ def main():
                for name, (src, rep) in KERNELS.items()}
     phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
              "phase3 1kb A/B", dev)
-    # The scratch extension kernel's path: bands wider than -BW 8.
-    st_wide, wide, _, _ = phase_main(
-        torch, sw, host, Recorder, genome, index,
-        _aa(host, index, idx, band_width=WIDE_BW), reads[:WIDE_READS],
-        threads, "phase4 1kb BW%d" % WIDE_BW, dev)
-    if wide["extension_forward"] or not wide["extension_forward_scratch"]:
-        raise AssertionError("phase4 BW%d: extension launches %s" % (
-            WIDE_BW, wide))
-    kernels["extension_forward_scratch"]["launches"] = \
-        wide["extension_forward_scratch"]
+    # The wide extension kernel's path: bands wider than -BW 8, the whole
+    # batch at -BW 9 and part of it at -BW 16.
+    wide_runs = {}
+    for bw, part in ((WIDE_BW, reads), (WIDER_BW, reads[:WIDER_READS])):
+        wide_runs[bw] = phase_main(
+            torch, sw, host, Recorder, genome, index,
+            _aa(host, index, idx, band_width=bw), part, threads,
+            "phase4 1kb BW%d" % bw, dev)
+        wide = wide_runs[bw][1]
+        if wide["extension_forward"] or not wide["extension_forward_wide"]:
+            raise AssertionError("phase4 BW%d: extension launches %s" % (
+                bw, wide))
+    st_wide, st_wider = wide_runs[WIDE_BW][0], wide_runs[WIDER_BW][0]
+    kernels["extension_forward_wide"]["launches"] = \
+        wide_runs[WIDE_BW][1]["extension_forward_wide"]
 
     long_reads = (sample_reads(seqs, 128, 10000, rng, b"long", False) +
                   sample_reads(seqs, 128, 10000, rng, b"longindel", True))
@@ -1825,9 +1913,10 @@ def main():
     phase_seed_reads(torch, sw, host, StagedAligner, DeviceSeeder, seeder,
                      genome, index, aa10, pr10, ref10, tg_nib, tg_idx,
                      threads, dev)
-    phase_times(torch, sw, st, st10, kernels, errs, dev)
+    phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev)
     phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev)
     phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
+                             ("1kb BW%d" % WIDER_BW, st_wider),
                              ("10kb", st10), ("105kb", st105)])
 
     log("total: %.1f s" % (time.time() - t_start))

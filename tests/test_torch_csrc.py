@@ -11,11 +11,15 @@ tolerance zero (integer arrays, the whole backtrack plane included):
     W in {13, 21, 33} (-BW 3, 5, 8), run row by row as a lone problem and
     with every row on its predicated path, as a lane does when another lane
     of its warp needs that path;
-  * ext_problem, the global-scratch body of csrc/sw_kernels.cu;
+  * the wide kernel of csrc/ext_wide_kernels.cu at W in {1, 21, 37, 65}:
+    its lane step, fold and copies over an emulated 32-lane warp, each
+    lane's output handed to the next lane a step later as the shuffle
+    does, on planes prefilled with garbage;
 
 on the EXT_SWEEP inputs of tests/torch_dp_cases.py, the int32-wrap inputs
 (KW_WRAP) and references shorter than qlen + 2*bw2 (the rows whose band
-ends before the last column);
+ends before the last column), and for the wide kernel also on reads with
+an indel of up to 2*bw bases (indel_extension_inputs);
 
   * the backtrack walk of csrc/decode_kernels.cu, held to
     decode.rle_walk_reference: rle_walk_window<T> for teams of 8, 16 and
@@ -62,7 +66,8 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
                             anchored_sweep_inputs,
                             extension_inputs, gather_aligned_coords,
                             gather_case, gather_clamp_coords, gather_coords,
-                            hash_rows, long_run_inputs, read_rows,
+                            hash_rows, indel_extension_inputs,
+                            long_run_inputs, read_rows,
                             seed_case, seed_rows)
 from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
@@ -72,6 +77,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 C_LOOP = r"""
 #include "sw_kernels.cu"
 #include "ext_kernels.cu"
+#include "ext_wide_kernels.cu"
 #include "decode_kernels.cu"
 #include "gather_kernels.cu"
 #include "anch_kernels.cu"
@@ -320,13 +326,13 @@ extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
     }
 }
 
-// variant 0: ext_problem (scratch [3][W+2][N]); 1: ext_problem_reg<W>;
-// 2: ext_problem_reg<W> with every row predicated.
+// variant 1: ext_problem_reg<W>; 2: ext_problem_reg<W> with every row
+// predicated.
 extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
                        const int32_t* qlens, const int32_t* rlens,
                        int64_t n, int64_t ql, int64_t rl, int32_t bw2,
                        const int32_t* kw, int8_t* bt, int32_t* score,
-                       int32_t* maxi, int32_t* maxj, int32_t* scratch) {
+                       int32_t* maxi, int32_t* maxj) {
     ytsw::Scoring s;
     s.go = kw[0];
     s.ge = kw[1];
@@ -336,11 +342,6 @@ extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
     s.max_intron = kw[5];
     const int32_t xc = kw[6];
     for (int64_t p = 0; p < n; p++) {
-        if (variant == 0) {
-            ytsw::ext_problem(p, n, q, ql, r, rl, qlens, rlens, bw2, s, xc,
-                              bt, score, maxi, maxj, scratch);
-            continue;
-        }
         const bool pred = variant == 2;
         switch (2 * bw2 + 1) {
         case 13:
@@ -361,14 +362,116 @@ extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
     }
     return 0;
 }
+
+// ext_wide_kernel's warp, emulated: at each step lane 0 reads the shared
+// row, the 32 lanes take their step in turn, lane 31 writes the shared
+// row, and each lane's output goes to the next lane for the next step (the
+// shuffle); the fold is a sequential max-scan over the strip's rows and
+// the first exiting row (the ballot); every copy runs as 32 lane shares.
+// The strip stages start as garbage, as shared memory does.
+extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
+                             const int32_t* qlens, const int32_t* rlens,
+                             int64_t n, int64_t ql, int64_t rl, int32_t bw2,
+                             const int32_t* kw, int8_t* bt, int32_t* score,
+                             int32_t* maxi, int32_t* maxj) {
+    using namespace ytsw;
+    Scoring s;
+    s.go = kw[0];
+    s.ge = kw[1];
+    s.rc = kw[2];
+    s.ms = kw[3];
+    s.max_gap = kw[4];
+    s.max_intron = kw[5];
+    const int32_t w = 2 * bw2 + 1;
+    const int lanes = kWideLanes;
+    const int64_t sb = wide_stage_bytes(w);
+    std::vector<Band3> row(w + 1);
+    const int64_t cb = wide_code_bytes(w);
+    std::vector<uint32_t> stage_words((2 * sb + 2 * cb) / 4, 0x5A5A5A5Au);
+    uint8_t* stage = (uint8_t*)stage_words.data();
+    uint8_t* codes = stage + 2 * sb;
+    for (int64_t p = 0; p < n; p++) {
+        WideProblem P;
+        P.init(p, q, ql, r, rl, qlens, rlens, bw2, s, kw[6]);
+        uint8_t* plane = (uint8_t*)bt + p * (ql + 1) * w;
+        for (int32_t c = 0; c <= w; c++) row[c] = wide_row0(c, bw2, w, s);
+        for (int k = 0; k < lanes; k++)
+            copy_share(k, plane, w, FillSrc{0, w, bw2});
+        WideBest run = {DP_WORST, 0, 0};
+        int32_t exit_row = 0;
+        if (P.last >= 1) {
+            std::vector<WideLane> L(lanes);
+            std::vector<Band3> out(lanes);
+            std::vector<WideBest> e(lanes);
+            for (int k = 0; k < lanes; k++) {
+                P.stage_codes(k, 0, codes);
+                P.stage_codes(k, 1, codes + cb);
+                L[k].init(k);
+            }
+            int32_t strip = 0;
+            int32_t fold_at = 2 * (lanes - 1) + w - 1;
+            for (int32_t t = 0;; t++) {
+                L[0].take_row(row.data(), P);
+                for (int k = 0; k < lanes; k++) {
+                    const int par = ((L[k].i - 1) / lanes) & 1;
+                    out[k] = L[k].step(P, codes + par * cb,
+                                       stage + par * sb + k * w);
+                }
+                if (L[lanes - 1].j >= 0 && L[lanes - 1].j < w)
+                    row[L[lanes - 1].j] = out[lanes - 1];
+                for (int k = 0; k < lanes; k++)
+                    L[k].advance(out[k > 0 ? k - 1 : 0], P);
+                if (t != fold_at) continue;
+                int el = -1;
+                for (int k = 0; k < lanes; k++) {
+                    const int32_t i_f = strip * lanes + k + 1;
+                    e[k] = best_after(k > 0 ? e[k - 1] : run,
+                                      WideBest{L[k].done_v, i_f, L[k].done_j});
+                    if (el < 0 && wide_exits(L[k].done_v, e[k].v, i_f, P))
+                        el = k;
+                }
+                const bool ex = el >= 0;
+                if (!ex) el = lanes - 1;
+                run = e[el];
+                for (int k = 0; k < lanes; k++)
+                    copy_share(k, plane + ((int64_t)strip * lanes + 1) * w,
+                               (int64_t)(el + 1) * w,
+                               StageSrc{stage + (strip & 1) * sb});
+                if (ex) {
+                    exit_row = strip * lanes + el + 1;
+                    break;
+                }
+                for (int k = 0; k < lanes; k++)
+                    P.stage_codes(k, strip + 2, codes + (strip & 1) * cb);
+                strip++;
+                fold_at += P.period;
+            }
+        }
+        const int64_t x0 = ((int64_t)exit_row + 1) * w;
+        for (int k = 0; k < lanes; k++)
+            copy_share(k, plane + x0, (ql + 1) * w - x0, FillSrc{x0, w, bw2});
+        score[p] = run.v;
+        maxi[p] = run.i;
+        maxj[p] = run.j;
+    }
+}
 """
 
 REG_WIDTHS = (13, 21, 33)
+# The wide body at the widths it serves (W = 1 and W >= 37) and at W = 21.
+WIDE_WIDTHS = (1, 21, 37, 65)
 # (band_width, x_cutoff, max_gap, max_intron, err, scoring, short
-# references); the register-body test sets band_width from W.
-CASES = [sweep + (KW, False) for sweep in EXT_SWEEP] + [
-    (5, 25, 50, 50, 0.15, KW_WRAP, False), (5, 25, 50, 50, 0.15, KW, True)]
+# references, indel inputs); the body tests set band_width from W.
+CASES = [sweep + (KW, False, False) for sweep in EXT_SWEEP] + [
+    (5, 25, 50, 50, 0.15, KW_WRAP, False, False),
+    (5, 25, 50, 50, 0.15, KW, True, False)]
 CASE_IDS = EXT_SWEEP_IDS + ["wrap", "short_r"]
+# Indel inputs: X-drop at 80, so that paths out to the band's outer
+# columns survive their gap; and with binding run caps and short
+# references.
+WIDE_CASES = CASES + [(9, 80, 50, 50, 0.05, KW, False, True),
+                      (9, 25, 2, 3, 0.05, KW, True, True)]
+WIDE_CASE_IDS = CASE_IDS + ["indel", "indel_caps_short_r"]
 
 
 @pytest.fixture(scope="module")
@@ -385,10 +488,12 @@ def lib(tmp_path_factory):
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     out = ct.CDLL(str(so))
+    ext_args = ([ct.c_void_p] * 4 + [ct.c_int64] * 3 + [ct.c_int32] +
+                [ct.c_void_p] * 5)
     out.run_ext.restype = ct.c_int
-    out.run_ext.argtypes = ([ct.c_int] + [ct.c_void_p] * 4 +
-                            [ct.c_int64] * 3 + [ct.c_int32] +
-                            [ct.c_void_p] * 6)
+    out.run_ext.argtypes = [ct.c_int] + ext_args
+    out.run_ext_wide.restype = None
+    out.run_ext_wide.argtypes = ext_args
     out.run_anch.restype = ct.c_int
     out.run_anch.argtypes = ([ct.c_int] * 4 + [ct.c_void_p] * 6 +
                              [ct.c_int64] * 3 + [ct.c_int32] +
@@ -414,8 +519,11 @@ def lib(tmp_path_factory):
     return out
 
 
-def _inputs(bw, err, short, seed):
-    q, qlens, r, rlens = extension_inputs(seed, 300, 24, bw, err)
+def _inputs(bw, err, short, seed, indel):
+    if indel:
+        q, qlens, r, rlens = indel_extension_inputs(seed, 300, 64, bw, err)
+    else:
+        q, qlens, r, rlens = extension_inputs(seed, 300, 24, bw, err)
     if short:
         rng = np.random.default_rng(seed + 1)
         rlens = rng.integers(1, rlens + 1)
@@ -423,29 +531,34 @@ def _inputs(bw, err, short, seed):
 
 
 def _run(lib, variant, bw, kw, q, qlens, r, rlens):
+    """The register body (variant 1, or 2 with every row predicated) on
+    zeroed planes, or the wide body ("wide") on planes and outputs
+    prefilled with garbage: it must write every byte."""
     n, ql = q.shape
     w = 4 * bw + 1
-    out = {"bt": np.zeros((n, ql + 1, w), np.int8),
-           "score": np.zeros(n, np.int32), "maxi": np.zeros(n, np.int32),
-           "maxj": np.zeros(n, np.int32)}
-    scratch = np.zeros((3, w + 2, n), np.int32)
+    fill = UNWRITTEN_BT if variant == "wide" else 0
+    out = {"bt": np.full((n, ql + 1, w), fill, np.int8)}
+    for key in ("score", "maxi", "maxj"):
+        out[key] = np.full(n, UNWRITTEN if variant == "wide" else 0,
+                           np.int32)
     params = np.array([kw["go"], kw["ge"], kw["rc"], kw["ms"], kw["max_gap"],
                        kw["max_intron"], kw["x_cutoff"]], np.int32)
     arrays = [np.ascontiguousarray(a) for a in (q, r, qlens, rlens)]
-    rc = lib.run_ext(variant, *(a.ctypes.data for a in arrays), n, ql,
-                     r.shape[1], 2 * bw, params.ctypes.data,
-                     *(out[k].ctypes.data for k in ("bt", "score", "maxi",
-                                                    "maxj")),
-                     scratch.ctypes.data)
-    assert rc == 0
+    args = ([a.ctypes.data for a in arrays] +
+            [n, ql, r.shape[1], 2 * bw, params.ctypes.data] +
+            [out[k].ctypes.data for k in ("bt", "score", "maxi", "maxj")])
+    if variant == "wide":
+        lib.run_ext_wide(*args)
+    else:
+        assert lib.run_ext(variant, *args) == 0
     return out
 
 
 def _check(lib, variants, bw, case, seed):
-    _, xc, mg, mi, err, scoring, short = case
+    _, xc, mg, mi, err, scoring, short, indel = case
     kw = dict(scoring, band_width=bw, x_cutoff=xc, max_gap=mg,
               max_intron=mi)
-    q, qlens, r, rlens = _inputs(bw, err, short, seed)
+    q, qlens, r, rlens = _inputs(bw, err, short, seed, indel)
     want = sw_cuda.extension_forward_reference(
         *(torch.from_numpy(a) for a in (q, qlens, r, rlens)), **kw)
     for variant in variants:
@@ -453,7 +566,7 @@ def _check(lib, variants, bw, case, seed):
         for key in ("score", "maxi", "maxj", "bt"):
             np.testing.assert_array_equal(
                 got[key], want[key].numpy(),
-                err_msg="variant %d %s" % (variant, key))
+                err_msg="variant %s %s" % (variant, key))
     return qlens, want
 
 
@@ -468,9 +581,20 @@ def test_register_body_matches_plain(lib, w, case):
         assert (want["maxi"].numpy() < qlens).mean() > 0.5
 
 
-@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
-def test_scratch_body_matches_plain(lib, case):
-    _check(lib, (0,), case[0], case, seed=7 + case[1])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=WIDE_CASE_IDS)
+@pytest.mark.parametrize("w", WIDE_WIDTHS)
+def test_wide_body_matches_plain(lib, w, case):
+    """The wide kernel's lane step, fold and copies over an emulated warp:
+    every byte of the plane (garbage before), score, maxi and maxj equal
+    the plain version's."""
+    bw = (w - 1) // 4
+    qlens, want = _check(lib, ("wide",), bw, case, seed=w * 100 + case[1])
+    if case[1] < 10:
+        assert (want["maxi"].numpy() < qlens).mean() > 0.5
+    if case[7] and case[1] > 25 and w > 1:
+        # Some best cells lie past half the band's reach from its centre.
+        off = np.abs(want["maxj"].numpy() - 2 * bw)
+        assert off.max() > bw
 
 
 def test_ptxas_report_reads_registers_and_spills():

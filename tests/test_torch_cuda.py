@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card (marker `cuda`).
 
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
-(both extension kernels, at each block size of the register one; both
+(both extension kernels, at each block size of the register one, the wide
+one also at W = 1, 37 and 65 with indel inputs; both
 anchored kernels, on warps of every width class and wider ones) are held
 to their plain PyTorch versions on the card, on the inputs with
 which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
@@ -34,13 +35,14 @@ import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
                             EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
-                            KW_WRAP, SEED_CASES,
+                            KW_WRAP, SEED_CASES, WIDE_SWEEP, WIDE_SWEEP_IDS,
                             anchored_edge_inputs,
                             anchored_inputs,
                             anchored_sweep_inputs, extension_inputs,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, hash_rows,
-                            indel_reads, long_run_inputs, read_rows,
+                            indel_extension_inputs, indel_reads,
+                            long_run_inputs, read_rows,
                             seed_case, seed_rows)
 from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
 
@@ -71,10 +73,10 @@ def _equal(got, want):
 
 
 # The extension's two kernels (sw_cuda.ext_variant picks one by band
-# width; both are held to the plain version at every width) and the
-# register kernel's block sizes.
-EXT_KERNELS = [("reg", 32), ("reg", 64), ("reg", 128), ("scratch", 64)]
-EXT_KERNEL_IDS = ["reg32", "reg64", "reg128", "scratch"]
+# width; both are held to the plain version at the register kernel's
+# widths) and the register kernel's block sizes.
+EXT_KERNELS = [("reg", 32), ("reg", 64), ("reg", 128), ("wide", 64)]
+EXT_KERNEL_IDS = ["reg32", "reg64", "reg128", "wide"]
 
 
 @pytest.mark.parametrize("variant,block", EXT_KERNELS, ids=EXT_KERNEL_IDS)
@@ -88,7 +90,7 @@ def test_extension_kernel_matches_plain(dev, kw, variant, block):
            sw_cuda.extension_forward_reference(*args, **ekw))
 
 
-@pytest.mark.parametrize("variant", ["reg", "scratch"])
+@pytest.mark.parametrize("variant", ["reg", "wide"])
 @pytest.mark.parametrize("bw,xc,mg,mi,err", EXT_SWEEP, ids=EXT_SWEEP_IDS)
 def test_extension_kernel_matches_plain_sweep(dev, bw, xc, mg, mi, err,
                                               variant):
@@ -98,18 +100,36 @@ def test_extension_kernel_matches_plain_sweep(dev, bw, xc, mg, mi, err,
            sw_cuda.extension_forward_reference(*args, **kw))
 
 
-@pytest.mark.parametrize("bw", [1, 8, 9])
+@pytest.mark.parametrize("indel", [False, True], ids=["subst", "indel"])
+@pytest.mark.parametrize("bw,xc,mg,mi,err", WIDE_SWEEP, ids=WIDE_SWEEP_IDS)
+def test_wide_extension_kernel_matches_plain(dev, bw, xc, mg, mi, err,
+                                             indel):
+    """The wide kernel at the widths it serves (W = 1, 37, 65), on the
+    inputs of test_torch_sw.py's wide sweep."""
+    seed = bw * 100 + xc
+    if indel:
+        arrs = indel_extension_inputs(seed, 300, 64, bw, min(err, 0.05))
+    else:
+        arrs = extension_inputs(seed, 300, 24, bw, err)
+    args = _up(dev, *arrs)
+    kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
+    _equal(sw_cuda.extension_forward(*args, variant="wide", **kw),
+           sw_cuda.extension_forward_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("bw", [0, 1, 8, 9, 16])
 def test_extension_dispatch_by_band_width(dev, bw):
-    """-BW 1 and 8 (W = 5, 33) launch the register kernel, -BW 9 (W = 37)
-    the scratch kernel; references shorter than qlen + 2*bw2 included."""
+    """-BW 1 and 8 (W = 5, 33) launch the register kernel, -BW 0, 9 and 16
+    (W = 1, 37, 65) the wide kernel; references shorter than qlen + 2*bw2
+    included."""
     q, qlens, r, rlens = extension_inputs(bw, 700, 48, bw, 0.1)
     rlens = np.random.default_rng(bw).integers(1, rlens + 1)
     args = _up(dev, q, qlens, r, rlens)
     kw = dict(KW, band_width=bw, x_cutoff=25)
     sw_cuda.reset_launches()
     got = sw_cuda.extension_forward(*args, **kw)
-    name = ("extension_forward" if bw <= 8 else
-            "extension_forward_scratch")
+    name = ("extension_forward" if 1 <= bw <= 8 else
+            "extension_forward_wide")
     assert {k: v for k, v in sw_cuda.launches().items() if v} == {name: 1}
     _equal(got, sw_cuda.extension_forward_reference(*args, **kw))
 
@@ -181,10 +201,17 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     for bad in (r.to(torch.int32), r.t().contiguous().t(), r.cpu()):
         with pytest.raises(ValueError):
             sw_cuda.extension_forward(q, qlens, bad, rlens, **kw)
-    for bad in (dict(block=96), dict(variant="other")):
+    for bad in (dict(block=96), dict(variant="other"),
+                dict(variant="reg", band_width=9)):
         with pytest.raises(ValueError):
-            sw_cuda.extension_forward(q, qlens, r, rlens, **kw, **bad)
+            sw_cuda.extension_forward(q, qlens, r, rlens, **dict(kw, **bad))
+    # W 4097: one warp's shared memory exceeds a block's; the C entry
+    # refuses the launch.
+    with pytest.raises(RuntimeError):
+        sw_cuda.extension_forward(q, qlens, r, rlens, variant="wide",
+                                  **dict(kw, band_width=1024))
     assert sw_cuda.launches()["extension_forward"] == 1
+    assert sw_cuda.launches()["extension_forward_wide"] == 0
 
 
 @pytest.mark.parametrize("qg,rg,rpad,rev_share", [
@@ -423,7 +450,7 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over, config):
     assert (sm, nr) == (ref[2], ref[3])
     launched = sw_cuda.launches()
     assert launched["extension_forward"] > 0
-    assert launched["extension_forward_scratch"] == 0
+    assert launched["extension_forward_wide"] == 0
     assert launched["anchored_forward_banded"] > 0
     if qfile == "indel":
         assert st.stats["gap_full"] > 0

@@ -1,6 +1,7 @@
 """The port imports nothing of the JAX package.
 
-Every module of yaha_tpu_torch, and chip_smoke.py, is scanned with `ast`:
+Every module of yaha_tpu_torch, chip_smoke.py and the case file it
+imports (tests/torch_dp_cases.py) is scanned with `ast`:
 no `import yaha_tpu`, `import yaha_tpu.x`, `from yaha_tpu import ...` or
 `from yaha_tpu.x import ...` (yaha_tpu_torch itself is allowed).  The
 runtime side, a CLI run that loads no yaha_tpu module and no library of
@@ -16,7 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "yaha_tpu_torch", "**", "*.py"),
-              recursive=True)) + ["chip_smoke.py"]
+              recursive=True)) + [
+                  "chip_smoke.py", "tests/torch_dp_cases.py"]
 
 
 def _reference_imports(path, root=REPO):

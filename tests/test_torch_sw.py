@@ -9,7 +9,12 @@ versions are held to the JAX package on numpy-seeded inputs:
     backtrack plane included;
   * against the sw_batch XLA twins, through unpack_backtrack /
     unshift_anchored_banded, over band widths, asymmetric bands, binding
-    max_gap / max_intron caps and X-drop exits.
+    max_gap / max_intron caps and X-drop exits;
+  * the extension at the widths of the card's wide kernel (-BW 0, 9 and
+    16: W = 1, 37 and 65), on substitution-only inputs and on inputs with
+    an indel of up to 2*bw bases, whose best paths run along the band's
+    outer columns, against the XLA twin, and at -BW 9 against the Pallas
+    kernel in interpret mode.
 
 These are integer DPs: every comparison is exact (tolerance zero).
 """
@@ -18,8 +23,10 @@ import pytest
 import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
-                            EXT_SWEEP_IDS, KW, KW_WRAP, anchored_inputs,
-                            anchored_sweep_inputs, extension_inputs)
+                            EXT_SWEEP_IDS, KW, KW_WRAP, WIDE_SWEEP,
+                            WIDE_SWEEP_IDS, anchored_inputs,
+                            anchored_sweep_inputs, extension_inputs,
+                            indel_extension_inputs)
 from yaha_tpu.ops import sw_batch, sw_pallas
 from yaha_tpu_torch.ops import sw_cuda
 
@@ -70,12 +77,7 @@ def test_anchored_full_plain_matches_pallas(kw):
     _assert_equal(want, got, ("score", "bt"))
 
 
-@pytest.mark.parametrize("bw,xc,mg,mi,err", EXT_SWEEP,
-                         ids=EXT_SWEEP_IDS)
-def test_extension_plain_matches_xla(bw, xc, mg, mi, err):
-    n, ql = 300, 24
-    q, qlens, r, rlens = extension_inputs(bw * 100 + xc, n, ql, bw, err)
-    kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
+def _extension_matches_xla(q, qlens, r, rlens, kw):
     want = sw_batch.batched_extension_forward(q, qlens, r, rlens, **kw)
     got = sw_cuda.extension_forward(*_t(q, qlens, r, rlens), **kw)
     _assert_equal(want, got, ("score", "maxi", "maxj"))
@@ -83,10 +85,50 @@ def test_extension_plain_matches_xla(bw, xc, mg, mi, err):
     np.testing.assert_array_equal(np.asarray(want["eo"]), eo)
     np.testing.assert_array_equal(np.asarray(want["idc"]).astype(np.int32),
                                   idc)
+    return got
+
+
+@pytest.mark.parametrize("bw,xc,mg,mi,err", EXT_SWEEP,
+                         ids=EXT_SWEEP_IDS)
+def test_extension_plain_matches_xla(bw, xc, mg, mi, err):
+    n, ql = 300, 24
+    q, qlens, r, rlens = extension_inputs(bw * 100 + xc, n, ql, bw, err)
+    kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
+    got = _extension_matches_xla(q, qlens, r, rlens, kw)
     if xc < 10:
         # The sweep point is meant to exit early: most problems stop short
         # of their last query row.
         assert (got["maxi"].numpy() < qlens).mean() > 0.5
+
+
+@pytest.mark.parametrize("indel", [False, True], ids=["subst", "indel"])
+@pytest.mark.parametrize("bw,xc,mg,mi,err", WIDE_SWEEP,
+                         ids=WIDE_SWEEP_IDS)
+def test_wide_extension_plain_matches_xla(bw, xc, mg, mi, err, indel):
+    """The widths the card's wide kernel serves: W = 1, 37 and 65."""
+    seed = bw * 100 + xc
+    if indel:
+        q, qlens, r, rlens = indel_extension_inputs(seed, 300, 64, bw,
+                                                    min(err, 0.05))
+    else:
+        q, qlens, r, rlens = extension_inputs(seed, 300, 24, bw, err)
+    kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
+    got = _extension_matches_xla(q, qlens, r, rlens, kw)
+    if xc < 10:
+        assert (got["maxi"].numpy() < qlens).mean() > 0.5
+    if indel and bw == 9 and xc == 25 and mg == 50:
+        # Some best cells lie on the band's outer columns.
+        assert np.abs(got["maxj"].numpy() - 2 * bw).max() == 2 * bw
+
+
+def test_wide_extension_plain_matches_pallas():
+    """-BW 9 (W = 37) on indel inputs against the Pallas kernel."""
+    q, qlens, r, rlens = indel_extension_inputs(9, sw_pallas.TILE, 24, 9)
+    ekw = dict(KW, band_width=9, x_cutoff=25)
+    want = sw_pallas.extension_forward_pallas(q, qlens, r, rlens,
+                                              interpret=True, **ekw)
+    got = sw_cuda.extension_forward(*_t(q, qlens, r, rlens), **ekw)
+    _assert_equal(want, got, ("score", "maxi", "maxj", "bt"))
 
 
 @pytest.mark.parametrize("seed,d,mg,mi", ANCH_SWEEP,
@@ -144,8 +186,8 @@ def test_wrappers_take_any_n_and_reject_other_devices():
 
 def test_extension_kernel_choice_by_band_width():
     """The card's extension kernel is chosen by shape before the launch:
-    the register kernel for -BW 1 to 8 (W = 5 .. 33), the scratch kernel
-    for wider bands."""
+    the register kernel for -BW 1 to 8 (W = 5 .. 33), the wide kernel for
+    -BW 0 and -BW 9 and wider."""
     assert [sw_cuda.ext_variant(bw) for bw in range(0, 11)] == (
-        ["scratch"] + ["reg"] * 8 + ["scratch"] * 2)
+        ["wide"] + ["reg"] * 8 + ["wide"] * 2)
     assert sw_cuda.REG_WIDTHS == tuple(4 * bw + 1 for bw in range(1, 9))

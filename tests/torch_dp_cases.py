@@ -4,16 +4,18 @@ tests/test_torch_sw.py holds the plain PyTorch versions to the JAX package
 on these DP problems, tests/test_torch_gather.py the problem assembly on
 these genomes and coordinates, and tests/test_torch_staged.py the engine
 to the native one on these reads; tests/test_torch_cuda.py holds the CUDA
-kernels and the engine to the same references on the card.  This module
-imports neither jax nor torch, so the card tests run where jax is not
-installed.
+kernels and the engine to the same references on the card, and
+chip_smoke.py draws its indel extension inputs from here.  This module
+imports neither jax nor torch nor anything of the JAX package (its codec
+tables are the port's copy), so the card tests and chip_smoke.py run
+where jax is not installed.
 """
 import gzip
 import os
 
 import numpy as np
 
-from yaha_tpu.utils import codec
+from yaha_tpu_torch.utils import codec
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
@@ -30,6 +32,18 @@ EXT_SWEEP = [
     (5, 4, 50, 50, 0.5),       # X-drop fires early
 ]
 EXT_SWEEP_IDS = ["bw5", "bw3", "caps", "xdrop"]
+
+# The widths the wide extension kernel serves (W = 1 and W >= 37), apart
+# from EXT_SWEEP, over which the register kernel's tests run.
+WIDE_SWEEP = [
+    # (band_width, x_cutoff, max_gap, max_intron, err)
+    (0, 25, 50, 50, 0.15),
+    (9, 25, 50, 50, 0.15),
+    (9, 4, 50, 50, 0.5),       # X-drop fires early
+    (9, 25, 2, 3, 0.3),        # run caps bind
+    (16, 25, 50, 50, 0.15),
+]
+WIDE_SWEEP_IDS = ["bw0", "bw9", "xdrop9", "caps9", "bw16"]
 
 ANCH_SWEEP = [
     # (seed, band offset d, max_gap, max_intron)
@@ -157,6 +171,34 @@ def extension_inputs(seed, n, ql, bw, err=0.15):
         m = rng.random(L) < err
         r[k, :L][m] = rng.integers(0, 4, int(m.sum()))
         r[k, L:] = rng.integers(0, 4, rl - L)
+    rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
+    return q, qlens, r, rlens
+
+
+def indel_extension_inputs(seed, n, ql, bw, err=0.05):
+    """Queries and references (RL = QL + 4*bw) that share a prefix, then
+    differ by a deletion or an insertion of 1..2*bw bases (one base at
+    bw 0), then go on alike, at `err` substitutions: the best path leaves
+    the band's centre column and, past the indel, runs along a column up
+    to 2*bw away from it, the band's outer columns at the largest."""
+    rng = np.random.default_rng(seed)
+    bw2 = 2 * bw
+    rl = ql + 2 * bw2
+    q = rng.integers(0, 4, (n, ql)).astype(np.uint8)
+    qlens = rng.integers(ql // 2, ql + 1, n).astype(np.int64)
+    r = rng.integers(0, 4, (n, rl)).astype(np.uint8)
+    for k in range(n):
+        L = int(qlens[k])
+        a = int(rng.integers(1, max(2, L // 4)))
+        d = int(rng.integers(1, max(bw2, 1) + 1))
+        if k % 2:      # the read lacks d reference bases
+            src = np.concatenate([q[k, :a], rng.integers(0, 4, d), q[k, a:L]])
+        else:          # the read has d bases the reference lacks
+            src = np.concatenate([q[k, :a], q[k, min(a + d, L):L]])
+        m = rng.random(len(src)) < err
+        src[m] = rng.integers(0, 4, int(m.sum()))
+        src = src[:rl]
+        r[k, :len(src)] = src
     rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
     return q, qlens, r, rlens
 

@@ -68,7 +68,6 @@
 #include <utility>
 
 #include "sw_cells.cuh"
-#define YT_SW_BODIES_ONLY
 #include "sw_kernels.cu"
 
 namespace ytsw {

@@ -1,12 +1,11 @@
 // Banded X-drop extension with the band state in registers (sm_90a).
 //
 // Replaces yaha_tpu/ops/sw_pallas.py extension_forward_pallas (_ext_kernel,
-// _ext_kernel_win -> _ext_body), as ext_problem in sw_kernels.cu does, and
-// returns the same arrays byte for byte: the backtrack plane
-// bt [N][QL+1][W] int8 (W = 4*bw + 1), score, maxi and maxj, with the same
-// X-drop exit row and the same first-maximum ties.  sw_cuda.py dispatches
-// by shape: this kernel for W = 5 .. 33 (-BW 1 to 8), ext_problem for wider
-// bands.
+// _ext_kernel_win -> _ext_body), as ext_wide_kernels.cu does, and returns
+// the same arrays byte for byte: the backtrack plane bt [N][QL+1][W] int8
+// (W = 4*bw + 1), score, maxi and maxj, with the same X-drop exit row and
+// the same first-maximum ties.  sw_cuda.py dispatches by shape: this kernel
+// for W = 5 .. 33 (-BW 1 to 8), ext_wide_kernels.cu for the other widths.
 //
 // What bounds it on an H100: one thread owns one problem, whose cells are
 // one chain of integer compares, selects and adds, most of them on the
@@ -14,11 +13,10 @@
 // dozen rows while a few run all QL rows.  So the launch takes about as
 // long as its longest problem, far above the bytes it must move (the
 // plane) and the integer work of the cells it computes; chip_smoke.py
-// phase 5 prints both.  ext_problem, the first version, also waited on L2
-// for every cell (its band state lives in global scratch) and stored its
-// plane bytes one at a time, each thread 21 bytes of plane apart from its
-// neighbour, so that every byte store of a warp was 32 memory
-// transactions.  Here:
+// phase 5 prints both.  The first version also waited on L2 for every cell
+// (its band state lived in global scratch) and stored its plane bytes one
+// at a time, each thread 21 bytes of plane apart from its neighbour, so
+// that every byte store of a warp was 32 memory transactions.  Here:
 //
 //   * W is a template constant and the column loop is unrolled, so the
 //     band state (W+1 columns of PV, PF, PI, the band-edge sentinel
@@ -96,7 +94,7 @@ struct ExtReg {
 
     // Problem p of the batch; `valid` false makes an idle lane (problem
     // 0's rows are read, nothing is written).  Writes row 0 of the plane
-    // and the anti-diagonal insert cells of rows 1..bw2, as ext_problem.
+    // and the anti-diagonal insert cells of rows 1..bw2.
     YT_HD void init(int64_t p, bool valid, const uint8_t* q, int64_t ql_,
                     const uint8_t* r, int64_t rl_, const int32_t* qlens,
                     const int32_t* rlens, Scoring s_, int32_t xc,

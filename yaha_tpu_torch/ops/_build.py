@@ -129,9 +129,9 @@ def load():
     """The kernel library with its C signatures declared (built first)."""
     build()
     lib = ct.CDLL(LIB_PATH)
-    lib.yt_ext_forward.restype = ct.c_int
-    lib.yt_ext_forward.argtypes = (
-        [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 6)
+    lib.yt_ext_forward_wide.restype = ct.c_int
+    lib.yt_ext_forward_wide.argtypes = (
+        [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 5)
     lib.yt_ext_forward_reg.restype = ct.c_int
     lib.yt_ext_forward_reg.argtypes = (
         [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 4 + [_i32, _vp])

@@ -17,13 +17,26 @@ halved upload saves, so those upload unpacked.
 Each takes its device from the input tensors.  On a CUDA tensor it checks
 dtype, shape and contiguity, allocates the outputs, and launches its
 hand-written kernel on the current stream, raising if the launch fails:
-csrc/ext_kernels.cu (band state in registers) for extensions up to -BW 8,
-csrc/sw_kernels.cu for wider extension bands, csrc/anch_kernels.cu (band
+csrc/ext_kernels.cu (band state in registers, a thread a problem) for
+extensions at -BW 1 to 8, csrc/ext_wide_kernels.cu (a warp a problem on a
+row wavefront) for the other band widths, csrc/anch_kernels.cu (band
 state in registers, a width class per warp) for both anchored entries.
+
 On a CPU tensor it runs its plain PyTorch version (``*_reference``),
 which loops over rows and band columns, vectorised over problems, with
 the same tie rules and int32 wrap-around as the kernel.  Unlike the
 Pallas entries, N may be any size.
+
+The wide kernel replaces a first version that gave each problem a thread
+and kept its band state in global scratch, a load/store round trip a cell
+on the dependent chain, with plane bytes stored one at a time a plane
+apart between the lanes of a warp; and a thread's band state cannot grow
+past -BW 8 in registers.  What bounds the wide kernel is each row's
+dependent chain of cells and the lanes a strip leaves idle (for W < 64,
+W/64 of the steps busy).  Its rows are spread over a warp's lanes, the
+row above handed down by a shuffle, so a lane's state does not grow with
+W; the plane is staged 32 rows at a time and written with 16-byte stores,
+every byte of it, into an uninitialised buffer.
 
 Packed backtrack byte: bits 0-2 the op code, bit 3 (BT_CD) "delete run
 continues one cell left", bit 4 (BT_CF) "insert run continues up the
@@ -46,9 +59,9 @@ I32 = torch.int32
 # kernels of this module and of gather_dp, decode and seeds: a run can show
 # which kernels its main path went through.  The extension has two kernels,
 # counted apart: "extension_forward" (band state in registers,
-# csrc/ext_kernels.cu) and "extension_forward_scratch" (band state in
-# global scratch, csrc/sw_kernels.cu ext_problem).
-_launches = {"extension_forward": 0, "extension_forward_scratch": 0,
+# csrc/ext_kernels.cu) and "extension_forward_wide" (a warp a problem,
+# csrc/ext_wide_kernels.cu).
+_launches = {"extension_forward": 0, "extension_forward_wide": 0,
              "anchored_forward_banded": 0, "anchored_forward": 0,
              "gather_problems": 0, "rle_walk": 0, "seed_hashes": 0,
              "expand_sort_hits": 0}
@@ -361,9 +374,9 @@ def _p(t):
 
 def ext_variant(band_width):
     """The extension kernel for a band width, chosen by shape before the
-    launch: "reg" (band state in registers) for W in REG_WIDTHS, "scratch"
-    (band state in global scratch) for wider bands."""
-    return "reg" if 4 * band_width + 1 in REG_WIDTHS else "scratch"
+    launch: "reg" (band state in registers) for W in REG_WIDTHS, "wide"
+    (a warp a problem) for the other widths."""
+    return "reg" if 4 * band_width + 1 in REG_WIDTHS else "wide"
 
 
 def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
@@ -375,9 +388,11 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     q: [N, QL] uint8, r: [N, RL] uint8 (RL >= QL + 4*band_width),
     qlens/rlens: [N].  Returns score/maxi/maxj [N] int32 and the packed
     backtrack plane bt [N, QL+1, 4*band_width+1] int8.  On the card,
-    `variant` (default ext_variant(band_width)) picks the kernel and
-    `block` the register kernel's threads per block; both kernels return
-    the same arrays.
+    `variant` (default ext_variant(band_width)) picks the kernel: "reg"
+    for W in REG_WIDTHS, with `block` threads a block, or "wide" (a warp
+    a block) for any W whose warp fits a block's shared memory (up to
+    W 2829, -BW 707; the C entry refuses a wider band); both return the
+    same arrays.
     """
     kw = dict(band_width=band_width, go=go, ge=ge, rc=rc, ms=ms,
               max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff)
@@ -389,12 +404,15 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     bw2 = 2 * band_width
     w = 2 * bw2 + 1
     variant = variant or ext_variant(band_width)
-    if variant not in ("reg", "scratch") or (variant == "reg" and (
-            w not in REG_WIDTHS or block not in REG_BLOCKS)):
+    if not ((variant == "reg" and w in REG_WIDTHS and block in REG_BLOCKS)
+            or (variant == "wide" and w >= 1)):
         raise ValueError("%s: no %s kernel for W=%d, block=%d"
                          % (name, variant, w, block))
     dev = q.device
-    bt = torch.zeros((n, ql + 1, w), dtype=torch.int8, device=dev)
+    # The register kernel leaves the rows after a problem's exit row
+    # unwritten; the wide kernel writes every byte.
+    alloc = torch.zeros if variant == "reg" else torch.empty
+    bt = alloc((n, ql + 1, w), dtype=torch.int8, device=dev)
     score, maxi, maxj = torch.empty((3, n), dtype=I32, device=dev)
     if n:
         from . import _build
@@ -406,9 +424,8 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
             _launched(name, lib.yt_ext_forward_reg(*args, block,
                                                    _stream(dev)))
         else:
-            scratch = torch.empty((3, w + 2, n), dtype=I32, device=dev)
-            _launched(name + "_scratch", lib.yt_ext_forward(
-                *args, _p(scratch), _stream(dev)))
+            _launched(name + "_wide", lib.yt_ext_forward_wide(
+                *args, _stream(dev)))
     return {"score": score, "maxi": maxi, "maxj": maxj, "bt": bt}
 
 

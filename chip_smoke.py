@@ -13,7 +13,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      library; ptxas's registers, stack frame and spills for every kernel,
      and no spill and no stack frame in any instance of the register
      extension kernel, the two anchored register kernels, the windowed
-     walk kernel, the gather kernel or either seed kernel;
+     walk kernel, the gather kernel, either seed kernel or the chain DP
+     kernel (its seven team shapes);
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size; the wide kernel at W = 1,
@@ -65,7 +66,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      4-bit packed extension entry (unpack + kernel) at the largest 1 kb
      bucket; a histogram of every gap launch of the 1 kb, -BW 9, -BW 16,
      10 kb and 105 kb runs: (qg, rg, plane width, N), its warps by width class and
-     each class's share of the in-band cells;
+     each class's share of the in-band cells; both anchored kernels at the
+     -BW 16 run's gap buckets (each kernel's largest, and the one whose
+     warps wider than 32 columns hold the most cells) beside their bounds,
+     ns per in-band cell and the share of cells in those warps (a bucket's
+     warps all fall in one class, so the wide warps' cost reads against a
+     K32 bucket's), and the plain version on the first 256 problems;
   6. the device seed phase (--seed device): the 1 kb batch with the
      seeder, the full L15 index uploaded to the card (bytes and seconds),
      a cold and a warm run (counts set to 0 just before the warm run and
@@ -84,7 +90,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      max_hits = 1, (iv) at max_hits = 0, (iii) with no clean window and
      (v) the same kept runs from an index held in L2, beside torch.take
      of one SO word a window (the whole table, and folded into its first
-     64 MB).
+     64 MB);
+  7. the chain DP, which no engine runs (the JAX package wires it into
+     none): numpy-seeded ranges made as tests/test_chain_jax.py makes
+     them, a fifth wrapping uint32, at (B, N) = (32,768, 64) (a range a
+     strand row of the 1 kb batch, 1-64 nodes) and (512, 2,048) (long
+     reads, 1-2,048 nodes); counts set to 0, batched_chain_dp on both,
+     counts read; every output equal to the plain version's and, on the
+     first 64 ranges of each, to the native chain_dp's; the kernel's time
+     beside its bound (int32 operations of the valid pairs, by how far each
+     gets in the relaxation, or bytes) and the plain version's;
+  8. --engine batch-torch: StagedAligner(backend="torch") on the first
+     2,048 reads of the 1 kb batch, one cold run (the warm one took as
+     long), SAM bytes equal to the native engine's, beside the default
+     engine's warm wall on the same reads; the largest extension bucket's
+     lockstep twin beside extension_forward's kernel; the CLI (in this
+     process) with --engine batch-torch --device cuda on phase 4's golden
+     set (host seed scan and --seed device), with --engine native, and
+     one --trace run whose Chrome trace must name a CUDA kernel of the
+     port.
+
+Each phase's seconds are printed.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
 A/B configuration and in the default one with the device seeder: three
@@ -137,20 +163,32 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                     "yaha_tpu/ops/seeds_jax.py:30"),
     "expand_sort_hits": ("yaha_tpu_torch/csrc/seed_kernels.cu",
                          "yaha_tpu/ops/seeds_jax.py:63"),
+    "chain_dp": ("yaha_tpu_torch/csrc/chain_kernels.cu",
+                 "yaha_tpu/ops/chain_jax.py:38"),
 }
-# The device seed phase's kernels (--seed device, phase 6); the other
-# kernels run on the host-seed path of phases 3-4.
+# The device seed phase's kernels (--seed device, phase 6); the chain DP,
+# which no engine runs (the JAX package wires it into none), driven by
+# phase 7; the other kernels run on the host-seed path of phases 3-4.
 SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
-DP_KERNELS = [k for k in KERNELS if k not in SEED_KERNELS]
+CHAIN_KERNELS = ("chain_dp",)
+DP_KERNELS = [k for k in KERNELS
+              if k not in SEED_KERNELS + CHAIN_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
 NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|anch_reg_kernel|"
                       r"rle_win_kernel|gather_kernel|seed_hash_kernel|"
-                      r"expand_sort_kernel")
+                      r"expand_sort_kernel|chain_dp_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
 WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
 WIDER_READS = 2048
 PLAIN_SLICE = 2048       # problems of a wide bucket the plain version runs
+BW16_PLAIN = 256         # and of a -BW 16 gap bucket
+TORCH_READS = 2048       # reads of the 1 kb batch through --engine batch-torch
+# The chain DP's shapes (phase 7): (ranges B, nodes N, SQO span): one range
+# of up to 64 nodes a strand row of the 1 kb batch, and 512 long-read
+# ranges of up to 2,048 nodes.
+CHAIN_SHAPES = ((2 * BATCH, 64, 900), (512, 2048, 100_000))
+CHAIN_NATIVE = 64        # ranges of each shape also held to native chain_dp
 
 # Bounds: the least time the card could take for a kernel's work, the larger
 # of its bytes (each input read once, each output written once) over the
@@ -166,6 +204,13 @@ HASH_WINDOW_OPS = 5      # one window's hash, rolled from the last window's:
                          # shift, or, mask, bad-code count, compare
 WINDOW_OPS = 8           # one window's SO run: index, loads, subtract, tests
 SORT_CMP_OPS = 2         # one compare of 64-bit keys, in int32 operations
+# The chain DP's int32 operations for one pair i < j of valid nodes, by how
+# far chain_relax (csrc/chain_kernels.cu) takes it: every pair, its index
+# and validity tests and the SQO test; past that, the diagonal gap
+# (subtract, absolute value, compare); past that, the SRO test (two adds,
+# compare); past all three, the rest of the relaxation (desert and overlap
+# tests, gaps and overlaps, the new score, its compares and wrap), 32 in all.
+PAIR_STAGE_OPS = (3, 3, 3, 23)
 QUEUE_CYCLES = 20_000_000  # ~10 ms of card clock ahead of a timed window
 
 
@@ -304,6 +349,10 @@ def phase_build():
     if not (hashes and expands):
         raise AssertionError("phase1: seed kernel instances %s and %s" % (
             hashes, expands))
+    chains = [k for k in report if "chain_dp_kernel" in k]
+    if len(chains) != 7:
+        raise AssertionError("phase1: chain kernel instances %s, want the 7 "
+                             "team shapes" % chains)
     bad = {k: i for k, i in report.items() if NO_SPILL.search(k) and (
         i.get("stack", 1) or i.get("spill_stores", 1) or
         i.get("spill_loads", 1))}
@@ -786,7 +835,7 @@ def _aa(host, index, xfile, **over):
 def _report(tag, n, walls, s, launches):
     log("%s: reads=%d parity=true %s reads_per_s=%.1f" % (
         tag, n, " ".join("%s=%.3f" % kv for kv in walls.items()),
-        n / walls["warm_wall_s"]))
+        n / (walls.get("warm_wall_s") or walls["cold_wall_s"])))
     log("%s: ext_problems=%d gap_problems=%d gap_dispatch=%s "
         "dp_launches=%d kernel_launches=%s h2d_mb=%.3f d2h_mb=%.3f "
         "plane_d2h_mb=%.3f device_s=%.3f host_s=%s" % (
@@ -1444,7 +1493,8 @@ def phase_seed(torch, sw, StagedAligner, SeedRecorder, genome, index, aa,
             launches)
     _seed_report("phase6 1kb", seeder)
     for name in KERNELS:
-        if (launches[name] == 0) != (name == "extension_forward_wide"):
+        if (launches[name] == 0) != (name == "extension_forward_wide" or
+                                     name in CHAIN_KERNELS):
             raise AssertionError("phase6: %s launched %d times" % (
                 name, launches[name]))
     # The host seed scan (a fresh default aligner) and the device seeder
@@ -1722,6 +1772,300 @@ def phase_gap_histogram(sw, runs):
                 100 * total.get("wide", 0) / all_cells))
 
 
+def phase_anch_bw16(torch, sw, st, kernels, errs, dev):
+    """Both anchored kernels at the -BW 16 run's gap buckets (the
+    wide-band gap fills, where warps wider than 32 columns run the
+    anchored bodies of csrc/sw_kernels.cu on global scratch): for each
+    kernel its largest bucket and the bucket whose warps wider than 32
+    columns hold the most in-band cells, timed in the main path's order
+    beside the bound, ns per in-band cell and the share of the cells in
+    wide warps (buckets are split by shape, so a bucket's warps fall in
+    one class: the wide warps' cost reads as ns per cell against a K32
+    bucket's); the plain version on the first BW16_PLAIN problems, which
+    the kernel's output must equal.  No kernel changes."""
+    gap_kw = st.gap_kw
+    for name in ("anchored_forward_banded", "anchored_forward"):
+        keys = [k for k in st.counts if k[0] == name]
+        if not keys:
+            log("phase5 BW%d %s: the run sent no gap bucket to this kernel"
+                % (WIDER_BW, name))
+            continue
+        rows = []
+        for key in keys:
+            arrs = st.buckets[key][1]
+            ql_, rl_, lb, rb = (np.asarray(arrs[k]).astype(np.int64)
+                                for k in (1, 3, 4, 5))
+            if name == "anchored_forward_banded":
+                live = anch_live(lb, rb, rl_, wband=key[3])
+            else:
+                live = anch_live(lb, rb, rl_, rl=key[2])
+            cells = _band_cells_each(ql_, rl_, lb, rb, key[1])
+            classes = warp_classes(sw, live)
+            warp_cells = np.pad(cells, (0, -len(cells) % 32)).reshape(
+                -1, 32).sum(1)
+            rows.append((key, arrs, live, cells, classes,
+                         int(warp_cells[classes == "wide"].sum())))
+        largest = max(rows, key=lambda r: st.counts[r[0]])
+        widest = max(rows, key=lambda r: r[5])
+        timed = []
+        for key, arrs, live, cells, classes, wide_cells in (
+                [largest] + ([widest] if widest[5] and widest is not largest
+                             else [])):
+            timed.append(_anch_bucket(torch, sw, gap_kw, errs, name, key,
+                                      arrs, live, cells, classes,
+                                      wide_cells, dev))
+        kernels[name]["bw16"] = timed
+
+
+def _anch_bucket(torch, sw, gap_kw, errs, name, key, arrs, live, cells,
+                 classes, wide_cells, dev):
+    """phase_anch_bw16 on one bucket; returns its figures."""
+    n = arrs[0].shape[0]
+    if name == "anchored_forward_banded":
+        kw = dict(gap_kw, wband=key[3])
+        fn, plain = sw.anchored_forward_banded, \
+            sw.anchored_forward_banded_reference
+    else:
+        fn, kw, plain = (sw.anchored_forward, gap_kw,
+                         sw.anchored_forward_reference)
+    base = [a if torch.is_tensor(a) else torch.from_numpy(
+        a.astype(np.int32)).to(dev) for a in arrs]
+    ms = _time_kernel(torch, dev, lambda *a: fn(*a, **kw), [base])
+    got = fn(*base, **kw)
+    m = min(n, BW16_PLAIN)
+    part = [t[:m].contiguous() for t in base]
+    plain_ms, want = _time_once(torch, dev, lambda *a: plain(*a, **kw),
+                                part)
+    tag = "BW%d bucket=%s N=%d" % (WIDER_BW, list(key[1:]), n)
+    compare(torch, errs, "phase5", name, tag + " (first %d)" % m,
+            {k: v[:m] for k, v in got.items()}, want)
+    total = int(cells.sum())
+    bound, by = _bound(_nbytes(*base) + _nbytes(*got.values()),
+                       total * CELL_OPS)
+    out = {"bucket": list(key[1:]), "n": n, "ms": ms, "bound_ms": bound,
+           "bound_by": by, "cells": total, "ns_per_cell": 1e6 * ms / total,
+           "wide_cell_share": wide_cells / max(1, total),
+           "plain_ms": plain_ms, "plain_n": m}
+    log("phase5 %s %s: warps %s; kernel %.6f ms, %.1f %% of its bound "
+        "%.6f ms (%s), %.4f ns per in-band cell (%d cells), %.2f %% of them "
+        "in warps wider than 32 columns; plain %.3f ms on the first %d" % (
+            name, tag, json.dumps({k: int((classes == k).sum())
+                                   for k in sorted(set(classes))}),
+            ms, 100 * bound / ms, bound, by, out["ns_per_cell"], total,
+            100 * out["wide_cell_share"], plain_ms, m))
+    return out
+
+
+def phase_chain(torch, sw, kernels, errs, dev):
+    """The chain DP (ops/chain.py, csrc/chain_kernels.cu), which no engine
+    runs: numpy-seeded ranges made as tests/test_chain_jax.py makes them
+    (a fifth wrapping uint32) at CHAIN_SHAPES.  The path: counts set to 0,
+    batched_chain_dp on both shapes, counts read.  Then each output equal
+    to the plain version's on the card and, on the first CHAIN_NATIVE
+    ranges, to the native chain_dp's on the ranges' valid nodes; the
+    kernel timed on 4 shuffled copies beside its bound (int32 operations
+    of the valid pairs by how far each gets, chain_ops, or bytes)."""
+    from yaha_tpu_torch.ops import chain
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import CHAIN_KW, chain_case, native_chain
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for k, (b, n, qspan) in enumerate(CHAIN_SHAPES):
+        sqo, eqo, diag, length, valid, diag_orig, counts = chain_case(
+            SEED + k, b, n, qspan)
+        args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (sqo, eqo, diag, length)]
+        args.append(torch.from_numpy(valid).to(dev))
+        cases.append((args, (sqo, eqo, diag_orig, length, valid), counts))
+    sw.reset_launches()
+    sync(torch, dev)
+    outs = [chain.batched_chain_dp(*args, **CHAIN_KW)
+            for args, _, _ in cases]
+    sync(torch, dev)
+    launched = sw.launches()
+    if launched["chain_dp"] != len(cases) or any(
+            v for k, v in launched.items() if k != "chain_dp"):
+        raise AssertionError("phase7: launches %s" % launched)
+    kernels["chain_dp"]["launches"] = launched["chain_dp"]
+    for k, ((args, host_in, counts), got) in enumerate(zip(cases, outs)):
+        b, n = args[0].shape
+        tag = "B=%d N=%d" % (b, n)
+        plain_ms, want = _time_once(
+            torch, dev, lambda *a: chain.batched_chain_dp_ref(*a, **CHAIN_KW),
+            args)
+        compare(torch, errs, "phase7", "chain_dp", tag, got, want)
+        native = native_chain(*host_in, CHAIN_KW, rows=CHAIN_NATIVE)
+        compare(torch, errs, "phase7", "chain_dp", tag + " first %d ranges "
+                "vs native chain_dp" % CHAIN_NATIVE,
+                {key: v[:CHAIN_NATIVE] for key, v in got.items()},
+                {key: torch.from_numpy(v).to(dev)
+                 for key, v in native.items()})
+        perms = [torch.from_numpy(rng.permutation(b)).to(dev)
+                 for _ in range(4)]
+        sets = [[t.index_select(0, p) for t in args] for p in perms]
+        ms = _time_kernel(torch, dev, lambda *a: chain.batched_chain_dp(
+            *a, **CHAIN_KW), sets)
+        ops, stages = chain_ops(torch, args, CHAIN_KW["max_gap"])
+        c = counts.astype(np.int64)
+        if stages[0] != int((c * (c - 1) // 2).sum()):
+            raise AssertionError("phase7: %d valid pairs counted, %d drawn"
+                                 % (stages[0], (c * (c - 1) // 2).sum()))
+        nbytes = _nbytes(*args) + _nbytes(*got.values())
+        _record(torch, kernels if k == 0 else None, errs, "phase7",
+                "chain_dp", tag + " (valid pairs %d, past the SQO test %d, "
+                "the diagonal gap %d, the SRO test %d)" % tuple(stages), ms,
+                plain_ms, got, want, nbytes, ops)
+        if k:
+            bound_ms, bound_by = _bound(nbytes, ops)
+            kernels["chain_dp"]["long_ranges"] = {
+                "b": b, "n": n, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        del sets, want, got
+    del outs, cases
+
+
+def chain_ops(torch, args, max_gap):
+    """(int32 operations, pairs by stage) of the chain DP on these ranges:
+    the pairs i < j of valid nodes that reach each stage of chain_relax
+    (all of them; past the SQO test; past the diagonal gap; past the SRO
+    test), each stage's count times its PAIR_STAGE_OPS.  int32 arithmetic
+    wraps, as the kernel's does; ranges a few at a time."""
+    sqo, _, diag, _, valid = args
+    b, n = sqo.shape
+    upper = torch.ones((n, n), dtype=torch.bool, device=sqo.device).triu(1)
+    step = max(1, (1 << 25) // (n * n))
+    stages = [0, 0, 0, 0]
+    for b0 in range(0, b, step):
+        s, d, v = (t[b0:b0 + step] for t in (sqo, diag, valid.bool()))
+        m = v[:, :, None] & v[:, None, :] & upper        # [range, i, j]
+        stages[0] += int(m.sum())
+        m &= s[:, None, :] > s[:, :, None]
+        stages[1] += int(m.sum())
+        m &= (d[:, None, :] - d[:, :, None]).abs() <= max_gap
+        stages[2] += int(m.sum())
+        sro = d + s
+        m &= sro[:, None, :] > sro[:, :, None]
+        stages[3] += int(m.sum())
+    return sum(k * c for k, c in zip(PAIR_STAGE_OPS, stages)), stages
+
+
+def phase_torch(torch, sw, host, StagedAligner, Recorder, genome, index, aa,
+                reads, threads, dev):
+    """--engine batch-torch's engine, StagedAligner(backend="torch"), on
+    the first TORCH_READS reads of the 1 kb batch (the same reads and
+    buckets as phase 3): one cold run (its time goes by the rows of the
+    lockstep, so a warm run takes as long) with SAM bytes equal to the
+    native engine's, no DP kernel launched (only the gather), beside the
+    default engine's warm wall on the same reads; then the largest
+    extension bucket's lockstep twin beside extension_forward's kernel on
+    the same inputs (for information; their score, maxi and maxj must
+    agree)."""
+    from yaha_tpu_torch.ops import sw_batch
+    part = reads[:TORCH_READS]
+    pr = host.parse_queries_native(b"".join(part), False,
+                                   aa.max_query_length, aa.word_len)
+    t0 = time.time()
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=threads)[0]
+    t_native = time.time() - t0
+    cuda_st = StagedAligner(aa, genome, index, device=dev, n_threads=threads)
+    _timed(torch, sw, cuda_st, pr, ref, dev, "phase8 batch-cuda first run")
+    cuda_wall, _ = _timed(torch, sw, cuda_st, pr, ref, dev,
+                          "phase8 batch-cuda warm run")
+    t0 = time.time()
+    st = Recorder(aa, genome, index, device=dev, n_threads=threads,
+                  backend="torch")
+    _, launches = _timed(torch, sw, st, pr, ref, dev,
+                         "phase8 batch-torch cold run")
+    cold = time.time() - t0
+    _report("phase8 %d x 1kb batch-torch" % pr.n, pr.n, {
+        "native_wall_s": t_native, "batch_cuda_warm_wall_s": cuda_wall,
+        "cold_wall_s": cold}, st.stats, launches)
+    if [k for k, v in launches.items() if v] != ["gather_problems"]:
+        raise AssertionError("phase8: batch-torch launched %s" % launches)
+    key, (q, qlens, r, rlens) = _largest(st, "extension_forward", 1024)
+    args = [q, torch.from_numpy(qlens.astype(np.int32)).to(dev), r,
+            torch.from_numpy(rlens.astype(np.int32)).to(dev)]
+    kw = st.ext_kw
+    twin_ms, twin = _time_once(
+        torch, dev, lambda *a: sw_batch.batched_extension_forward(*a, **kw),
+        args)
+    kern_ms = _time_kernel(torch, dev,
+                           lambda *a: sw.extension_forward(*a, **kw), [args])
+    kern = sw.extension_forward(*args, **kw)
+    sync(torch, dev)
+    for name in ("score", "maxi", "maxj"):
+        if not torch.equal(twin[name], kern[name]):
+            raise AssertionError("phase8: the twin and extension_forward "
+                                 "differ in %s" % name)
+    log("phase8 extension bucket=%s N=%d: batch-torch twin %.3f ms, "
+        "extension_forward kernel %.6f ms (score, maxi, maxj equal)" % (
+            list(key[1:]), q.shape[0], twin_ms, kern_ms))
+
+
+def phase_engines_cli(tg_nib, tg_idx):
+    """The port's CLI on the golden sets in this process: --engine
+    batch-torch --device cuda (readsA, host seed scan and --seed device),
+    --engine native (readsA, readsC params), and one --engine batch-cuda
+    run under --trace (readsC params), whose trace must name a kernel of
+    the port among its CUDA kernels; SAM bytes equal to the goldens each
+    time."""
+    from yaha_tpu_torch import cli
+    gold = os.path.join(REPO, "tests", "golden")
+    data = os.path.join(REPO, "tests", "data")
+    c_flags = ["-BW", "3", "-G", "20", "-M", "15", "-X", "15"]
+
+    def body(p):
+        with open(p, "rb") as f:
+            return [ln for ln in f.read().split(b"\n")
+                    if not ln.startswith(b"@PG")]
+    with tempfile.TemporaryDirectory(dir=CACHE) as d:
+        for f in (tg_nib, tg_idx):
+            os.symlink(f, os.path.join(d, os.path.basename(f)))
+        trace = os.path.join(d, "trace")
+        for golden, reads, flags in (
+                ("A_default.sam", "readsA_100bp.fasta",
+                 ["--engine", "batch-torch", "--device", "cuda"]),
+                ("A_default.sam", "readsA_100bp.fasta",
+                 ["--engine", "batch-torch", "--device", "cuda", "--seed",
+                  "device"]),
+                ("A_default.sam", "readsA_100bp.fasta",
+                 ["--engine", "native"]),
+                ("C_params.sam", "readsC_1kb.fasta",
+                 ["--engine", "native"] + c_flags),
+                ("C_params.sam", "readsC_1kb.fasta",
+                 ["--engine", "batch-cuda", "--device", "cuda", "--trace",
+                  trace] + c_flags)):
+            out = os.path.join(d, "out.sam")
+            rc = cli.main(["-x", os.path.join(d, os.path.basename(tg_idx)),
+                           "-q", os.path.join(data, reads)] + flags +
+                          ["-osh", out])
+            if rc != 0 or body(out) != body(os.path.join(gold, golden)):
+                raise AssertionError("phase8 cli %s: SAM differs from "
+                                     "tests/golden/%s" % (" ".join(flags),
+                                                          golden))
+            log("phase8 cli: %s == %s" % (" ".join(
+                f if f != trace else "DIR" for f in flags), golden))
+        files = [os.path.join(trace, f) for f in os.listdir(trace)]
+        if len(files) != 1 or not os.path.getsize(files[0]):
+            raise AssertionError("phase8 --trace: files %s" % files)
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = sorted({e.get("name", "") for e in events
+                        if e.get("cat") == "kernel"})
+        ours = [k for k in names if re.search(
+            r"ext_reg_kernel|anch_reg_kernel|gather_kernel|rle_win_kernel",
+            k)]
+        if not ours:
+            raise AssertionError("phase8 --trace: no kernel of the port "
+                                 "among the trace's CUDA kernels %s"
+                                 % names[:20])
+        log("phase8 --trace: %d bytes, %d events, %d CUDA kernel names, "
+            "of the port's: %s" % (os.path.getsize(files[0]), len(events),
+                                   len(names), ", ".join(
+                                       k[:40] for k in ours)))
+
+
 def _device_time(torch, prof, wall):
     """(busy ms, idle share of `wall`, ms by kind, ms of the 8 costliest
     names) from the card's events of one torch.profiler run."""
@@ -1827,10 +2171,19 @@ def main():
     if not host.available():
         raise RuntimeError("native host library did not build")
 
+    t_phase = [time.time()]
+
+    def phase_done(tag):
+        now = time.time()
+        log("%s: %.1f s" % (tag, now - t_phase[0]))
+        t_phase[0] = now
+
     phase_build()
+    phase_done("phase1 seconds")
     errs = {}
     if not args.profile:
         phase_kernels(torch, sw, errs, dev)
+        phase_done("phase2 seconds")
     Recorder = _recorder(StagedAligner, gap_dispatch, pack_coords)
 
     fa, nib, idx = genome_files(threads)
@@ -1850,6 +2203,7 @@ def main():
     log("setup: %d reads of 1 kb (%d substitution-only, %d with indels, "
         "%d split reads)" % (len(reads), n_half,
                              BATCH - len(sv) - n_half, len(sv)))
+    phase_done("setup seconds")
     aa = _aa(host, index, idx)
     if args.profile:
         phase_profile(torch, sw, host, StagedAligner, DeviceSeeder, genome,
@@ -1863,7 +2217,7 @@ def main():
     # the host seed scan launches no seed kernel.
     for name in KERNELS:
         if (launches[name] == 0) != (name == "extension_forward_wide" or
-                                     name in SEED_KERNELS):
+                                     name in SEED_KERNELS + CHAIN_KERNELS):
             raise AssertionError("phase3: %s launched %d times" % (
                 name, launches[name]))
     log("phase3 1kb launches by route: %s" % json.dumps(
@@ -1874,6 +2228,7 @@ def main():
                for name, (src, rep) in KERNELS.items()}
     phase_ab(torch, sw, StagedAligner, genome, index, aa, pr, ref, threads,
              "phase3 1kb A/B", dev)
+    phase_done("phase3 seconds")
     # The wide extension kernel's path: bands wider than -BW 8, the whole
     # batch at -BW 9 and part of it at -BW 16.
     wide_runs = {}
@@ -1903,6 +2258,7 @@ def main():
                              max_query_length=150000),
                long_read_105k(rng), threads, "phase4 105kb", dev)[0]
     phase_cli(tg_nib, tg_idx)
+    phase_done("phase4 seconds")
     # The device seed phase: its counts are set to 0 just before its warm
     # run and read just after it.
     seeder, seed_launches = phase_seed(
@@ -1913,11 +2269,25 @@ def main():
     phase_seed_reads(torch, sw, host, StagedAligner, DeviceSeeder, seeder,
                      genome, index, aa10, pr10, ref10, tg_nib, tg_idx,
                      threads, dev)
+    phase_done("phase6 runs seconds")
     phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev)
+    phase_anch_bw16(torch, sw, st_wider, kernels, errs, dev)
+    phase_done("phase5 seconds")
     phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev)
+    phase_done("phase6 kernels seconds")
     phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
                              ("1kb BW%d" % WIDER_BW, st_wider),
                              ("10kb", st10), ("105kb", st105)])
+    del st, st_wide, st_wider, st10, st105, wide_runs, seeder
+    phase_done("phase5 histogram seconds")
+    # The chain DP's own path (no engine runs it): its counts are set to 0
+    # just before it and read just after.
+    phase_chain(torch, sw, kernels, errs, dev)
+    phase_done("phase7 seconds")
+    phase_torch(torch, sw, host, StagedAligner, Recorder, genome, index, aa,
+                reads, threads, dev)
+    phase_engines_cli(tg_nib, tg_idx)
+    phase_done("phase8 seconds")
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

@@ -44,10 +44,13 @@ an indel of up to 2*bw bases (indel_extension_inputs);
     entry (the golden index's seed rows at capacities 64, 1,024 and 8,192,
     the wrapped run at a tier's last slots, unsigned-order and sentinel
     edges, 650-hit runs across C in rows of three batches, row totals
-    around every sort size); every output prefilled with garbage.
+    around every sort size); every output prefilled with garbage;
+  * the chain DP of csrc/chain_kernels.cu (ChainLane<K> and chain_merge
+    over the threads of a team, run_chain), held to
+    chain.batched_chain_dp_ref.
 
 The plain versions are held to the JAX package in test_torch_decode.py,
-test_torch_gather.py and test_torch_seeds.py.  The test skips only where
+test_torch_gather.py, test_torch_seeds.py and test_torch_chain.py.  The test skips only where
 g++ is missing.
 """
 import ctypes as ct
@@ -59,17 +62,19 @@ import numpy as np
 import pytest
 import torch
 
-from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
+from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
+                            CHAIN_TIE_KW, EXT_SWEEP,
                             EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
                             KW_WRAP, SEED_CASES,
                             anchored_edge_inputs,
-                            anchored_sweep_inputs,
+                            anchored_sweep_inputs, chain_case,
+                            chain_edge_case, chain_tie_case,
                             extension_inputs, gather_aligned_coords,
                             gather_case, gather_clamp_coords, gather_coords,
                             hash_rows, indel_extension_inputs,
                             long_run_inputs, read_rows,
                             seed_case, seed_rows)
-from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
+from yaha_tpu_torch.ops import chain, decode, gather_dp, seeds, sw_cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "yaha_tpu_torch", "csrc")
@@ -82,6 +87,7 @@ C_LOOP = r"""
 #include "gather_kernels.cu"
 #include "anch_kernels.cu"
 #include "seed_kernels.cu"
+#include "chain_kernels.cu"
 
 #include <string.h>
 
@@ -455,6 +461,89 @@ extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
         maxj[p] = run.j;
     }
 }
+
+// The chain DP by teams of T threads with K nodes a thread (K * T >= n;
+// T = 0 takes the kernel's team for n, chain_team): the threads' bodies
+// in a C loop in place of each step's barrier, the node records in two
+// slots prefilled with garbage, the merge as the kernel's shuffles
+// (lane l takes lane l + off's best; the top lanes their own) within
+// warps of 32 and then over the warps' bests.
+template <int K>
+static void chain_teams(int T, const int32_t* sqo, const int32_t* eqo,
+                        const int32_t* diag, const int32_t* len,
+                        const uint8_t* valid, int64_t b, int32_t n,
+                        const ytsw::ChainParams& p, int32_t* best,
+                        int32_t* best_score, int32_t* prev,
+                        int32_t* path_sqo) {
+    using namespace ytsw;
+    std::vector<ChainLane<K>> lanes(T);
+    const int warps = (T + 31) / 32;
+    std::vector<ChainBest> v(32 * warps), nv(32 * warps);
+    for (int64_t pb = 0; pb < b; pb++) {
+        const int64_t base = pb * n;
+        int32_t last = -1;
+        for (int t = 0; t < T; t++) {
+            lanes[t].load(sqo + base, eqo + base, diag + base, len + base,
+                          valid + base, n, t, T, p);
+            last = std::max(last, lanes[t].last_valid(t, T));
+        }
+        ChainNode rec[2];
+        memset(rec, 0x5A, sizeof rec);
+        for (int t = 0; t < T; t++) lanes[t].publish(0, t, T, &rec[0]);
+        for (int32_t i = 0; i < last; i++) {
+            const ChainNode ni = rec[i & 1];
+            for (int t = 0; t < T; t++)
+                if (ni.valid)
+                    lanes[t].relax(ni, i, t, T, eqo + base, diag + base, p);
+            for (int t = 0; t < T; t++)
+                lanes[t].publish(i + 1, t, T, &rec[(i + 1) & 1]);
+        }
+        for (int t = 0; t < T; t++)
+            lanes[t].store(prev + base, path_sqo + base, n, t, T);
+        const ChainBest none = {-1, 0, 0, 0};
+        for (int l = 0; l < 32 * warps; l++)
+            v[l] = l < T ? lanes[l].fold(l, T) : none;
+        for (int rnd = 0; rnd < 2; rnd++) {
+            const int nw = rnd ? 1 : warps;
+            if (rnd)
+                for (int l = 0; l < 32; l++) v[l] = l < warps ? v[32 * l]
+                                                              : none;
+            for (int off = 16; off > 0; off >>= 1) {
+                for (int l = 0; l < 32 * nw; l++) {
+                    const int src = l % 32 + off < 32 ? l + off : l;
+                    nv[l] = chain_merge(v[l], v[src]);
+                }
+                v.swap(nv);
+            }
+        }
+        best[pb] = v[0].idx;
+        best_score[pb] = v[0].idx < 0 ? CHAIN_NO_SCORE : v[0].score;
+    }
+}
+
+extern "C" int run_chain(int K, int T, const int32_t* sqo,
+                         const int32_t* eqo, const int32_t* diag,
+                         const int32_t* len, const uint8_t* valid,
+                         int64_t b, int32_t n, const int32_t* kw,
+                         int32_t* best, int32_t* best_score, int32_t* prev,
+                         int32_t* path_sqo) {
+    const ytsw::ChainParams p = {kw[0], kw[1], kw[2], kw[3], kw[4]};
+    if (T == 0) ytsw::chain_team(n, &K, &T);
+    if (T == 0 || (int64_t)K * T < n) return 1;
+    switch (K) {
+#define YT_K(kk)                                                         \
+    case kk:                                                             \
+        chain_teams<kk>(T, sqo, eqo, diag, len, valid, b, n, p, best,   \
+                        best_score, prev, path_sqo);                    \
+        return 0;
+    YT_K(1)
+    YT_K(2)
+    YT_K(4)
+    YT_K(8)
+#undef YT_K
+    }
+    return 1;
+}
 """
 
 REG_WIDTHS = (13, 21, 33)
@@ -511,6 +600,9 @@ def lib(tmp_path_factory):
     out.run_seed_hashes.argtypes = [ct.c_void_p, ct.c_int64, ct.c_int64,
                                     ct.c_void_p, ct.c_int32, ct.c_void_p,
                                     ct.c_void_p]
+    out.run_chain.restype = ct.c_int
+    out.run_chain.argtypes = ([ct.c_int] * 2 + [ct.c_void_p] * 5 +
+                              [ct.c_int64, ct.c_int32] + [ct.c_void_p] * 5)
     out.run_expand_sort.restype = None
     out.run_expand_sort.argtypes = ([ct.c_void_p] * 2 + [ct.c_int64] * 2 +
                                     [ct.c_void_p] * 2 +
@@ -1007,3 +1099,51 @@ def test_expand_bodies_match_plain(lib, case):
         np.testing.assert_array_equal(got, w.numpy().astype(got.dtype),
                                       err_msg=key)
     assert out["wrapped"].any()
+
+
+def _chain_inputs(case):
+    if case.startswith("seed"):
+        return chain_case(int(case[4:]), 16, 48)[:5], CHAIN_KW
+    if case.startswith("n="):
+        n = int(case[2:])
+        return chain_case(n, 6, n, qspan=40 * n)[:5], CHAIN_KW
+    if case.startswith("ties"):
+        return chain_tie_case(int(case[4:])), CHAIN_TIE_KW
+    return dict(chain_edge_case())[case], dict(CHAIN_KW, m_score=2)
+
+
+@pytest.mark.parametrize("team", [(0, 0), (1, 64), (4, 16), (8, 8)],
+                         ids=["kernel_team", "k1t64", "k4t16", "k8t8"])
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "n=300",
+                                  "n=3000", "ties0", "ties1", "n1",
+                                  "invalid_row", "int16_wrap"])
+def test_chain_bodies_match_plain(lib, case, team):
+    """ChainLane's load / relax / publish / fold / store and chain_merge,
+    over the threads of a team in a C loop (the kernel's team for N, and
+    teams of other shapes), held to chain.batched_chain_dp_ref: the
+    ranges of tests/test_chain_jax.py (seeds 0-2), ranges of up to 300 and
+    3,000 nodes (teams of 256 and 512 threads), ranges dense in equal
+    scores (every level of the tie cascade and full ties in
+    the fold), one-node ranges, a range with no valid node and lengths
+    whose scores wrap int16; every output prefilled with garbage."""
+    args, kw = _chain_inputs(case)
+    b, n = args[0].shape
+    k, t = team
+    if k * t and k * t < n:
+        k, t = 1, 1 << (n - 1).bit_length()
+    arrs = [np.ascontiguousarray(a, np.uint8 if a.dtype == bool else
+                                 np.int32) for a in args]
+    out = {key: np.full(shape, UNWRITTEN, np.int32) for key, shape in (
+        ("best", b), ("best_score", b), ("prev", (b, n)),
+        ("path_sqo", (b, n)))}
+    params = np.array([kw[key] for key in ("max_gap", "max_desert",
+                                           "m_score", "go_cost", "ge_cost")],
+                      np.int32)
+    assert lib.run_chain(k, t, *(a.ctypes.data for a in arrs), b, n,
+                         params.ctypes.data, *(out[key].ctypes.data for key
+                                               in ("best", "best_score",
+                                                   "prev", "path_sqo"))) == 0
+    want = chain.batched_chain_dp_ref(
+        *(torch.from_numpy(a) for a in args), **kw)
+    for key, w in want.items():
+        np.testing.assert_array_equal(out[key], w.numpy(), err_msg=key)

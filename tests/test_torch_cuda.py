@@ -16,9 +16,14 @@ unsigned-order, sentinel and wrapped-run edges, on 650-hit runs across C
 in rows of three expansion batches, on row totals around every sort size,
 and on hash rows whose 16-window runs cross row ends, at two alignments
 (tests/test_torch_seeds.py holds the plain versions to the JAX
-package).  The engine is held to the
+package).  The chain DP kernel is held to its plain version on the ranges
+of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
+ranges and at every team shape (N = 20 to 3,000 nodes).  The lockstep
+twins of ops/sw_batch.py on the card are held to the same functions on
+the CPU, array for array.  The engine is held to the
 native C++ engine, SAM bytes equal, in its default configuration (device
-assembly + device walk) and in the A/B one, and with the device seeder.  Neither jax nor tests/conftest.py is
+assembly + device walk) and in the A/B one, with the device seeder, and
+with the "torch" backend.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
 with
 
@@ -33,18 +38,22 @@ import numpy as np
 import pytest
 import torch
 
-from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, EXT_SWEEP,
+from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
+                            CHAIN_TIE_KW, EXT_SWEEP,
                             EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
                             KW_WRAP, SEED_CASES, WIDE_SWEEP, WIDE_SWEEP_IDS,
                             anchored_edge_inputs,
                             anchored_inputs,
-                            anchored_sweep_inputs, extension_inputs,
+                            anchored_sweep_inputs, chain_case,
+                            chain_edge_case, chain_tie_case,
+                            extension_inputs,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, hash_rows,
                             indel_extension_inputs, indel_reads,
                             long_run_inputs, read_rows,
                             seed_case, seed_rows)
-from yaha_tpu_torch.ops import decode, gather_dp, seeds, sw_cuda
+from yaha_tpu_torch.ops import (chain, decode, gather_dp, seeds, sw_batch,
+                                sw_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -500,3 +509,94 @@ def test_staged_cuda_with_seeder_matches_native(dev, testgen, qfile, over):
         s = seeder.stats
         assert s["phantom_rows"] > 0 and s["cap_retries"] > 0
         assert s["fallback_rows"] > 0
+
+
+def _chain_args(case):
+    if case.startswith("seed"):
+        return chain_case(int(case[4:]), 16, 48)[:5], CHAIN_KW
+    if case.startswith("n="):
+        n = int(case[2:])
+        return chain_case(n, 24, n, qspan=40 * n)[:5], CHAIN_KW
+    if case.startswith("ties"):
+        return chain_tie_case(int(case[4:])), CHAIN_TIE_KW
+    return dict(chain_edge_case())[case], dict(CHAIN_KW, m_score=2)
+
+
+@pytest.mark.parametrize("case", [
+    "seed0", "seed1", "seed2", "ties0", "ties1", "n1", "invalid_row",
+    "int16_wrap", "n=20", "n=48", "n=200", "n=400", "n=1000", "n=2000",
+    "n=3000"])
+def test_chain_kernel_matches_plain(dev, case):
+    """chain_dp_kernel = batched_chain_dp_ref on the card, every output;
+    N = 20 .. 3,000 runs every team shape (a warp for N <= 64, blocks of
+    256 and 512 threads above); one launch a call."""
+    args, kw = _chain_args(case)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+    sw_cuda.reset_launches()
+    got = chain.batched_chain_dp(*t, **kw)
+    assert sw_cuda.launches()["chain_dp"] == 1
+    _equal(got, chain.batched_chain_dp_ref(*t, **kw))
+
+
+def test_chain_kernel_refuses_wide_ranges(dev):
+    z = torch.zeros((2, chain.MAX_NODES + 1), dtype=torch.int32,
+                    device=dev)
+    sw_cuda.reset_launches()
+    with pytest.raises(ValueError):
+        chain.batched_chain_dp(z, z, z, z, z.bool(), **CHAIN_KW)
+    assert sw_cuda.launches()["chain_dp"] == 0
+
+
+@pytest.mark.parametrize("bw", [0, 5, 9])
+def test_extension_twin_card_matches_cpu(dev, bw):
+    """ops/sw_batch's extension on the card = the same on the CPU."""
+    args = indel_extension_inputs(bw + 3, 300, 48, bw)
+    kw = dict(KW, band_width=bw, x_cutoff=25)
+    cpu = sw_batch.batched_extension_forward(
+        *(torch.from_numpy(a) for a in args), **kw)
+    _equal({k: v.cpu() for k, v in sw_batch.batched_extension_forward(
+        *_up(dev, *args), **kw).items()}, cpu)
+
+
+@pytest.mark.parametrize("seed,d,mg,mi", ANCH_SWEEP, ids=ANCH_SWEEP_IDS)
+def test_anchored_twin_card_matches_cpu(dev, seed, d, mg, mi):
+    args = anchored_sweep_inputs(seed, d)
+    kw = dict(KW, max_gap=mg, max_intron=mi)
+    cpu = sw_batch.batched_anchored_forward(
+        *(torch.from_numpy(a) for a in args), **kw)
+    _equal({k: v.cpu() for k, v in sw_batch.batched_anchored_forward(
+        *_up(dev, *args), **kw).items()}, cpu)
+
+
+@pytest.mark.parametrize("qfile,over", [
+    ("readsA_100bp.fasta", {}),
+    ("indel", {}),
+], ids=["A_default", "indel"])
+def test_staged_torch_backend_on_card(dev, testgen, qfile, over):
+    """StagedAligner(backend="torch") on the card: SAM bytes equal to the
+    native engine's, problems gathered on the card, no DP kernel
+    launched."""
+    from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = testgen
+    aa = host.AlignmentArgs()
+    aa.xfile_name = INDEX
+    aa.ofile_name = "out.sam"
+    for k, v in over.items():
+        setattr(aa, k, v)
+    aa.post_process(True)
+    aa.word_len = index.word_len
+    aa.max_hits = min(aa.max_hits, index.max_hits)
+    pr = host.parse_queries_native(_reads(qfile), False,
+                                   aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=4)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=4,
+                       inline_small=False, backend="torch")
+    sw_cuda.reset_launches()
+    text, sm, nr = st.align_chunk(pr, 0, pr.n)
+    assert text == ref[0]
+    assert (sm, nr) == (ref[2], ref[3])
+    launched = {k: v for k, v in sw_cuda.launches().items() if v}
+    assert list(launched) == ["gather_problems"]
+    assert st.stats["plane_d2h_bytes"] > 0

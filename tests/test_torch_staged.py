@@ -5,12 +5,18 @@ and inline_small=False sends every gap fill and extension through them.
 The default configuration assembles every problem on the device and walks
 the planes there (FMT_RLE items); the A/B configurations fetch problems on
 the host and/or bring the planes back to the native walkers.
+The "torch" backend (the lockstep DPs of ops/sw_batch.py, --engine
+batch-torch) and the "native" one (the native library's batched host DPs)
+return eo/idc planes (FMT_EOIDC) to the native apply, with and without the
+device seeder.
 The SAM bytes must equal the JAX package's per-read native C++ engine's
 (yaha_tpu.native.host.align_batch_native; the port runs its own copy of
 that library), and the CLI must reproduce the golden SAM files of
-tests/golden (ignoring @PG lines, which embed paths).  The CLI must not
-import jax or anything of the JAX package, must load its native library
-from yaha_tpu_torch/_build, and must fail on --device cuda without a card.
+tests/golden (ignoring @PG lines, which embed paths) with each engine
+(batch-cuda and batch-torch on --device cpu, native) and under --trace.
+The CLI must not import jax or anything of the JAX package, must load its
+native library from yaha_tpu_torch/_build, and must fail on --device cuda
+without a card.
 The port's -g / -c / -u operations must write the golden .nib2, FASTA and
 index files byte for byte.
 """
@@ -113,6 +119,42 @@ def test_staged_cpu_matches_native(scratch, env, qfile, over, n_max):
     assert stats["ext_problems"] > 0 and stats["gap_problems"] > 0
     assert stats["gap_banded"] > 0
     assert stats["plane_d2h_bytes"] == 0
+
+
+@pytest.mark.parametrize("seeded", [False, True],
+                         ids=["host_seed", "device_seed"])
+@pytest.mark.parametrize("backend", ["torch", "native"])
+@pytest.mark.parametrize("qfile,over,n_max", [CONFIGS[0], CONFIGS[4]],
+                         ids=["A_default", "C_params"])
+def test_staged_eoidc_backends_match_native(scratch, env, qfile, over,
+                                            n_max, backend, seeded):
+    """StagedAligner(backend="torch" | "native"): every gap fill and
+    extension through the lockstep twins on the CPU (problems assembled on
+    the device) or the native host DPs (problems fetched on the host), the
+    eo/idc planes to the native apply; with the host seed scan and with
+    the device seeder."""
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    aa = _aa(env[1], qfile, over)
+    seeder = DeviceSeeder(aa, env[1], device="cpu") if seeded else None
+    with open(os.path.join(scratch, qfile), "rb") as f:
+        stats = _parity(env, aa, f.read(), n_max, backend=backend,
+                        seeder=seeder)
+    assert stats["dp_launches"] > 0
+    assert stats["gap_problems"] > 0 and stats["ext_problems"] > 0
+    assert (stats["plane_d2h_bytes"] > 0) == (backend == "torch")
+
+
+def test_staged_backend_checks(env):
+    """An unknown backend is refused; the "torch" backend on --device cuda
+    without a card stops with an error."""
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = env
+    aa = _aa(index, "readsA_100bp.fasta", {})
+    with pytest.raises(ValueError, match="backend"):
+        StagedAligner(aa, genome, index, device="cpu", backend="xla")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StagedAligner(aa, genome, index, device="cuda", backend="torch")
 
 
 @pytest.mark.parametrize("device_assembly,rle", [
@@ -238,6 +280,61 @@ def test_cli_cpu_matches_golden(scratch, monkeypatch, gold, qfile, flags):
         os.path.join(GOLD, gold))
 
 
+C_FLAGS = ["-BW", "3", "-G", "20", "-M", "15", "-X", "15"]
+ENGINE_RUNS = [
+    ("A_default.sam", "readsA_100bp.fasta", ["--engine", "batch-torch"]),
+    ("A_default.sam", "readsA_100bp.fasta", ["--engine", "batch-torch",
+                                             "--seed", "device"]),
+    ("C_params.sam", "readsC_1kb.fasta", ["--engine", "batch-torch"] +
+     C_FLAGS),
+    ("A_default.sam", "readsA_100bp.fasta", ["--engine", "native"]),
+    ("C_params.sam", "readsC_1kb.fasta", ["--engine", "native"] + C_FLAGS),
+    ("D_fbs.sam", "readsD_sv.fasta", ["--engine", "native", "-FBS", "Y"]),
+]
+
+
+@pytest.mark.parametrize("gold,qfile,flags", ENGINE_RUNS,
+                         ids=["torch_A", "torch_A_seed", "torch_C",
+                              "native_A", "native_C", "native_D_fbs"])
+def test_cli_engines_match_golden(scratch, monkeypatch, gold, qfile, flags):
+    """--engine batch-torch (on --device cpu, with the host seed scan and
+    with --seed device) and --engine native write the golden SAM."""
+    from yaha_tpu_torch import cli
+    monkeypatch.chdir(scratch)
+    out = "engine_%s_%s" % ("_".join(f.strip("-") for f in flags), gold)
+    rc = cli.main(["-x", INDEX, "-q", qfile, "--device", "cpu"] + flags +
+                  ["-osh", out])
+    assert rc == 0
+    assert _strip_pg(os.path.join(scratch, out)) == _strip_pg(
+        os.path.join(GOLD, gold))
+
+
+def test_cli_trace(scratch, monkeypatch):
+    """--trace DIR leaves a Chrome trace of the align loop (the DP's
+    PyTorch ops among its events) and the SAM is the golden one."""
+    import json
+    from yaha_tpu_torch import cli
+    monkeypatch.chdir(scratch)
+    rc = cli.main(["-x", INDEX, "-q", "readsF_edge.fasta", "--device",
+                   "cpu", "--trace", "trace_F", "-osh", "traced_F.sam"])
+    assert rc == 0
+    assert _strip_pg(os.path.join(scratch, "traced_F.sam")) == _strip_pg(
+        os.path.join(GOLD, "F_edge.sam"))
+    files = os.listdir(os.path.join(scratch, "trace_F"))
+    assert len(files) == 1 and files[0].startswith("yaha_trace_")
+    with open(os.path.join(scratch, "trace_F", files[0])) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::where" in names
+
+
+def test_cli_native_engine_refuses_device_seed(scratch):
+    r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
+                           "--engine", "native", "--seed", "device", "-osh",
+                           "native_seed.sam"])
+    assert r.returncode != 0
+    assert b"staged engine" in r.stderr
+
+
 def _run_cli(scratch, args):
     """The port's CLI in a fresh interpreter; after the run it asserts
     that neither jax nor any module of the JAX package was imported, and
@@ -282,6 +379,18 @@ def test_cli_device_cuda_without_card_fails(scratch):
     assert r.returncode != 0
     assert b"no CUDA device" in r.stderr
     assert not os.path.exists(os.path.join(scratch, "nocard.sam"))
+
+
+def test_cli_batch_torch_device_cuda_without_card_fails(scratch):
+    """--engine batch-torch on the default --device cuda stops too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
+                           "--engine", "batch-torch", "-osh",
+                           "nocard_torch.sam"])
+    assert r.returncode != 0
+    assert b"no CUDA device" in r.stderr
+    assert not os.path.exists(os.path.join(scratch, "nocard_torch.sam"))
 
 
 def test_cli_rejects_unported_flags(scratch):

@@ -586,3 +586,118 @@ def hash_rows(seed, wl, l, b=45):
     lens[-1] = l
     codes[np.arange(l)[None, :] >= lens[:, None]] = 4
     return codes, lens.astype(np.int32)
+
+
+# ---- fragment-chain DP (ops/chain.py) ----
+
+# The chain DP's parameters (tests/test_chain_jax.py _AA).
+CHAIN_KW = dict(max_gap=50, max_desert=200, m_score=1, go_cost=5, ge_cost=2)
+
+
+def _chain_problem(rng, n, qspan):
+    """test_chain_jax._random_problem with the SQO span as a parameter:
+    fragment-like nodes sorted ascending (SQO, diag), a fifth of the ranges
+    wrapping uint32 (RO < QO)."""
+    sqo = np.sort(rng.integers(0, qspan, n))
+    length = rng.integers(10, 60, n)
+    eqo = sqo + length - 1
+    base = 2**32 - 20 if rng.random() < 0.2 else rng.integers(0, 5000)
+    diag = (base + rng.integers(0, 3000, n)) % 2**32
+    order = np.lexsort((diag, sqo))
+    return sqo[order], eqo[order], diag[order].astype(np.int64), \
+        length[order]
+
+
+def chain_case(seed, b, n_max, qspan=900):
+    """B ranges of 1..n_max nodes drawn as tests/test_chain_jax.py draws
+    them (the same generator calls in the same order: seeds 0-2 at b 16,
+    n_max 48 give its problems), padded to n_max.  Returns (sqo, eqo, diag
+    re-based per range as test_chain_jax re-bases it, length, valid, diag
+    as drawn, counts), int64 but valid.  The re-base is (diag - min) mod
+    2^32: in a range that wraps uint32 it leaves diagonals past 2^31,
+    which reach the DP as negative int32 values."""
+    rng = np.random.default_rng(seed)
+    sqo, eqo, diag, length, diag_orig = (np.zeros((b, n_max), np.int64)
+                                         for _ in range(5))
+    valid = np.zeros((b, n_max), bool)
+    counts = rng.integers(1, n_max + 1, b)
+    for k in range(b):
+        c = counts[k]
+        s, e, d, ln = _chain_problem(rng, c, qspan)
+        sqo[k, :c], eqo[k, :c], length[k, :c] = s, e, ln
+        diag_orig[k, :c] = d
+        diag[k, :c] = (d - d.min()) % 2**32   # the caller's re-base
+        valid[k, :c] = True
+    return sqo, eqo, diag, length, valid, diag_orig, counts
+
+
+def chain_tie_case(seed, b=64, n=24):
+    """Ranges dense in equal scores: SQO in 0..39, lengths 4..6, diagonals
+    0..5, so that with go_cost = ge_cost = 0 (CHAIN_TIE_KW) many
+    candidates tie with the stored edge (all three levels of the cascade)
+    and many nodes tie in the fold (full ties included); a random half of
+    the nodes of each range are pads (valid False) between valid ones."""
+    rng = np.random.default_rng(seed)
+    sqo = np.sort(rng.integers(0, 40, (b, n)), axis=1)
+    diag = rng.integers(0, 6, (b, n))
+    order = np.lexsort((diag, sqo), axis=1)
+    sqo = np.take_along_axis(sqo, order, 1)
+    diag = np.take_along_axis(diag, order, 1)
+    length = rng.integers(4, 7, (b, n))
+    valid = rng.random((b, n)) < 0.5
+    return sqo, sqo + length - 1, diag, length, valid
+
+
+CHAIN_TIE_KW = dict(CHAIN_KW, go_cost=0, ge_cost=0)
+
+
+def native_chain(sqo, eqo, diag, length, valid, kw, rows=None):
+    """The port's native chain_dp (the per-read engine's yt_chain_dp) on
+    each range's valid nodes, in the outputs of ops/chain.batched_chain_dp
+    (pads never relax nor win, so dropping them changes nothing): best
+    and best_score [B] (-1 and -0x7FFFFF00 for a range with no valid
+    node), prev and path_sqo [B, N] (a pad keeps prev -1 and its own SQO),
+    int32.  diag as the native engine keeps it (uint32, not re-based);
+    `rows` limits the ranges."""
+    from yaha_tpu_torch.native import host
+    b = sqo.shape[0] if rows is None else rows
+    out = {"best": np.full(b, -1, np.int32),
+           "best_score": np.full(b, -0x7FFFFF00, np.int32),
+           "prev": np.full((b, sqo.shape[1]), -1, np.int32),
+           "path_sqo": np.array(sqo[:b], np.int32)}
+    for k in range(b):
+        idx = np.nonzero(valid[k])[0]
+        nb, nsc, nprev, _, npsqo = host.chain_dp(
+            sqo[k, idx], eqo[k, idx], diag[k, idx], length[k, idx], **kw)
+        if nb >= 0:
+            out["best"][k], out["best_score"][k] = idx[nb], nsc[nb]
+        out["prev"][k, idx] = np.where(nprev >= 0,
+                                       idx[np.maximum(nprev, 0)], -1)
+        out["path_sqo"][k, idx] = npsqo
+    return out
+
+
+def chain_edge_case():
+    """(name, (sqo, eqo, diag, length, valid)) of edge ranges, each [b, n]
+    int64 / bool: one node per range; a range with no valid node beside
+    a full one; lengths whose length (and length * m_score) passes 32,767
+    (the int16 wraps of the SINT stores)."""
+    out = []
+    out.append(("n1", (np.array([[3], [0], [7]]), np.array([[12], [9], [7]]),
+                       np.array([[0], [0], [0]]), np.array([[10], [10], [1]]),
+                       np.array([[True], [False], [True]]))))
+    sqo = np.array([[0, 5, 9, 30], [0, 5, 9, 30]])
+    eqo = sqo + 20
+    diag = np.array([[0, 3, 1, 2], [0, 3, 1, 2]])
+    length = np.full((2, 4), 21)
+    out.append(("invalid_row", (sqo, eqo, diag, length,
+                                np.array([[False] * 4, [True] * 4]))))
+    # Long fragments: lengths 20,000-40,000 wrap to negative int16 scores
+    # (and length * m_score at m_score 2 wraps too).
+    rng = np.random.default_rng(5)
+    sqo = np.sort(rng.integers(0, 60000, (8, 12)), axis=1)
+    length = rng.integers(20000, 40000, (8, 12))
+    diag = np.sort(rng.integers(0, 40, (8, 12)), axis=1)
+    out.append(("int16_wrap", (sqo, sqo + length - 1, diag, length,
+                               np.ones((8, 12), bool))))
+    return out

@@ -10,21 +10,31 @@ Counterpart of yaha_tpu/cli.py, with the reference's four operations
   -x index -q reads ...           align, with the reference flag set plus:
 
   --engine batch-cuda   the staged engine with its DP on the card (the
-                        only engine here): the genome stays on the card,
-                        every DP problem is assembled there, and the
-                        backtrack walk runs there, so only run-length items
-                        come back (the JAX package's default batch-pallas
-                        configuration).  YT_STAGED_DEVRES=0 fetches
-                        problems on the host and YT_STAGED_RLE=0 brings the
-                        planes back to the native walkers (A/B
-                        configurations).
-  --device cuda|cpu     where the kernels run (default cuda); cpu runs
-                        their plain PyTorch versions.  With cuda and no
+                        default): the genome stays on the card, every DP
+                        problem is assembled there, and the backtrack walk
+                        runs there, so only run-length items come back (the
+                        JAX package's default batch-pallas configuration).
+                        YT_STAGED_DEVRES=0 fetches problems on the host and
+                        YT_STAGED_RLE=0 brings the planes back to the
+                        native walkers (A/B configurations).
+  --engine batch-torch  the staged engine with the lockstep DPs of
+                        ops/sw_batch.py in PyTorch ops on the --device (the
+                        JAX package's batch-xla): eo/idc planes back to the
+                        native apply.
+  --engine native       the per-read native C++ pipeline
+                        (native/host.align_batch_native); no device.
+  --device cuda|cpu     where the staged engines' DP runs (default cuda);
+                        cpu runs the kernels' plain PyTorch versions (and
+                        batch-torch's ops on the CPU).  With cuda and no
                         card the run stops with an error.
-  --seed host|device    where the seed scan runs (default host, the native
-                        library); device hashes and expands every read's
-                        seeds on the --device against the index resident
-                        there (models/seeder.py).
+  --seed host|device    where the seed scan of a staged engine runs
+                        (default host, the native library); device hashes
+                        and expands every read's seeds on the --device
+                        against the index resident there (models/seeder.py).
+  --trace DIR           a torch.profiler trace of the align loop (CPU ops
+                        of every thread, and the card's kernels and copies
+                        with --device cuda), written to DIR as a Chrome
+                        trace; the batches keep their prefetch schedule
   --prewarm             accepted and does nothing: nothing is cached
 
 The host work runs in the port's own native library (native/host.py).
@@ -38,7 +48,7 @@ import sys
 
 from .config import AlignmentArgs
 
-ENGINES = ("batch-cuda",)
+ENGINES = ("batch-cuda", "batch-torch", "native")
 DEVICES = ("cuda", "cpu")
 
 _INT_FLAGS = {
@@ -56,11 +66,11 @@ _FLOAT_FLAGS = {"-P": "min_identity", "-PRL": "fbs_ps_length",
                 "-PSS": "fbs_ps_score"}
 _BOOL_FLAGS = {"-AGS": "affine_gap_scoring", "-OQC": "oqc", "-FBS": "fbs"}
 _STR_FLAGS = {"-x": "xfile_name", "-q": "qfile_name", "-qs": "qs_file_name",
-              "-g": "gfile_name"}
+              "-g": "gfile_name", "--trace": "trace_dir"}
 _SWITCHES = {"-v": "verbose", "--prewarm": "prewarm", "--resume": "resume"}
 # Flags of the JAX package's CLI whose paths are not ported yet.
 _NOT_PORTED = ("--model-shards", "--coordinator", "--num-hosts",
-               "--host-id", "--trace")
+               "--host-id")
 
 USAGE = """\
 yaha_tpu_torch: split-read DNA aligner, DP phases on an NVIDIA GPU
@@ -73,13 +83,16 @@ Compress / uncompress a genome:
 Align queries:
   python -m yaha_tpu_torch.cli -x <indexFile> -q <queryFile (fa|fastq)>
            [-osh|-oss|-o8 <outFile>] [reference options]
-           [--engine batch-cuda] [--device cuda|cpu] [--seed host|device]
-           [--batch-size N] [--max-query-length N] [--max-region-frags N]
-           [--resume]
---engine batch-cuda assembles the DP problems and walks their backtrack
-planes on the device; YT_STAGED_DEVRES=0 / YT_STAGED_RLE=0 select the
-host-fetch / plane-transfer A/B configurations.  --seed device runs the
-seed scan on the device as well.
+           [--engine batch-cuda|batch-torch|native] [--device cuda|cpu]
+           [--seed host|device] [--trace DIR] [--batch-size N]
+           [--max-query-length N] [--max-region-frags N] [--resume]
+--engine batch-cuda (the default) assembles the DP problems and walks
+their backtrack planes on the device; YT_STAGED_DEVRES=0 /
+YT_STAGED_RLE=0 select the host-fetch / plane-transfer A/B
+configurations.  batch-torch runs the DPs as PyTorch ops on the device;
+native runs the per-read C++ pipeline with no device.  --seed device
+runs a staged engine's seed scan on the device as well.  --trace DIR
+writes a torch.profiler trace of the align loop into DIR.
 Not ported yet: %s.""" % ", ".join(_NOT_PORTED)
 
 
@@ -172,6 +185,7 @@ def parse_args(argv):
             if val not in ENGINES:
                 _fail("--engine must be one of: %s (the other engines are "
                       "in python -m yaha_tpu.cli)" % ", ".join(ENGINES))
+            aa.engine = val
         elif a == "--device":
             if val not in DEVICES:
                 _fail("--device must be one of: %s" % ", ".join(DEVICES))
@@ -321,8 +335,9 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
     dist, want_stats) -> (text, stats, seed_matches, records)`; output is
     emitted per batch by a writer thread, with the --resume cursor.  With
     YT_STAGED_PREFETCH on (default), batch k+1's host phases overlap
-    batch k.  `dp_stats` is the engine's launch/byte accounting and
-    `seed_stats` the device seeder's (or None), reported under -v."""
+    batch k, traced (--trace) or not.  `dp_stats` is a staged engine's
+    launch/byte accounting (None for the native engine) and `seed_stats`
+    the device seeder's (or None), reported under -v."""
     import concurrent.futures as cf
     import ctypes as ct
     import queue
@@ -498,12 +513,13 @@ def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
     if total_s > 0 and emitted > 0:
         print("Throughput: %.0f reads/s." % (emitted / total_s),
               file=sys.stderr)
-    print("Device DP: %d launches, %d gap + %d ext problems, %.1f MB h2d, "
-          "%.1f MB d2h, %.2fs device+transfer."
-          % (dp_stats["dp_launches"], dp_stats["gap_problems"],
-             dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
-             dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"]),
-          file=sys.stderr)
+    if dp_stats is not None:
+        print("Device DP: %d launches, %d gap + %d ext problems, %.1f MB "
+              "h2d, %.1f MB d2h, %.2fs device+transfer."
+              % (dp_stats["dp_launches"], dp_stats["gap_problems"],
+                 dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
+                 dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"]),
+              file=sys.stderr)
     if seed_stats is not None:
         print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %d "
               "retries, %d phantom rows, %d host-scan rows, %.2fs; index "
@@ -540,15 +556,22 @@ def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
 
 
 def _do_query(aa, device):
-    import torch
-    if device == "cuda" and not torch.cuda.is_available():
-        _fail("--device cuda: no CUDA device is available (torch %s); "
-              "use --device cpu to run the DP on the host." %
-              torch.__version__)
+    engine = getattr(aa, "engine", "batch-cuda")
+    seed = getattr(aa, "seed", "host")
+    if engine == "native":
+        if seed == "device":
+            _fail("--seed device runs in a staged engine (batch-cuda or "
+                  "batch-torch), not in --engine native.")
+    else:
+        import torch
+        if device == "cuda" and not torch.cuda.is_available():
+            _fail("--device cuda: no CUDA device is available (torch %s); "
+                  "use --device cpu to run the DP on the host." %
+                  torch.__version__)
     if getattr(aa, "prewarm", False):
         return
     from .io import native_loader
-    from .models.staged import StagedAligner
+    from .utils.timing import device_trace
     genome = native_loader.load_genome(aa.gfile_name)
     index = native_loader.load_index(aa.xfile_name)
     aa.word_len = index.word_len
@@ -558,14 +581,27 @@ def _do_query(aa, device):
               "used." % (index.max_hits, aa.max_hits, index.max_hits),
               file=sys.stderr)
         aa.max_hits = index.max_hits
+    if engine == "native":
+        from .native import host
+
+        def _native(pr, lo, hi, dist=None, want_stats=False):
+            return host.align_batch_native(
+                pr, lo, hi, genome, index, aa, n_threads=aa.num_threads,
+                want_stats=want_stats, dist=dist)
+        with device_trace(getattr(aa, "trace_dir", None)):
+            _run_native_engine(aa, genome, _native, None)
+        return
+    from .models.staged import StagedAligner
     if not getattr(aa, "batch_size", 0):
         aa.batch_size = 16384
     seeder = None
-    if getattr(aa, "seed", "host") == "device":
+    if seed == "device":
         from .models.seeder import DeviceSeeder
         seeder = DeviceSeeder(aa, index, device=device)
     aligner = StagedAligner(aa, genome, index, device=device,
-                            n_threads=aa.num_threads, seeder=seeder)
+                            n_threads=aa.num_threads, seeder=seeder,
+                            backend="torch" if engine == "batch-torch"
+                            else "cuda")
 
     def _align(pr, lo, hi, dist=None, want_stats=False):
         if want_stats:
@@ -574,8 +610,9 @@ def _do_query(aa, device):
             return text, stats, sm, nr
         text, sm, nr = aligner.align_chunk(pr, lo, hi, dist=dist)
         return text, None, sm, nr
-    _run_native_engine(aa, genome, _align, aligner.stats,
-                       seeder.stats if seeder else None)
+    with device_trace(getattr(aa, "trace_dir", None), device):
+        _run_native_engine(aa, genome, _align, aligner.stats,
+                           seeder.stats if seeder else None)
 
 
 def main(argv=None):

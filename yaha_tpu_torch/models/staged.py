@@ -27,6 +27,20 @@ Both off is the A/B configuration (YT_STAGED_DEVRES=0 YT_STAGED_RLE=0).
 Nothing switches configuration on an error.  Every configuration is
 byte-identical to the per-read native engine.
 
+The DP backend (JAX staged.py's `backend`):
+
+  "cuda"    the kernels above (--engine batch-cuda, the main path);
+  "torch"   the lockstep DPs of ops/sw_batch.py in PyTorch ops on the
+            device (--engine batch-torch, the twin of the JAX package's
+            batch-xla): every gap bucket as the masked full matrix, every
+            extension bucket banded, each returning eo int8 and idc int32
+            planes (FMT_EOIDC) to the native apply; problems assembled on
+            the device as above unless device_assembly is off;
+  "native"  the batched host DPs of the native library
+            (native/host.extension_forward / anchored_forward) on
+            problems fetched on the host, also FMT_EOIDC: the JAX
+            package's host staging harness, with no device work.
+
 With a seeder (models/seeder.DeviceSeeder, --seed device) the seed scan
 runs on the device too: the chunk's strand rows are hashed and expanded
 against the index resident there, and phase 1 takes the sorted hit rows in
@@ -48,7 +62,7 @@ import numpy as np
 import torch
 
 from ..native import host
-from ..ops import decode, sw_cuda
+from ..ops import decode, sw_batch, sw_cuda
 from ..ops.gather_dp import (COORD_BYTES, DeviceCorpus, chunk_strand_rows,
                              code_tables)
 
@@ -58,8 +72,11 @@ _i64p = ct.POINTER(ct.c_int64)
 _u32p = ct.POINTER(ct.c_uint32)
 
 # Plane formats of the native yt_batch_*_apply entries that the port feeds
-# (0 and 1, the inline and eo/idc formats, are the JAX package's).
-FMT_PACKED, FMT_PACKED_BAND, FMT_RLE = 2, 3, 4
+# (0, the inline format, is the JAX package's alone): eo int8 + idc int32
+# planes, packed full-width and band-relative planes, run-length items.
+FMT_EOIDC, FMT_PACKED, FMT_PACKED_BAND, FMT_RLE = 1, 2, 3, 4
+
+BACKENDS = ("cuda", "torch", "native")
 
 # Largest device problem batch per launch: buckets beyond it split into
 # slices, so a bucket's backtrack planes stay bounded.
@@ -134,11 +151,18 @@ class StagedAligner:
     YT_STAGED_DEVRES / YT_STAGED_RLE (default on).
     seeder: a models/seeder.DeviceSeeder runs the seed phase on its
     device (--seed device); None keeps the native host seed scan.
+    backend: "cuda", "torch" or "native" (the module docstring); rle
+    applies to "cuda" only, and "native" fetches every problem on the
+    host (device_assembly off).
     """
 
     def __init__(self, aa, genome, index, device="cuda", n_threads=1,
                  inline_small=None, device_assembly=None, rle=None,
-                 seeder=None):
+                 seeder=None, backend="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError("StagedAligner: backend %r is not one of %s"
+                             % (backend, ", ".join(BACKENDS)))
+        self.backend = backend
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StagedAligner: device %s requested but no "
@@ -153,9 +177,11 @@ class StagedAligner:
         self.inline_small = inline_small
         self.lib = host._load()
         self.gap_kw, self.ext_kw = dp_params(aa)
-        self.rle = _env_on("YT_STAGED_RLE") if rle is None else bool(rle)
+        self.rle = backend == "cuda" and (
+            _env_on("YT_STAGED_RLE") if rle is None else bool(rle))
         if device_assembly is None:
             device_assembly = _env_on("YT_STAGED_DEVRES")
+        device_assembly = device_assembly and backend != "native"
         self.corpus = None
         if device_assembly:
             codes = np.ctypeslib.as_array(
@@ -167,8 +193,8 @@ class StagedAligner:
         # Launch/byte accounting and the host-phase decomposition.
         # gap_banded / gap_full / gap_fallback count the gap problems the
         # band-relative kernel serves, and the full-width kernel serves at
-        # rg <= 512 and above it; plane_d2h_bytes is the backtrack-plane
-        # part of d2h_bytes (0 when rle is on).
+        # rg <= 512 and above it (backend "cuda"); plane_d2h_bytes is the
+        # backtrack-plane part of d2h_bytes (0 when rle is on).
         self.stats = {"dp_launches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
                       "plane_d2h_bytes": 0,
                       "gap_problems": 0, "ext_problems": 0,
@@ -265,16 +291,58 @@ class StagedAligner:
                            for s in host[:-1]]))
         return parts
 
+    def _eoidc_parts(self, fns, kw, arrs, per, planes, qa, ra, keys):
+        """The "torch" and "native" backends on one bucket: fns[backend](q,
+        qlens, r, rlens, *rest, **kw) for arrs = [qlens, rlens, *rest], in
+        launch slices of at most MAX_LAUNCH_BYTES (`per` bytes a problem),
+        on the device's or the host's problem planes; returns [(local_idx,
+        FMT_EOIDC, eo, idc, plane_stride, row_stride, *the per-problem
+        outputs of `keys`)]."""
+        fn = fns[self.backend]
+        n = len(arrs[0])
+        parts = []
+        t0 = time.time()
+        if self.backend == "torch":
+            arrs = list(self._up(np.stack(arrs).astype(np.int32)))
+        for lo, hi in _slices(n, per):
+            self._acc(dp_launches=1)
+            ql, rl, *rest = (a[lo:hi] for a in arrs)
+            if self.backend == "native":
+                out = fn(qa[lo:hi], ql, ra[lo:hi], rl, *rest, **kw)
+                scalars = [out[k] for k in keys]
+                eo, idc = out["eo"], out["idc"]
+            else:
+                q, r = self._problem_args(planes, qa, ra, lo, hi)
+                out = fn(q, ql, r, rl, *rest, **kw)
+                scalars = list(self._down(torch.stack([out[k]
+                                                       for k in keys])))
+                eo = self._down(out["eo"], plane=True)
+                idc = self._down(out["idc"], plane=True)
+            parts.append((np.arange(lo, hi), FMT_EOIDC, eo, idc,
+                          eo.shape[1] * eo.shape[2], eo.shape[2],
+                          *(np.ascontiguousarray(a, np.int32)
+                            for a in scalars)))
+        self._acc(device_s=time.time() - t0)
+        return parts
+
     def _run_gap_bucket(self, qa, qlens, ra, rlens, lbws, rbws, qg=None,
                         rg=None, dev_gather=None):
         """Returns result parts [(local_idx, fmt, plane, idc, plane_stride,
         row_stride, score)]: FMT_RLE items, or packed planes
         [m, QL+1, row_stride], band-relative (FMT_PACKED_BAND) or
-        full-width (FMT_PACKED).  `dev_gather(m, pack)` assembles the (q, r)
-        planes on the device (qa/ra are None then)."""
+        full-width (FMT_PACKED); FMT_EOIDC planes [m, QL+1, RL+1] for the
+        "torch" and "native" backends.  `dev_gather(m, pack)` assembles the
+        (q, r) planes on the device (qa/ra are None then)."""
         n = len(qlens)
         if qg is None:
             qg, rg = qa.shape[1], ra.shape[1]
+        if self.backend != "cuda":
+            return self._eoidc_parts(
+                {"native": host.anchored_forward,
+                 "torch": sw_batch.batched_anchored_forward}, self.gap_kw,
+                [qlens, rlens, lbws, rbws],
+                5 * (qg + 1) * (rg + 1) + qg + rg + 16,
+                self._planes(dev_gather, n), qa, ra, ["score"])
         wband, banded = gap_dispatch(lbws, rbws, rg)
         self._acc(**{("gap_banded" if banded else "gap_full"
                       if rg <= MAX_WBAND else "gap_fallback"): n})
@@ -325,11 +393,19 @@ class StagedAligner:
         row_stride, maxi, maxj, score)]: FMT_RLE items, or FMT_PACKED
         planes [m, rows, W] trimmed to pow2 row tiers of maxi + 1 (the
         backtrack walks down from (maxi, maxj)), gathered and sliced on the
-        device before one transfer."""
+        device before one transfer; FMT_EOIDC planes [m, QL+1, W] for the
+        "torch" and "native" backends."""
         n = len(qlens)
         if qg is None:
             qg, rg = qa.shape[1], ra.shape[1]
         w = 4 * self.aa.band_width + 1
+        if self.backend != "cuda":
+            return self._eoidc_parts(
+                {"native": host.extension_forward,
+                 "torch": sw_batch.batched_extension_forward}, self.ext_kw,
+                [qlens, rlens], 5 * (qg + 1) * w + qg + rg + 8,
+                self._planes(dev_gather, n), qa, ra,
+                ["maxi", "maxj", "score"])
         cap = _pow2(2 * qg + w + 2, 32)
         per = ((qg + 1) * w + 12 * (w + 2) + qg + rg + 8 +
                (4 * cap if self.rle else 0))

@@ -11,9 +11,12 @@ build raises: nothing falls back to another library or to Python code.
 
 Counterpart of yaha_tpu/native/host.py, trimmed to what the port calls:
 the loader, the query parser, the per-read native engine
-(align_batch_native, the engine the port is held to), compression and the
-index build, and the signatures of the staged yt_batch_* entries
-(yaha_tpu/models/staged.py _sig).
+(align_batch_native, the engine the port is held to, and --engine
+native), compression and the index build, the signatures of the staged
+yt_batch_* entries (yaha_tpu/models/staged.py _sig), and the batched host
+DPs: extension_forward and anchored_forward (the eo/idc planes of
+ops/sw_batch.py, run by StagedAligner(backend="native")) and chain_dp
+(the fragment-chain DP that ops/chain.py is held to).
 """
 from __future__ import annotations
 
@@ -136,6 +139,18 @@ def _declare(lib):
     lib.yt_batch_query_stats.argtypes = [ct.c_void_p, _i64p, _i64p, _i64p,
                                          _i64p]
     lib.yt_batch_free.argtypes = [ct.c_void_p]
+    # The batched host DPs (yaha_host.cpp).
+    lib.yt_extension_forward.argtypes = [
+        _u8p, _i32p, _u8p, _i32p, ct.c_int64, ct.c_int64, ct.c_int64] + \
+        [ct.c_int] * 8 + [ct.POINTER(ct.c_int8), _i32p, _i32p, _i32p,
+                          _i32p]
+    lib.yt_anchored_forward.argtypes = [
+        _u8p, _i32p, _u8p, _i32p, _i32p, _i32p, ct.c_int64, ct.c_int64,
+        ct.c_int64] + [ct.c_int] * 6 + [ct.POINTER(ct.c_int8), _i32p,
+                                        _i32p]
+    lib.yt_chain_dp.restype = ct.c_int64
+    lib.yt_chain_dp.argtypes = [ct.c_int64] + [_i64p] * 4 + \
+        [ct.c_int64] * 5 + [_i64p] * 4
 
 
 def _load():
@@ -294,3 +309,81 @@ def build_index(genome, word_len, skip_dist, max_hits, n_threads=4):
     finally:
         lib.yt_free(so_p)
         lib.yt_free(roa_p)
+
+
+def _ptr(a, t):
+    return a.ctypes.data_as(ct.POINTER(t))
+
+
+def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
+                      max_gap, max_intron, x_cutoff):
+    """Batched extension forward on the host (yt_extension_forward); the
+    contract of ops/sw_batch.batched_extension_forward on numpy arrays:
+    q [N, QL], r [N, RL] u8 (RL >= QL + 4*band_width), qlens/rlens [N].
+    Returns score/maxi/maxj [N] int32, eo [N, QL+1, W] int8 and idc [N,
+    QL+1, W] int32, W = 4*band_width + 1."""
+    lib = _load()
+    n, qlmax = q.shape
+    w = 4 * band_width + 1
+    q = np.ascontiguousarray(q, np.uint8)
+    r = np.ascontiguousarray(r, np.uint8)
+    qlens32 = np.ascontiguousarray(qlens, np.int32)
+    rlens32 = np.ascontiguousarray(rlens, np.int32)
+    eo = np.zeros((n, qlmax + 1, w), np.int8)
+    idc = np.zeros((n, qlmax + 1, w), np.int32)
+    score, maxi, maxj = np.zeros((3, n), np.int32)
+    rcode = lib.yt_extension_forward(
+        _ptr(q, ct.c_uint8), _ptr(qlens32, ct.c_int32), _ptr(r, ct.c_uint8),
+        _ptr(rlens32, ct.c_int32), n, qlmax, r.shape[1], band_width, go, ge,
+        rc, ms, max_gap, max_intron, x_cutoff, _ptr(eo, ct.c_int8),
+        _ptr(idc, ct.c_int32), _ptr(score, ct.c_int32),
+        _ptr(maxi, ct.c_int32), _ptr(maxj, ct.c_int32))
+    if rcode != 0:
+        raise RuntimeError("yt_extension_forward failed (%d)" % rcode)
+    return {"score": score, "maxi": maxi, "maxj": maxj, "eo": eo,
+            "idc": idc}
+
+
+def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
+                     ms, max_gap, max_intron):
+    """Batched anchored (gap-fill) forward on the host
+    (yt_anchored_forward); the contract of
+    ops/sw_batch.batched_anchored_forward on numpy arrays.  Returns score
+    [N] int32, eo [N, QL+1, RL+1] int8 and idc [N, QL+1, RL+1] int32."""
+    lib = _load()
+    n, qlmax = q.shape
+    rlmax = r.shape[1]
+    q = np.ascontiguousarray(q, np.uint8)
+    r = np.ascontiguousarray(r, np.uint8)
+    lens = [np.ascontiguousarray(a, np.int32)
+            for a in (qlens, rlens, left_bw, right_bw)]
+    eo = np.zeros((n, qlmax + 1, rlmax + 1), np.int8)
+    idc = np.zeros((n, qlmax + 1, rlmax + 1), np.int32)
+    score = np.full(n, -0x7FFFFF00, np.int32)
+    rcode = lib.yt_anchored_forward(
+        _ptr(q, ct.c_uint8), _ptr(lens[0], ct.c_int32), _ptr(r, ct.c_uint8),
+        *(_ptr(a, ct.c_int32) for a in lens[1:]), n, qlmax, rlmax, go, ge,
+        rc, ms, max_gap, max_intron, _ptr(eo, ct.c_int8),
+        _ptr(idc, ct.c_int32), _ptr(score, ct.c_int32))
+    if rcode != 0:
+        raise RuntimeError("yt_anchored_forward failed (%d)" % rcode)
+    return {"score": score, "eo": eo, "idc": idc}
+
+
+def chain_dp(sqo, eqo, diag, length, *, max_gap, max_desert, m_score,
+             go_cost, ge_cost):
+    """Fragment-chain DP (buildBestClumpFromFragmentRange,
+    GraphPath.cpp:161-270) on the host over one node range sorted by
+    (SQO, diag); diag in [0, 2^32), as the native engine keeps it.
+
+    Returns (best_idx, best_score, prev_idx, path_length, path_sqo), the
+    arrays int64 [n]; best_idx is -1 for an empty range."""
+    lib = _load()
+    n = len(sqo)
+    ins = [np.ascontiguousarray(a, np.int64)
+           for a in (sqo, eqo, diag, length)]
+    outs = [np.empty(n, np.int64) for _ in range(4)]
+    best = lib.yt_chain_dp(n, *(a.ctypes.data_as(_i64p) for a in ins),
+                           max_gap, max_desert, m_score, go_cost, ge_cost,
+                           *(a.ctypes.data_as(_i64p) for a in outs))
+    return (int(best),) + tuple(outs)

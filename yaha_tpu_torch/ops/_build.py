@@ -154,4 +154,7 @@ def load():
     lib.yt_expand_sort.restype = ct.c_int
     lib.yt_expand_sort.argtypes = (
         [_vp, _vp, _i64, _i64, _vp, _vp, _i32, _i64] + [_vp] * 7)
+    lib.yt_chain_dp_cuda.restype = ct.c_int
+    lib.yt_chain_dp_cuda.argtypes = [_vp] * 5 + [_i64] * 2 + [_i32] * 5 + \
+        [_vp] * 5
     return lib

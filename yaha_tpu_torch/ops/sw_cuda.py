@@ -56,15 +56,15 @@ from .dp_common import (BT_CD, BT_CF, DP_WORST, OP_DELETE, OP_INSERT,
 I32 = torch.int32
 
 # Kernel launches per wrapper since the last reset_launches(), for the
-# kernels of this module and of gather_dp, decode and seeds: a run can show
-# which kernels its main path went through.  The extension has two kernels,
-# counted apart: "extension_forward" (band state in registers,
-# csrc/ext_kernels.cu) and "extension_forward_wide" (a warp a problem,
-# csrc/ext_wide_kernels.cu).
+# kernels of this module and of gather_dp, decode, seeds and chain: a run
+# can show which kernels its main path went through.  The extension has
+# two kernels, counted apart: "extension_forward" (band state in
+# registers, csrc/ext_kernels.cu) and "extension_forward_wide" (a warp a
+# problem, csrc/ext_wide_kernels.cu).
 _launches = {"extension_forward": 0, "extension_forward_wide": 0,
              "anchored_forward_banded": 0, "anchored_forward": 0,
              "gather_problems": 0, "rle_walk": 0, "seed_hashes": 0,
-             "expand_sort_hits": 0}
+             "expand_sort_hits": 0, "chain_dp": 0}
 
 # Band widths W = 4*band_width + 1 the register kernel is instantiated for
 # (-BW 1 to 8), and the block sizes it takes.

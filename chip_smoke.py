@@ -12,17 +12,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      yaha_tpu_torch/csrc (one nvcc per source, in parallel) into a shared
      library; ptxas's registers, stack frame and spills for every kernel,
      and no spill and no stack frame in any instance of the register
-     extension kernel, the two anchored register kernels, the windowed
-     walk kernel, the gather kernel, either seed kernel or the chain DP
-     kernel (its seven team shapes);
+     extension kernel, the two anchored register kernels and the two
+     anchored wide-route kernels, the windowed walk kernel, the gather
+     kernel, either seed kernel or the chain DP kernel (its seven team
+     shapes);
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size; the wide kernel at W = 1,
      21, 37 and 65, with the int32-wrap scoring, an early X-drop, short
      references and reads with an indel of up to 2*bw bases), the two
      anchored kernels (on warps of each width class 8,
-     16 and 32 and wider ones, whose state is in global scratch; backtrack
-     planes included; both scorings) and the anchored `*_p4` entries
+     16 and 32 and wider ones, whose problems take the wide route, a warp
+     a problem, on planes of up to 1,024 band columns and RL 1,024;
+     backtrack planes included; both scorings) and the anchored `*_p4`
+     entries
      against the unpacked ones, the problem gather
      (from every source alignment, forward and reversed, rows of 75 and
      1,044 bytes, clamped sources) and the backtrack walk
@@ -65,13 +68,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      sets the lanes of a warp), with the plane's zero fill alone; the
      4-bit packed extension entry (unpack + kernel) at the largest 1 kb
      bucket; a histogram of every gap launch of the 1 kb, -BW 9, -BW 16,
-     10 kb and 105 kb runs: (qg, rg, plane width, N), its warps by width class and
-     each class's share of the in-band cells; both anchored kernels at the
-     -BW 16 run's gap buckets (each kernel's largest, and the one whose
-     warps wider than 32 columns hold the most cells) beside their bounds,
-     ns per in-band cell and the share of cells in those warps (a bucket's
-     warps all fall in one class, so the wide warps' cost reads against a
-     K32 bucket's), and the plain version on the first 256 problems;
+     10 kb, 105 kb and medium-indel runs: (qg, rg, plane width, N), its
+     warps by width class and each class's share of the in-band cells;
+     both anchored kernels at the -BW 16 run's gap buckets (each kernel's
+     largest, and the one whose warps wider than 32 columns, the wide
+     route's, hold the most cells) beside their bounds, ns per in-band
+     cell and the share of cells in those warps (a bucket's warps all fall
+     in one class, so the wide warps' cost reads against a K32 bucket's),
+     and the plain version on the first 256 problems; the medium-indel
+     batch: 2,048 reads of 1 kb, each with one insertion or deletion of
+     20-60 bases (half of each, uniform length and place) at 5 %
+     substitutions, through the default configuration (-BW 5), SAM bytes
+     equal to the native engine's, and in each layout (it must send wide
+     warps to both) the bucket whose wide warps hold the most cells timed
+     as the -BW 16 buckets are;
   6. the device seed phase (--seed device): the 1 kb batch with the
      seeder, the full L15 index uploaded to the card (bytes and seconds),
      a cold and a warm run (counts set to 0 just before the warm run and
@@ -99,7 +109,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      counts read; every output equal to the plain version's and, on the
      first 64 ranges of each, to the native chain_dp's; the kernel's time
      beside its bound (int32 operations of the valid pairs, by how far each
-     gets in the relaxation, or bytes) and the plain version's;
+     gets in the relaxation, or bytes: chain_window_ops counts the pairs
+     the kernel's SQO window leaves, and the first kernel's bound, every
+     valid pair's tests by chain_ops, is printed beside it) and the plain
+     version's; each shape's candidate DAG (chain_dag): the steps the
+     first kernel took (a step for every node up to each range's last
+     valid one), the nodes with a candidate successor (the steps the
+     kernel takes now) and the longest path;
   8. --engine batch-torch: StagedAligner(backend="torch") on the first
      2,048 reads of the 1 kb batch, one cold run (the warm one took as
      long), SAM bytes equal to the native engine's, beside the default
@@ -175,14 +191,16 @@ DP_KERNELS = [k for k in KERNELS
               if k not in SEED_KERNELS + CHAIN_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
 NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|anch_reg_kernel|"
-                      r"rle_win_kernel|gather_kernel|seed_hash_kernel|"
-                      r"expand_sort_kernel|chain_dp_kernel")
+                      r"anch_wide_kernel|rle_win_kernel|gather_kernel|"
+                      r"seed_hash_kernel|expand_sort_kernel|"
+                      r"chain_dp_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
 WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
 WIDER_READS = 2048
 PLAIN_SLICE = 2048       # problems of a wide bucket the plain version runs
 BW16_PLAIN = 256         # and of a -BW 16 gap bucket
+MEDIUM_INDEL_READS = 2048  # reads of the medium-indel batch (phase 5)
 TORCH_READS = 2048       # reads of the 1 kb batch through --engine batch-torch
 # The chain DP's shapes (phase 7): (ranges B, nodes N, SQO span): one range
 # of up to 64 nodes a strand row of the 1 kb batch, and 512 long-read
@@ -211,6 +229,10 @@ SORT_CMP_OPS = 2         # one compare of 64-bit keys, in int32 operations
 # compare); past all three, the rest of the relaxation (desert and overlap
 # tests, gaps and overlaps, the new score, its compares and wrap), 32 in all.
 PAIR_STAGE_OPS = (3, 3, 3, 23)
+# Since the kernel's pair tests stop at the SQO window (chain_window_ops),
+# its bound counts the window's pairs: each by its stages as above, plus
+# the window's compare (a subtract, a compare).
+WINDOW_PAIR_OPS = 2
 QUEUE_CYCLES = 20_000_000  # ~10 ms of card clock ahead of a timed window
 
 
@@ -297,6 +319,35 @@ def sample_reads(seqs, n, length, rng, prefix, indels):
     return out
 
 
+def medium_indel_reads(seqs, n, length, rng, prefix):
+    """Reads of `length` bases with 5 % substitutions on either strand,
+    each with one insertion or deletion (alternately) of a uniform 20-60
+    bases at a uniform place: the medium indels of long-read SV data sets,
+    whose gap fills the native pipeline leaves unbanded or bands with
+    len_diff + 2 * BW + 1 columns, so they reach the anchored kernels'
+    wide route at the default -BW 5 (yaha_pipe.cpp:1126)."""
+    out = []
+    for k in range(n):
+        size = int(rng.integers(20, 61))
+        c = int(rng.integers(0, len(seqs)))
+        pos = int(rng.integers(0, len(seqs[c]) - length - size))
+        r = seqs[c][pos:pos + length + size].copy()
+        at = int(rng.integers(0, length))
+        if k % 2:
+            r = np.concatenate([r[:at], r[at + size:]])
+        else:
+            r = np.concatenate([r[:at], _BASES[rng.integers(0, 4, size)],
+                                r[at:]])
+        r = r[:length]
+        m = rng.random(length) < 0.05
+        r[m] = _BASES[rng.integers(0, 4, int(m.sum()))]
+        s = r.tobytes()
+        if rng.random() < 0.5:
+            s = s.translate(_COMP)[::-1]
+        out.append(b">%s%d\n%s\n" % (prefix, k, s))
+    return out
+
+
 def sv_reads(nib, n_max):
     """Split reads over simulated DEL/DUP/INV/INS events
     (tools/make_sv_testdata.py, 1 kb reads)."""
@@ -340,10 +391,11 @@ def phase_build():
     if sorted(widths) != list(sw_cuda.REG_WIDTHS):
         raise AssertionError("phase1: register kernel instances %s, want %s"
                              % (sorted(widths), sw_cuda.REG_WIDTHS))
-    anch = sorted(k for k in report if "anch_reg_kernel" in k)
-    if len(anch) != 2:
-        raise AssertionError("phase1: anchored register kernels %s, want "
-                             "the banded and the full layout" % anch)
+    for kind in ("anch_reg_kernel", "anch_wide_kernel"):
+        anch = sorted(k for k in report if kind in k)
+        if len(anch) != 2:
+            raise AssertionError("phase1: %s instances %s, want the banded "
+                                 "and the full layout" % (kind, anch))
     hashes = [k for k in report if "seed_hash_kernel" in k]
     expands = [k for k in report if "expand_sort_kernel" in k]
     if not (hashes and expands):
@@ -529,7 +581,8 @@ def warp_classes(sw, live):
     """Width class of each warp of 32 consecutive problems, from its lanes'
     live widths (anch_live): "K8", "K16" or "K32", the smallest class
     covering every lane (band state in registers), or "wide" (a lane wider
-    than sw_cuda.ANCH_REG_COLS; state in global scratch)."""
+    than sw_cuda.ANCH_REG_COLS; its problems take the wide route, a warp
+    each)."""
     live = np.asarray(live, np.int64)
     wmax = np.pad(live, (0, -len(live) % 32)).reshape(-1, 32).max(1)
     out = np.full(len(wmax), "wide", dtype=object)
@@ -1737,7 +1790,7 @@ def phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev):
 def phase_gap_histogram(sw, runs):
     """Every gap launch of each run (the Recorder's gap log): (kernel, qg,
     rg, plane width, N), its warps of 32 problems by width class
-    (warp_classes: K8/K16/K32 in registers, "wide" in global scratch) and
+    (warp_classes: K8/K16/K32 in registers, "wide" a warp a problem) and
     each class's share of the launch's in-band cells; then each run's
     shares."""
     for tag, st in runs:
@@ -1772,54 +1825,78 @@ def phase_gap_histogram(sw, runs):
                 100 * total.get("wide", 0) / all_cells))
 
 
+def _anch_rows(sw, st, name):
+    """(key, arrays, live widths, in-band cells, warp classes, cells in
+    wide warps) of every gap bucket a run sent to one anchored kernel."""
+    rows = []
+    for key in [k for k in st.counts if k[0] == name]:
+        arrs = st.buckets[key][1]
+        ql_, rl_, lb, rb = (np.asarray(arrs[k]).astype(np.int64)
+                            for k in (1, 3, 4, 5))
+        if name == "anchored_forward_banded":
+            live = anch_live(lb, rb, rl_, wband=key[3])
+        else:
+            live = anch_live(lb, rb, rl_, rl=key[2])
+        cells = _band_cells_each(ql_, rl_, lb, rb, key[1])
+        classes = warp_classes(sw, live)
+        warp_cells = np.pad(cells, (0, -len(cells) % 32)).reshape(
+            -1, 32).sum(1)
+        rows.append((key, arrs, live, cells, classes,
+                     int(warp_cells[classes == "wide"].sum())))
+    return rows
+
+
 def phase_anch_bw16(torch, sw, st, kernels, errs, dev):
     """Both anchored kernels at the -BW 16 run's gap buckets (the
-    wide-band gap fills, where warps wider than 32 columns run the
-    anchored bodies of csrc/sw_kernels.cu on global scratch): for each
-    kernel its largest bucket and the bucket whose warps wider than 32
-    columns hold the most in-band cells, timed in the main path's order
-    beside the bound, ns per in-band cell and the share of the cells in
-    wide warps (buckets are split by shape, so a bucket's warps fall in
-    one class: the wide warps' cost reads as ns per cell against a K32
-    bucket's); the plain version on the first BW16_PLAIN problems, which
-    the kernel's output must equal.  No kernel changes."""
+    wide-band gap fills, where the warps wider than 32 columns take the
+    wide route, a warp a problem): for each kernel its largest bucket and
+    the bucket whose warps wider than 32 columns hold the most in-band
+    cells, timed in the main path's order beside the bound, ns per in-band
+    cell and the share of the cells in wide warps (buckets are split by
+    shape, so a bucket's warps fall in one class: the wide warps' cost
+    reads as ns per cell against a K32 bucket's); the plain version on the
+    first BW16_PLAIN problems, which the kernel's output must equal."""
     gap_kw = st.gap_kw
     for name in ("anchored_forward_banded", "anchored_forward"):
-        keys = [k for k in st.counts if k[0] == name]
-        if not keys:
+        rows = _anch_rows(sw, st, name)
+        if not rows:
             log("phase5 BW%d %s: the run sent no gap bucket to this kernel"
                 % (WIDER_BW, name))
             continue
-        rows = []
-        for key in keys:
-            arrs = st.buckets[key][1]
-            ql_, rl_, lb, rb = (np.asarray(arrs[k]).astype(np.int64)
-                                for k in (1, 3, 4, 5))
-            if name == "anchored_forward_banded":
-                live = anch_live(lb, rb, rl_, wband=key[3])
-            else:
-                live = anch_live(lb, rb, rl_, rl=key[2])
-            cells = _band_cells_each(ql_, rl_, lb, rb, key[1])
-            classes = warp_classes(sw, live)
-            warp_cells = np.pad(cells, (0, -len(cells) % 32)).reshape(
-                -1, 32).sum(1)
-            rows.append((key, arrs, live, cells, classes,
-                         int(warp_cells[classes == "wide"].sum())))
         largest = max(rows, key=lambda r: st.counts[r[0]])
         widest = max(rows, key=lambda r: r[5])
         timed = []
         for key, arrs, live, cells, classes, wide_cells in (
                 [largest] + ([widest] if widest[5] and widest is not largest
                              else [])):
-            timed.append(_anch_bucket(torch, sw, gap_kw, errs, name, key,
-                                      arrs, live, cells, classes,
-                                      wide_cells, dev))
+            timed.append(_anch_bucket(
+                torch, sw, gap_kw, errs, name, key, arrs, live, cells,
+                classes, wide_cells, dev, "BW%d" % WIDER_BW))
         kernels[name]["bw16"] = timed
 
 
+def phase_medium_indels(torch, sw, st, kernels, errs, dev):
+    """The medium-indel batch's gap buckets: in each layout the bucket
+    whose wide warps hold the most in-band cells, timed and held to the
+    plain version as phase_anch_bw16 does.  The batch must send wide warps
+    to both layouts (it is the wide route's traffic at the default -BW)."""
+    for name in ("anchored_forward_banded", "anchored_forward"):
+        rows = [r for r in _anch_rows(sw, st, name) if r[5]]
+        if not rows:
+            raise AssertionError("phase5 medium indels: no wide warp went "
+                                 "to %s" % name)
+        key, arrs, live, cells, classes, wide_cells = max(
+            rows, key=lambda r: r[5])
+        kernels[name]["medium_indels"] = _anch_bucket(
+            torch, sw, st.gap_kw, errs, name, key, arrs, live, cells,
+            classes, wide_cells, dev, "medium indels")
+
+
 def _anch_bucket(torch, sw, gap_kw, errs, name, key, arrs, live, cells,
-                 classes, wide_cells, dev):
-    """phase_anch_bw16 on one bucket; returns its figures."""
+                 classes, wide_cells, dev, run):
+    """One anchored gap bucket of `run`, timed beside its bound and held to
+    the plain version on its first BW16_PLAIN problems; returns its
+    figures."""
     n = arrs[0].shape[0]
     if name == "anchored_forward_banded":
         kw = dict(gap_kw, wband=key[3])
@@ -1836,7 +1913,7 @@ def _anch_bucket(torch, sw, gap_kw, errs, name, key, arrs, live, cells,
     part = [t[:m].contiguous() for t in base]
     plain_ms, want = _time_once(torch, dev, lambda *a: plain(*a, **kw),
                                 part)
-    tag = "BW%d bucket=%s N=%d" % (WIDER_BW, list(key[1:]), n)
+    tag = "%s bucket=%s N=%d" % (run, list(key[1:]), n)
     compare(torch, errs, "phase5", name, tag + " (first %d)" % m,
             {k: v[:m] for k, v in got.items()}, want)
     total = int(cells.sum())
@@ -1864,7 +1941,10 @@ def phase_chain(torch, sw, kernels, errs, dev):
     to the plain version's on the card and, on the first CHAIN_NATIVE
     ranges, to the native chain_dp's on the ranges' valid nodes; the
     kernel timed on 4 shuffled copies beside its bound (int32 operations
-    of the valid pairs by how far each gets, chain_ops, or bytes)."""
+    of the pairs the SQO window leaves by how far each gets,
+    chain_window_ops, or bytes), the first kernel's bound (every valid
+    pair, chain_ops) printed beside it, and each shape's candidate-DAG
+    counts (chain_dag)."""
     from yaha_tpu_torch.ops import chain
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_dp_cases import CHAIN_KW, chain_case, native_chain
@@ -1910,18 +1990,135 @@ def phase_chain(torch, sw, kernels, errs, dev):
         if stages[0] != int((c * (c - 1) // 2).sum()):
             raise AssertionError("phase7: %d valid pairs counted, %d drawn"
                                  % (stages[0], (c * (c - 1) // 2).sum()))
+        old_steps, active, depth = chain_dag(torch, args, CHAIN_KW)
+        log("phase7 chain_dp %s candidate DAG: the first kernel's steps %d "
+            "(a step for every node up to each range's last valid one), "
+            "nodes with a candidate successor %d (%.2f %% of those steps; "
+            "the kernel's steps now), longest path %d edges (mean of the "
+            "ranges' longest %.3f)"
+            % (tag, old_steps, active, 100 * active / max(1, old_steps),
+               int(depth.max()), float(depth.mean())))
         nbytes = _nbytes(*args) + _nbytes(*got.values())
+        old_ms, old_by = _bound(nbytes, ops)
+        win_ops, win_stages = chain_window_ops(torch, args, CHAIN_KW)
+        log("phase7 chain_dp %s: the first kernel's bound %.6f ms (%s: every "
+            "valid pair tested, %d int32 ops), %.1f %% of it; restated for "
+            "the SQO window (window pairs %d, past the SQO test %d, the "
+            "diagonal gap %d, the SRO test %d; %d int32 ops) below" % (
+                tag, old_ms, old_by, ops, 100 * old_ms / ms, *win_stages,
+                win_ops))
         _record(torch, kernels if k == 0 else None, errs, "phase7",
-                "chain_dp", tag + " (valid pairs %d, past the SQO test %d, "
-                "the diagonal gap %d, the SRO test %d)" % tuple(stages), ms,
-                plain_ms, got, want, nbytes, ops)
+                "chain_dp", tag + " (window pairs %d, past the SQO test %d, "
+                "the diagonal gap %d, the SRO test %d)" % tuple(win_stages),
+                ms, plain_ms, got, want, nbytes, win_ops)
         if k:
-            bound_ms, bound_by = _bound(nbytes, ops)
+            bound_ms, bound_by = _bound(nbytes, win_ops)
             kernels["chain_dp"]["long_ranges"] = {
                 "b": b, "n": n, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "all_pairs_bound_ms": old_ms}
+        else:
+            kernels["chain_dp"]["all_pairs_bound_ms"] = old_ms
         del sets, want, got
     del outs, cases
+
+
+def chain_dag(torch, args, kw):
+    """(steps of the first chain kernel, nodes with a candidate successor,
+    longest path of each range in edges) of the chain DP's candidate DAG
+    on these ranges: pair (i, j) is an edge when i can relax j
+    (chain_pair of csrc/chain_kernels.cu: j > i, both valid, SQO, diagonal
+    gap, SRO, desert, new bases; int32 arithmetic wraps, as the kernel's
+    does); the first kernel took a step for every node up to each range's
+    last valid one.  Longest paths by rounds of depth[j] = max(depth[i] +
+    1) over the edges into j, until none changes; ranges a few at a
+    time."""
+    sqo, eqo, diag, length, valid = args
+    b, n = sqo.shape
+    dev = sqo.device
+    upper = torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
+    lw = ((length + 0x8000) & 0xFFFF) - 0x8000
+    idx = torch.arange(n, device=dev)
+    last = torch.where(valid.bool(), idx, -1).amax(1)
+    old_steps = int(last.clamp(min=0).sum())
+    step = max(1, (1 << 24) // (n * n))
+    active = 0
+    depths = []
+    for b0 in range(0, b, step):
+        s, e, d, l, v = (t[b0:b0 + step] for t in (sqo, eqo, diag, lw,
+                                                   valid.bool()))
+        m = v[:, :, None] & v[:, None, :] & upper        # [range, i, j]
+        m &= s[:, None, :] > s[:, :, None]
+        m &= (d[:, None, :] - d[:, :, None]).abs() <= kw["max_gap"]
+        sro, ero = d + s, d + e
+        m &= sro[:, None, :] > sro[:, :, None]
+        q_gap = (s[:, None, :] - e[:, :, None] - 1).clamp(min=0)
+        r_gap = (sro[:, None, :] - ero[:, :, None] - 1).clamp(min=0)
+        m &= torch.minimum(q_gap, r_gap) <= kw["max_desert"]
+        del q_gap, r_gap
+        q_ov = (e[:, :, None] - s[:, None, :] + 1).clamp(min=0)
+        r_ov = (ero[:, :, None] - sro[:, None, :] + 1).clamp(min=0)
+        m &= l[:, None, :] - torch.maximum(q_ov, r_ov) >= 1
+        del q_ov, r_ov
+        active += int(m.any(2).sum())
+        dep = torch.zeros(s.shape, dtype=torch.int32, device=dev)
+        while True:
+            new = torch.maximum(dep, torch.where(
+                m, dep[:, :, None] + 1, 0).amax(1).to(torch.int32))
+            if torch.equal(new, dep):
+                break
+            dep = new
+        depths.append(dep.amax(1).cpu())
+    return old_steps, active, torch.cat(depths).numpy()
+
+
+def chain_window_ops(torch, args, kw):
+    """(int32 operations, pairs by stage) of the chain DP's pair tests as
+    the SQO window leaves them (csrc/chain_kernels.cu): on a range whose
+    valid nodes allow the window (their SQO never falls from one valid
+    node to the next; sqo, eqo and diag within +-2^28; max_gap and
+    max_desert in [0, 2^28)), the pairs i < j of valid nodes with j up to
+    and including the first valid j past i's window (sqo_j - eqo_i - 1 >
+    max_desert + max_gap), each charged WINDOW_PAIR_OPS plus its stages'
+    PAIR_STAGE_OPS; on any other range every valid pair, as chain_ops.
+    Ranges a few at a time."""
+    sqo, eqo, diag, _, valid = args
+    b, n = sqo.shape
+    dev = sqo.device
+    small = 1 << 28
+    params = 0 <= kw["max_gap"] < small and 0 <= kw["max_desert"] < small
+    lim = kw["max_desert"] + kw["max_gap"]
+    upper = torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
+    step = max(1, (1 << 25) // (n * n))
+    stages = [0, 0, 0, 0]
+    windowed = 0
+    for b0 in range(0, b, step):
+        s, e, d, v = (t[b0:b0 + step] for t in (sqo, eqo, diag,
+                                                 valid.bool()))
+        m = v[:, :, None] & v[:, None, :] & upper        # [range, i, j]
+        lo = torch.iinfo(s.dtype).min
+        prior = torch.where(v, s, lo).cummax(1).values
+        prior = torch.cat([torch.full_like(prior[:, :1], lo),
+                           prior[:, :-1]], 1)
+        ok = ((~v | ((s.abs() < small) & (e.abs() < small) &
+                     (d.abs() < small) & (s >= prior))).all(1) & params)
+        past = m & (s.to(torch.int64)[:, None, :] -
+                    e.to(torch.int64)[:, :, None] - 1 > lim)
+        first = torch.where(past.any(2), past.int().argmax(2),
+                            n).to(torch.int64)                 # [range, i]
+        idx = torch.arange(n, device=dev)
+        m &= ~ok[:, None, None] | (idx[None, None, :] <= first[:, :, None])
+        windowed += int((m & ok[:, None, None]).sum())
+        stages[0] += int(m.sum())
+        m &= s[:, None, :] > s[:, :, None]
+        stages[1] += int(m.sum())
+        m &= (d[:, None, :] - d[:, :, None]).abs() <= kw["max_gap"]
+        stages[2] += int(m.sum())
+        sro = d + s
+        m &= sro[:, None, :] > sro[:, :, None]
+        stages[3] += int(m.sum())
+    ops = sum(k * c for k, c in zip(PAIR_STAGE_OPS, stages))
+    return ops + WINDOW_PAIR_OPS * windowed, stages
 
 
 def chain_ops(torch, args, max_gap):
@@ -2259,6 +2456,15 @@ def main():
                long_read_105k(rng), threads, "phase4 105kb", dev)[0]
     phase_cli(tg_nib, tg_idx)
     phase_done("phase4 seconds")
+    # The medium-indel batch: the anchored wide route at the default -BW 5
+    # (its own generator, so that every other read set stays as it was).
+    mid_reads = medium_indel_reads(seqs, MEDIUM_INDEL_READS, 1000,
+                                   np.random.default_rng(SEED + 10),
+                                   b"midindel")
+    st_mid = phase_main(torch, sw, host, Recorder, genome, index, aa,
+                        mid_reads, threads, "phase5 1kb medium indels",
+                        dev)[0]
+    phase_done("phase5 medium indels run seconds")
     # The device seed phase: its counts are set to 0 just before its warm
     # run and read just after it.
     seeder, seed_launches = phase_seed(
@@ -2272,13 +2478,15 @@ def main():
     phase_done("phase6 runs seconds")
     phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev)
     phase_anch_bw16(torch, sw, st_wider, kernels, errs, dev)
+    phase_medium_indels(torch, sw, st_mid, kernels, errs, dev)
     phase_done("phase5 seconds")
     phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev)
     phase_done("phase6 kernels seconds")
     phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
                              ("1kb BW%d" % WIDER_BW, st_wider),
-                             ("10kb", st10), ("105kb", st105)])
-    del st, st_wide, st_wider, st10, st105, wide_runs, seeder
+                             ("10kb", st10), ("105kb", st105),
+                             ("1kb medium indels", st_mid)])
+    del st, st_wide, st_wider, st10, st105, st_mid, wide_runs, seeder
     phase_done("phase5 histogram seconds")
     # The chain DP's own path (no engine runs it): its counts are set to 0
     # just before it and read just after.

@@ -45,9 +45,19 @@ an indel of up to 2*bw bases (indel_extension_inputs);
     the wrapped run at a tier's last slots, unsigned-order and sentinel
     edges, 650-hit runs across C in rows of three batches, row totals
     around every sort size); every output prefilled with garbage;
+  * the anchored gap fill of csrc/anch_kernels.cu: the register bodies
+    (AnchBand<K>, AnchFull<K>) in every width class and the wide route
+    (AnchWideProblem, AnchWideLane, AnchWideSched and the shared copies of
+    wavefront.cuh) over an emulated 32-lane warp (anch_wide), alone, for
+    the problems wider than 32 columns and routed by warps of 32 as the
+    kernels route them, held to the plain versions on planes prefilled
+    with garbage (tests/test_torch_anch_wide.py holds the wide route at
+    more widths, and to the Pallas kernels);
   * the chain DP of csrc/chain_kernels.cu (ChainLane<K> and chain_merge
-    over the threads of a team, run_chain), held to
-    chain.batched_chain_dp_ref.
+    over the threads of a team, run_chain: the pair tests with and
+    without the SQO window, then a step at each node with a candidate
+    successor), held to chain.batched_chain_dp_ref (and in
+    tests/test_torch_chain.py to chain_jax and the native chain_dp).
 
 The plain versions are held to the JAX package in test_torch_decode.py,
 test_torch_gather.py, test_torch_seeds.py and test_torch_chain.py.  The test skips only where
@@ -80,7 +90,6 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "yaha_tpu_torch", "csrc")
 
 C_LOOP = r"""
-#include "sw_kernels.cu"
 #include "ext_kernels.cu"
 #include "ext_wide_kernels.cu"
 #include "decode_kernels.cu"
@@ -94,19 +103,94 @@ C_LOOP = r"""
 #include <algorithm>
 #include <vector>
 
-// Anchored gap fill, banded (full = 0) or full width.  tier 0: the scratch
-// body of every problem over scratch [3][cols][N] (the plane zero-filled by
-// the caller); tier 1: each problem in the smallest register class covering
-// it, raised to kmin, every row at least in `mode`, and problems wider than
-// 32 columns through the scratch body after zeroing their plane, as a wide
-// warp runs them.
+// anch_wide_kernel's warp on problem p, emulated: the stages zeroed and
+// the rest of the warp's shared memory garbage, as on the card; at each
+// step lane 0 reads the shared row, the 32 lanes take their step in turn,
+// lane 31 writes the shared row, and each lane's output goes to the next
+// lane for the next step (the shuffle; lane 0 gets its own); every copy
+// runs as 32 lane shares; the score from the first lane that computed it
+// (the ballot).
+template <bool kF>
+static void anch_wide(int64_t p, const ytsw::AnchArgs& a, int8_t* bt,
+                      int32_t* score) {
+    using namespace ytsw;
+    const int lanes = kWideLanes;
+    AnchWideProblem<kF> P;
+    P.init(p, a);
+    const int64_t w = P.w;
+    std::vector<uint32_t> mem(wide_warp_bytes(w) / 4, 0x5A5A5A5Au);
+    uint8_t* wsm = (uint8_t*)mem.data();
+    Band3* row = (Band3*)wsm;
+    uint8_t* stage = wsm + wide_row_bytes(w);
+    const int64_t sb = wide_stage_bytes(w);
+    uint8_t* codes = stage + 2 * sb;
+    const int64_t cb = wide_code_bytes(w);
+    uint8_t* plane = (uint8_t*)bt + p * (a.ql + 1) * w;
+    for (int k = 0; k < lanes; k++) {
+        anch_zero(stage, (int32_t)(2 * sb), k, lanes);
+        for (int32_t c = k; c <= P.ncols; c += lanes) row[c] = P.row0(c);
+        copy_share(k, plane, w, AnchFillSrc{0, P.w, P.base, P.hi0});
+    }
+    std::vector<AnchWideLane<kF>> L(lanes);
+    for (int k = 0; k < lanes; k++) L[k].init(k);
+    if (P.last >= 1) {
+        std::vector<Band3> out(lanes);
+        for (int k = 0; k < lanes; k++) {
+            P.stage_codes(k, 0, codes);
+            P.stage_codes(k, 1, codes + cb);
+        }
+        AnchWideSched S;
+        S.init(P);
+        for (int32_t t = 0;; t++) {
+            L[0].take_row(row, P);
+            for (int k = 0; k < lanes; k++) {
+                const int par = ((L[k].i - 1) / lanes) & 1;
+                out[k] = L[k].step(P, codes + par * cb,
+                                   stage + par * sb + k * w);
+            }
+            if (L[lanes - 1].j >= 0 && L[lanes - 1].j < P.ncols)
+                row[L[lanes - 1].j] = out[lanes - 1];
+            for (int k = 0; k < lanes; k++)
+                L[k].advance(out[k > 0 ? k - 1 : 0], P);
+            if (t != S.copy_at) continue;
+            for (int k = 0; k < lanes; k++)
+                copy_share(k, plane + ((int64_t)S.strip * lanes + 1) * w,
+                           (int64_t)S.rows * w,
+                           StageSrc{stage + (S.strip & 1) * sb});
+            if (S.last()) break;
+            if (S.strip + 2 <= S.last_strip)
+                for (int k = 0; k < lanes; k++)
+                    P.stage_codes(k, S.strip + 2,
+                                  codes + (S.strip & 1) * cb);
+            S.next(P);
+        }
+    }
+    const int64_t x0 = ((int64_t)(P.last > 0 ? P.last : 0) + 1) * w;
+    for (int k = 0; k < lanes; k++)
+        copy_share(k, plane + x0, (a.ql + 1) * w - x0,
+                   AnchFillSrc{x0, P.w, P.base, P.hi0});
+    score[p] = DP_WORST;
+    for (int k = 0; k < lanes; k++)
+        if (L[k].got) {
+            score[p] = L[k].sc;
+            break;
+        }
+}
+
+// Anchored gap fill, banded (full = 0) or full width, on planes and scores
+// prefilled with garbage.  tier 0: every problem through the wide route;
+// tier 1: each problem in the smallest register class covering it, raised
+// to kmin, every row at least in `mode`, and the problems wider than 32
+// columns through the wide route; tier 2: the problems routed by warps of
+// 32, as the kernels route them (a warp's register class is its widest
+// lane's, every row in `mode`; a warp with a lane wider than 32 columns
+// through the wide route).
 extern "C" int run_anch(int full, int tier, int kmin, int mode,
                         const uint8_t* q, const uint8_t* r,
                         const int32_t* qlens, const int32_t* rlens,
                         const int32_t* lbws, const int32_t* rbws, int64_t n,
                         int64_t ql, int64_t rl, int32_t wband,
-                        const int32_t* kw, int8_t* bt, int32_t* score,
-                        int32_t* scratch) {
+                        const int32_t* kw, int8_t* bt, int32_t* score) {
     ytsw::Scoring s;
     s.go = kw[0];
     s.ge = kw[1];
@@ -117,39 +201,41 @@ extern "C" int run_anch(int full, int tier, int kmin, int mode,
     const ytsw::AnchArgs a = {q, r, qlens, rlens, lbws, rbws, ql, rl,
                               wband, s};
     const int64_t w = full ? rl + 1 : wband;
+    auto live_of = [&](int64_t p) {
+        return full ? ytsw::full_live(rlens[p], rl)
+                    : ytsw::band_live(lbws[p], rbws[p], wband);
+    };
     for (int64_t p = 0; p < n; p++) {
-        if (tier > 0) {
-            const int32_t live = full ? ytsw::full_live(rlens[p], rl)
-                                      : ytsw::band_live(lbws[p], rbws[p],
-                                                        wband);
-            int k = ytsw::anch_class(live);
+        int k = 0;
+        if (tier == 1) {
+            k = ytsw::anch_class(live_of(p));
             if (k && k < kmin) k = kmin;
-            bool ok = true;
-            switch (k) {
-#define YT_K(kk)                                                           \
-            case kk:                                                       \
-                ok = full ? ytsw::anch_reg_problem<ytsw::AnchFull<kk>>(    \
-                                p, a, w, mode, bt, score)                  \
-                          : ytsw::anch_reg_problem<ytsw::AnchBand<kk>>(    \
-                                p, a, w, mode, bt, score);                 \
-                break;
-            YT_K(8)
-            YT_K(16)
-            YT_K(32)
-#undef YT_K
-            default:
-                memset(bt + p * (ql + 1) * w, 0, (ql + 1) * w);
-            }
-            if (!ok) return 1;
-            if (k) continue;
+        } else if (tier == 2) {
+            int32_t wmax = 0;
+            for (int64_t g = p & ~(int64_t)31; g < n && g < (p | 31) + 1; g++)
+                wmax = std::max(wmax, live_of(g));
+            k = ytsw::anch_class(wmax);
         }
-        if (full)
-            ytsw::anch_full_problem(p, n, q, ql, r, rl, qlens, rlens, lbws,
-                                    rbws, s, bt, score, scratch);
-        else
-            ytsw::anch_banded_problem(p, n, q, ql, r, rl, qlens, rlens,
-                                      lbws, rbws, wband, s, bt, score,
-                                      scratch);
+        bool ok = true;
+        switch (k) {
+#define YT_K(kk)                                                           \
+        case kk:                                                           \
+            ok = full ? ytsw::anch_reg_problem<ytsw::AnchFull<kk>>(        \
+                            p, a, w, mode, bt, score)                      \
+                      : ytsw::anch_reg_problem<ytsw::AnchBand<kk>>(        \
+                            p, a, w, mode, bt, score);                     \
+            break;
+        YT_K(8)
+        YT_K(16)
+        YT_K(32)
+#undef YT_K
+        default:
+            if (full)
+                anch_wide<true>(p, a, bt, score);
+            else
+                anch_wide<false>(p, a, bt, score);
+        }
+        if (!ok) return 1;
     }
     return 0;
 }
@@ -464,45 +550,73 @@ extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
 
 // The chain DP by teams of T threads with K nodes a thread (K * T >= n;
 // T = 0 takes the kernel's team for n, chain_team): the threads' bodies
-// in a C loop in place of each step's barrier, the node records in two
-// slots prefilled with garbage, the merge as the kernel's shuffles
-// (lane l takes lane l + off's best; the top lanes their own) within
-// warps of 32 and then over the warps' bests.
+// in a C loop in place of each barrier (load, the pair tests, then a step
+// at each set bit), the team's shared memory and the node records in two
+// slots prefilled with garbage, the merge as the kernel's shuffles (lane
+// l takes lane l + off's best; the top lanes their own) within warps of 32
+// and then over the warps' bests; returns 1 for a team's shared memory
+// that is not 16-byte aligned.  steps[range]: the steps taken;
+// windows[range]: 1 where the pair tests took the SQO window.
 template <int K>
-static void chain_teams(int T, const int32_t* sqo, const int32_t* eqo,
-                        const int32_t* diag, const int32_t* len,
-                        const uint8_t* valid, int64_t b, int32_t n,
-                        const ytsw::ChainParams& p, int32_t* best,
-                        int32_t* best_score, int32_t* prev,
-                        int32_t* path_sqo) {
+static int chain_teams(int T, const int32_t* sqo, const int32_t* eqo,
+                       const int32_t* diag, const int32_t* len,
+                       const uint8_t* valid, int64_t b, int32_t n,
+                       const ytsw::ChainParams& p, int32_t* best,
+                       int32_t* best_score, int32_t* prev,
+                       int32_t* path_sqo, int32_t* steps,
+                       int32_t* windows) {
     using namespace ytsw;
     std::vector<ChainLane<K>> lanes(T);
     const int warps = (T + 31) / 32;
     std::vector<ChainBest> v(32 * warps), nv(32 * warps);
+    // Four teams' shared memory back to back, as a block of four warps
+    // has it: range pb takes the (pb % 4)-th, which must stay 16-byte
+    // aligned.
+    const int64_t tb = chain_team_bytes(n);
+    std::vector<ChainStatic> mem((4 * tb + 15) / 16);
     for (int64_t pb = 0; pb < b; pb++) {
         const int64_t base = pb * n;
-        int32_t last = -1;
-        for (int t = 0; t < T; t++) {
+        uint8_t* team = (uint8_t*)mem.data() + (pb % 4) * tb;
+        if ((uintptr_t)team & 15) return 1;
+        memset(team, 0x5A, tb);
+        ChainStatic* st = (ChainStatic*)team;
+        int32_t* jend = (int32_t*)(team + 16 * (int64_t)n);
+        uint32_t* bits = (uint32_t*)(team + 20 * (int64_t)n);
+        for (int32_t x = 0; x < (n + 31) / 32; x++) bits[x] = 0;
+        for (int t = 0; t < T; t++)
             lanes[t].load(sqo + base, eqo + base, diag + base, len + base,
-                          valid + base, n, t, T, p);
+                          valid + base, n, t, T, p, st);
+        int32_t last = -1;
+        for (int t = 0; t < T; t++)
             last = std::max(last, lanes[t].last_valid(t, T));
-        }
-        ChainNode rec[2];
+        bool windowed = chain_window_params(p);
+        for (int t = 0; t < T; t++)
+            windowed = lanes[t].window_ok(st, t, T) && windowed;
+        for (int t = 0; t < T; t++)
+            lanes[t].mark(st, jend, bits, last, windowed, t, T, p);
+        ChainState rec[2];
         memset(rec, 0x5A, sizeof rec);
-        for (int t = 0; t < T; t++) lanes[t].publish(0, t, T, &rec[0]);
-        for (int32_t i = 0; i < last; i++) {
-            const ChainNode ni = rec[i & 1];
+        int32_t i = chain_next_bit(bits, 0, n);
+        if (i < n)
+            for (int t = 0; t < T; t++) lanes[t].publish(i, t, T, &rec[0]);
+        steps[pb] = 0;
+        for (int slot = 0; i < n; slot ^= 1) {
+            const ChainState si = rec[slot];
             for (int t = 0; t < T; t++)
-                if (ni.valid)
-                    lanes[t].relax(ni, i, t, T, eqo + base, diag + base, p);
-            for (int t = 0; t < T; t++)
-                lanes[t].publish(i + 1, t, T, &rec[(i + 1) & 1]);
+                lanes[t].relax(st, i, jend[i], si, t, T, p);
+            const int32_t nx = chain_next_bit(bits, i + 1, n);
+            if (nx < n)
+                for (int t = 0; t < T; t++)
+                    lanes[t].publish(nx, t, T, &rec[slot ^ 1]);
+            steps[pb]++;
+            i = nx;
         }
+        windows[pb] = windowed;
         for (int t = 0; t < T; t++)
             lanes[t].store(prev + base, path_sqo + base, n, t, T);
         const ChainBest none = {-1, 0, 0, 0};
         for (int l = 0; l < 32 * warps; l++)
-            v[l] = l < T ? lanes[l].fold(l, T) : none;
+            v[l] = l < T ? lanes[l].fold(st, l, T) : none;
         for (int rnd = 0; rnd < 2; rnd++) {
             const int nw = rnd ? 1 : warps;
             if (rnd)
@@ -519,6 +633,7 @@ static void chain_teams(int T, const int32_t* sqo, const int32_t* eqo,
         best[pb] = v[0].idx;
         best_score[pb] = v[0].idx < 0 ? CHAIN_NO_SCORE : v[0].score;
     }
+    return 0;
 }
 
 extern "C" int run_chain(int K, int T, const int32_t* sqo,
@@ -526,16 +641,17 @@ extern "C" int run_chain(int K, int T, const int32_t* sqo,
                          const int32_t* len, const uint8_t* valid,
                          int64_t b, int32_t n, const int32_t* kw,
                          int32_t* best, int32_t* best_score, int32_t* prev,
-                         int32_t* path_sqo) {
+                         int32_t* path_sqo, int32_t* steps,
+                         int32_t* windows) {
     const ytsw::ChainParams p = {kw[0], kw[1], kw[2], kw[3], kw[4]};
     if (T == 0) ytsw::chain_team(n, &K, &T);
     if (T == 0 || (int64_t)K * T < n) return 1;
     switch (K) {
 #define YT_K(kk)                                                         \
     case kk:                                                             \
-        chain_teams<kk>(T, sqo, eqo, diag, len, valid, b, n, p, best,   \
-                        best_score, prev, path_sqo);                    \
-        return 0;
+        return chain_teams<kk>(T, sqo, eqo, diag, len, valid, b, n, p,  \
+                               best, best_score, prev, path_sqo, steps, \
+                               windows);
     YT_K(1)
     YT_K(2)
     YT_K(4)
@@ -586,7 +702,7 @@ def lib(tmp_path_factory):
     out.run_anch.restype = ct.c_int
     out.run_anch.argtypes = ([ct.c_int] * 4 + [ct.c_void_p] * 6 +
                              [ct.c_int64] * 3 + [ct.c_int32] +
-                             [ct.c_void_p] * 4)
+                             [ct.c_void_p] * 3)
     out.run_walk.restype = ct.c_int
     out.run_walk.argtypes = ([ct.c_int, ct.c_int64, ct.c_int, ct.c_void_p] +
                              [ct.c_int64] * 3 + [ct.c_void_p] * 3 +
@@ -602,7 +718,7 @@ def lib(tmp_path_factory):
                                     ct.c_void_p]
     out.run_chain.restype = ct.c_int
     out.run_chain.argtypes = ([ct.c_int] * 2 + [ct.c_void_p] * 5 +
-                              [ct.c_int64, ct.c_int32] + [ct.c_void_p] * 5)
+                              [ct.c_int64, ct.c_int32] + [ct.c_void_p] * 7)
     out.run_expand_sort.restype = None
     out.run_expand_sort.argtypes = ([ct.c_void_p] * 2 + [ct.c_int64] * 2 +
                                     [ct.c_void_p] * 2 +
@@ -708,33 +824,32 @@ def test_ptxas_report_reads_registers_and_spills():
 
 # ---- the anchored gap fill ----
 
-# (tier, kmin, mode) of run_anch: the scratch body alone; each problem in
-# its own register class (wide ones through the scratch body), raised to 16
+# (tier, kmin, mode) of run_anch: the wide route alone; each problem in
+# its own register class (wide ones through the wide route), raised to 16
 # and to 32 as in a warp with a wider lane; every row with at least the
-# right-edge predicates, or both edges.
+# right-edge predicates, or both edges; warps of 32 routed as the kernels
+# route them.
 ANCH_ROUTES = [(0, 0, 0), (1, 8, 0), (1, 16, 0), (1, 32, 0), (1, 8, 1),
-               (1, 16, 2), (1, 32, 2)]
+               (1, 16, 2), (1, 32, 2), (2, 0, 2)]
 UNWRITTEN_BT = 0x5A
 
 
 def _anch_body(lib, full, route, args, wband, kw):
+    """run_anch on planes and scores prefilled with garbage: every route
+    must write every byte."""
     q, qlens, r, rlens, lbw, rbw = (
         np.ascontiguousarray(a.astype(np.uint8 if k in (0, 2) else np.int32))
         for k, a in enumerate(args))
     n, ql = q.shape
     rl = r.shape[1]
-    w, cols = (rl + 1, rl + 2) if full else (wband, wband + 1)
-    # The scratch body writes only the bytes that are not 0; the register
-    # bodies write the whole plane.
-    bt = np.full((n, ql + 1, w), 0 if route[0] == 0 else UNWRITTEN_BT,
-                 np.int8)
+    w = rl + 1 if full else wband
+    bt = np.full((n, ql + 1, w), UNWRITTEN_BT, np.int8)
     score = np.full(n, UNWRITTEN, np.int32)
-    scratch = np.zeros((3, cols, n), np.int32)
     params = np.array([kw[k] for k in ("go", "ge", "rc", "ms", "max_gap",
                                        "max_intron")], np.int32)
     rc = lib.run_anch(int(full), *route, *(a.ctypes.data for a in (
         q, r, qlens, rlens, lbw, rbw)), n, ql, rl, wband, params.ctypes.data,
-        bt.ctypes.data, score.ctypes.data, scratch.ctypes.data)
+        bt.ctypes.data, score.ctypes.data)
     assert rc == 0
     return {"score": score, "bt": bt}
 
@@ -781,9 +896,10 @@ def _anch_inputs(case):
 def test_anchored_bodies_match_plain(lib, full, case):
     """The register bodies (AnchBand<K>, AnchFull<K> of
     csrc/anch_kernels.cu) in every class, as a lone problem and with every
-    row predicated, the wide problems through the scratch body, and the
-    scratch bodies alone; the planes start as garbage for the register
-    routes, which must write every byte."""
+    row predicated, the wide problems through the wide route (an emulated
+    warp a problem), the wide route alone and the kernels' routing by
+    warps; the planes start as garbage, and every route must write every
+    byte."""
     args, kw = _anch_inputs(case)
     classes = _anch_check(lib, args, kw, full)
     assert classes == {8, 16, 32, 0} if case == "edges" else \
@@ -818,9 +934,9 @@ def test_anchored_bodies_plane_as_wide_as_class(lib, full, k):
     ("I260_full", {16})])
 def test_anchored_bodies_long_runs(lib, case, classes):
     """One gap run of 40 or 260 bases: a deletion at wband 512 and at full
-    width and a 40-base insertion at wband 64 go to the wide routes (and
-    the scratch body), a 260-base insertion at full width (16 reference
-    columns) to the register class 16 for 276 rows."""
+    width and a 40-base insertion at wband 64 go to the wide route, a
+    260-base insertion at full width (16 reference columns) to the
+    register class 16 for 276 rows."""
     length = int(case[1:4].rstrip("_"))
     args = long_run_inputs(case[0], length)
     kw = dict(KW, max_gap=length + 40, max_intron=length + 40)
@@ -1118,14 +1234,16 @@ def _chain_inputs(case):
                                   "n=3000", "ties0", "ties1", "n1",
                                   "invalid_row", "int16_wrap"])
 def test_chain_bodies_match_plain(lib, case, team):
-    """ChainLane's load / relax / publish / fold / store and chain_merge,
-    over the threads of a team in a C loop (the kernel's team for N, and
-    teams of other shapes), held to chain.batched_chain_dp_ref: the
-    ranges of tests/test_chain_jax.py (seeds 0-2), ranges of up to 300 and
-    3,000 nodes (teams of 256 and 512 threads), ranges dense in equal
-    scores (every level of the tie cascade and full ties in
-    the fold), one-node ranges, a range with no valid node and lengths
-    whose scores wrap int16; every output prefilled with garbage."""
+    """ChainLane's load / window_ok / mark / relax / publish / fold /
+    store and chain_merge, over the threads of a team in a C loop (the
+    kernel's team for N, and teams of other shapes; four teams' shared
+    memory back to back, each 16-byte aligned), held to
+    chain.batched_chain_dp_ref: the ranges of tests/test_chain_jax.py
+    (seeds 0-2), ranges of up to 300 and 3,000 nodes (teams of 256 and 512
+    threads), ranges dense in equal scores (every level of the tie cascade
+    and full ties in the fold), one-node ranges, a range with no valid
+    node and lengths whose scores wrap int16; every output and the shared
+    memory prefilled with garbage."""
     args, kw = _chain_inputs(case)
     b, n = args[0].shape
     k, t = team
@@ -1135,14 +1253,15 @@ def test_chain_bodies_match_plain(lib, case, team):
                                  np.int32) for a in args]
     out = {key: np.full(shape, UNWRITTEN, np.int32) for key, shape in (
         ("best", b), ("best_score", b), ("prev", (b, n)),
-        ("path_sqo", (b, n)))}
+        ("path_sqo", (b, n)), ("steps", b), ("windows", b))}
     params = np.array([kw[key] for key in ("max_gap", "max_desert",
                                            "m_score", "go_cost", "ge_cost")],
                       np.int32)
     assert lib.run_chain(k, t, *(a.ctypes.data for a in arrs), b, n,
                          params.ctypes.data, *(out[key].ctypes.data for key
                                                in ("best", "best_score",
-                                                   "prev", "path_sqo"))) == 0
+                                                   "prev", "path_sqo",
+                                                   "steps", "windows"))) == 0
     want = chain.batched_chain_dp_ref(
         *(torch.from_numpy(a) for a in args), **kw)
     for key, w in want.items():

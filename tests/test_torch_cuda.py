@@ -3,7 +3,9 @@
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
 (both extension kernels, at each block size of the register one, the wide
 one also at W = 1, 37 and 65 with indel inputs; both
-anchored kernels, on warps of every width class and wider ones) are held
+anchored kernels, on warps of every width class and wider ones, whose
+problems take the wide route, at live widths 33 to 600, on planes up to
+1,025 columns and on the medium-indel gap fills) are held
 to their plain PyTorch versions on the card, on the inputs with
 which tests/test_torch_sw.py, test_torch_gather.py and test_torch_decode.py
 hold the plain versions to the JAX package: every output equal, whole
@@ -18,7 +20,8 @@ and on hash rows whose 16-window runs cross row ends, at two alignments
 (tests/test_torch_seeds.py holds the plain versions to the JAX
 package).  The chain DP kernel is held to its plain version on the ranges
 of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
-ranges and at every team shape (N = 20 to 3,000 nodes).  The lockstep
+ranges, at every team shape (N = 20 to 4,096 nodes) and on ranges whose
+candidate DAG is one path through every node.  The lockstep
 twins of ops/sw_batch.py on the card are held to the same functions on
 the CPU, array for array.  The engine is held to the
 native C++ engine, SAM bytes equal, in its default configuration (device
@@ -44,13 +47,14 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             KW_WRAP, SEED_CASES, WIDE_SWEEP, WIDE_SWEEP_IDS,
                             anchored_edge_inputs,
                             anchored_inputs,
-                            anchored_sweep_inputs, chain_case,
-                            chain_edge_case, chain_tie_case,
+                            anchored_sweep_inputs, anchored_wide_inputs,
+                            chain_case, chain_edge_case, chain_path_case,
+                            chain_tie_case,
                             extension_inputs,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, hash_rows,
                             indel_extension_inputs, indel_reads,
-                            long_run_inputs, read_rows,
+                            long_run_inputs, medium_indel_gaps, read_rows,
                             seed_case, seed_rows)
 from yaha_tpu_torch.ops import (chain, decode, gather_dp, seeds, sw_batch,
                                 sw_cuda)
@@ -161,7 +165,7 @@ def _anchored_pair(dev, args, kw, wband=None):
 def _warp_classes(live):
     """Width class of each warp of 32 consecutive problems: the smallest
     of 8, 16 and 32 columns covering every lane's live width, else 0 (the
-    state in global scratch)."""
+    wide route, a warp a problem)."""
     live = np.asarray(live, np.int64)
     wmax = np.pad(live, (0, -len(live) % 32)).reshape(-1, 32).max(1)
     return {next((k for k in (8, 16, 32) if w <= k), 0) for w in wmax}
@@ -193,11 +197,63 @@ def test_anchored_kernels_every_class(dev, wband):
 @pytest.mark.parametrize("event,length,wband", [
     ("D", 260, 512), ("I", 100, 128), ("D", 600, 1024)])
 def test_anchored_kernels_long_runs(dev, event, length, wband):
-    """Wide warps (wband 128 to 1024, RL 276 and 616): the state in
-    global scratch."""
+    """Wide warps (wband 128 to 1024, RL 276 and 616): the wide route."""
     args = long_run_inputs(event, length)
     kw = dict(KW, max_gap=length + 40, max_intron=length + 40)
     _anchored_pair(dev, args, kw, wband=wband)
+
+
+def _anchored_one(dev, args, full, w):
+    """One anchored kernel against its plain version, one launch."""
+    args = _up(dev, *args)
+    sw_cuda.reset_launches()
+    if full:
+        got = sw_cuda.anchored_forward(*args, **KW)
+        want = sw_cuda.anchored_forward_reference(*args, **KW)
+    else:
+        got = sw_cuda.anchored_forward_banded(*args, wband=w, **KW)
+        want = sw_cuda.anchored_forward_banded_reference(*args, wband=w,
+                                                         **KW)
+    _equal(got, want)
+    name = "anchored_forward" if full else "anchored_forward_banded"
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {name: 1}
+
+
+@pytest.mark.parametrize("indel", [True, False], ids=["indel", "subst"])
+@pytest.mark.parametrize("live", [33, 63, 64, 65, 127, 512, 600])
+@pytest.mark.parametrize("full", [False, True], ids=["banded", "full"])
+def test_anchored_wide_route_matches_plain(dev, full, live, indel):
+    """The wide route (a warp a problem) in warps that mix narrow and wide
+    lanes, lbw = 0, rbw = 0 and empty queries, at live widths 33 to 512
+    and 600 on planes of 1,024 (banded) and 1,025 (full) columns, as the
+    staged engine's gap_fallback buckets have them."""
+    rl = 1024 if live > 512 else None
+    args, w = anchored_wide_inputs(live + 1000 * indel, live, full, n=96,
+                                   ql=34 if rl else 40, rl=rl, indel=indel)
+    if rl and not full:
+        w = 1024
+    _anchored_one(dev, args, full, w)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("full", [False, True], ids=["banded", "full"])
+def test_anchored_medium_indel_gaps(dev, full, seed):
+    """The gap fills of 1 kb reads with one 20-60 base indel at -BW 5."""
+    args, w = medium_indel_gaps(seed)["full" if full else "banded"]
+    _anchored_one(dev, args, full, w)
+
+
+def test_anchored_refuses_planes_too_wide_for_a_warp(dev):
+    """A plane wider than 32 columns whose wide warp would not fit a
+    block's shared memory (wband 4,096, RL 4,096) is refused before either
+    kernel launches, and counted as no launch."""
+    args = _up(dev, *anchored_inputs(3, 64, 8, 4096))
+    sw_cuda.reset_launches()
+    with pytest.raises(RuntimeError):
+        sw_cuda.anchored_forward_banded(*args, wband=4096, **KW)
+    with pytest.raises(RuntimeError):
+        sw_cuda.anchored_forward(*args, **KW)
+    assert not any(sw_cuda.launches().values())
 
 
 def test_wrappers_count_launches_and_check_inputs(dev):
@@ -519,17 +575,21 @@ def _chain_args(case):
         return chain_case(n, 24, n, qspan=40 * n)[:5], CHAIN_KW
     if case.startswith("ties"):
         return chain_tie_case(int(case[4:])), CHAIN_TIE_KW
+    if case.startswith("path="):
+        return chain_path_case(int(case[5:]), b=8), CHAIN_KW
     return dict(chain_edge_case())[case], dict(CHAIN_KW, m_score=2)
 
 
 @pytest.mark.parametrize("case", [
     "seed0", "seed1", "seed2", "ties0", "ties1", "n1", "invalid_row",
-    "int16_wrap", "n=20", "n=48", "n=200", "n=400", "n=1000", "n=2000",
-    "n=3000"])
+    "int16_wrap", "gap_edges", "n=20", "n=48", "n=64", "n=65", "n=200",
+    "n=400", "n=1000", "n=2000", "n=2048", "n=3000", "n=4096", "path=64",
+    "path=4096"])
 def test_chain_kernel_matches_plain(dev, case):
     """chain_dp_kernel = batched_chain_dp_ref on the card, every output;
-    N = 20 .. 3,000 runs every team shape (a warp for N <= 64, blocks of
-    256 and 512 threads above); one launch a call."""
+    N = 20 .. 4,096 runs every team shape (a warp for N <= 64, blocks of
+    256 and 512 threads above), and ranges whose candidate DAG is one path
+    a step at every node; one launch a call."""
     args, kw = _chain_args(case)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
     sw_cuda.reset_launches()

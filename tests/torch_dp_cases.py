@@ -126,6 +126,133 @@ def anchored_edge_inputs(seed, n=96, ql=40, rl=48):
     return q, qlens, r, rlens, lbw, rbw
 
 
+def _pow2(x):
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _related(rng, ref, qlen, rlen, err):
+    """A query of qlen codes read from ref[:rlen] with one insertion
+    (qlen > rlen) or deletion (qlen < rlen) of |qlen - rlen| bases at a
+    random place, then `err` substitutions."""
+    d = qlen - rlen
+    a = int(rng.integers(0, max(1, min(qlen, rlen)) + 1))
+    if d >= 0:
+        q = np.concatenate([ref[:a], rng.integers(0, 4, d).astype(np.uint8),
+                            ref[a:rlen]])
+    else:
+        q = np.concatenate([ref[:a], ref[a - d:rlen]])
+    q = q[:qlen].copy()
+    m = rng.random(len(q)) < err
+    q[m] = rng.integers(0, 4, int(m.sum()))
+    return q
+
+
+def anchored_wide_inputs(seed, live, full, n=64, ql=40, rl=None,
+                         indel=True):
+    """Gap fills for the anchored kernels' wide route: (q, qlen, r, rlen,
+    lbw, rbw) and the plane width (banded wband, the power of two >= live;
+    full RL + 1).  Lane 0 of every warp of 32 has live width `live`
+    (banded lbw + rbw + 1, full min(rlen, RL)), the other lanes widths 1 ..
+    live (lanes 4-11 at most 32), so warps mix narrow and wide lanes;
+    lanes 1 and 2 of a warp have
+    lbw = 0 and rbw = 0, lane 3 an empty query.  `indel`: queries differ
+    from their reference by one insertion or deletion of |qlen - rlen|
+    bases (the band's edge), else by substitutions alone (qlen = rlen where
+    the band allows), at 5 % or 15 % substitutions.  RL defaults to ql +
+    live (full: the power of two >= live)."""
+    rng = np.random.default_rng(seed)
+    width = rng.integers(1, live + 1, n)
+    lane = np.arange(n) % 32
+    narrow = (lane >= 4) & (lane < 12)
+    width[narrow] = rng.integers(1, min(live, 32) + 1, int(narrow.sum()))
+    width[::32] = live
+    if full:
+        rl = rl or _pow2(live)
+    else:
+        rl = rl or ql + live
+    q = np.zeros((n, ql), np.uint8)
+    r = rng.integers(0, 4, (n, rl)).astype(np.uint8)
+    qlens, rlens, lbw, rbw = (np.zeros(n, np.int64) for _ in range(4))
+    for k in range(n):
+        wk = int(width[k])
+        if full:
+            rlen = min(wk, rl)
+            lo = max(1, min(ql, rlen - 60))
+            qlen = int(rng.integers(lo, min(ql, rlen + 60) + 1)) if indel \
+                else max(1, min(rlen, ql))
+            if k % 4 == 0:
+                lb = rb = max(qlen, rlen) + 1     # an unbanded gap fill
+            else:
+                lb = 5 + max(0, qlen - rlen)      # findAGSAlignmentBanded
+                rb = 5 + max(0, rlen - qlen)
+        else:
+            lb = int(rng.integers(0, wk))
+            rb = wk - 1 - lb
+            qlen = int(rng.integers(1, ql + 1))
+            rlen = qlen + (int(rng.integers(-lb, rb + 1)) if indel else 0)
+            rlen = int(np.clip(rlen, 0, rl))
+        if k % 32 == 1:
+            lb, rb = 0, max(lb + rb, 0)
+        elif k % 32 == 2:
+            lb, rb = max(lb + rb, 0), 0
+        elif k % 32 == 3:
+            qlen = 0
+        q[k, :qlen] = _related(rng, r[k], qlen, rlen,
+                               0.05 if indel else 0.15)
+        qlens[k], rlens[k], lbw[k], rbw[k] = qlen, rlen, lb, rb
+    w = rl + 1 if full else _pow2(live)
+    return (q, qlens, r, rlens, lbw, rbw), w
+
+
+def medium_indel_gaps(seed, n=96, band_width=5):
+    """Gap fills of 1 kb reads with one insertion or deletion of 20-60
+    bases (half of each) at 5 % substitutions, as the native pipeline
+    makes them (yaha_pipe.cpp fill_gap / find_ags_alignment): the gap
+    between the two fragments around the indel holds it and 0-24
+    flanking bases on each side; banded when len_diff + 2 * band_width
+    + 1 < r_gap (lbw, rbw from the length difference), else unbanded.
+    Returns {"banded": (args, wband), "full": (args, RL + 1)}, each set
+    bucketed as the staged engine buckets it (power-of-two QL and RL)."""
+    rng = np.random.default_rng(seed)
+    rows = {"banded": [], "full": []}
+    for k in range(n):
+        size = int(rng.integers(20, 61))
+        left, right = (int(x) for x in rng.integers(0, 25, 2))
+        ref = rng.integers(0, 4, left + right + size).astype(np.uint8)
+        if k % 2:     # deletion: the reference holds `size` more bases
+            rlen, qlen = left + right + size, left + right
+            q = np.concatenate([ref[:left], ref[left + size:]])
+        else:         # insertion
+            rlen, qlen = left + right, left + right + size
+            q = np.concatenate([ref[:left], rng.integers(
+                0, 4, size).astype(np.uint8), ref[left:left + right]])
+            ref = ref[:rlen]
+        m = rng.random(len(q)) < 0.05
+        q[m] = rng.integers(0, 4, int(m.sum()))
+        diff = abs(qlen - rlen)
+        if diff + 2 * band_width + 1 < rlen:
+            lb = band_width + max(0, qlen - rlen)
+            rb = band_width + max(0, rlen - qlen)
+            rows["banded"].append((q, ref, lb, rb))
+        else:
+            lb = rb = max(qlen, rlen) + 1
+            rows["full"].append((q, ref, lb, rb))
+    out = {}
+    for kind, rs in rows.items():
+        ql = _pow2(max(16, max(len(x[0]) for x in rs)))
+        rl = _pow2(max(16, max(len(x[1]) for x in rs)))
+        q = np.zeros((len(rs), ql), np.uint8)
+        r = np.zeros((len(rs), rl), np.uint8)
+        for k, (qk, rk, _, _) in enumerate(rs):
+            q[k, :len(qk)] = qk
+            r[k, :len(rk)] = rk
+        lens = [np.array([len(x[i]) for x in rs], np.int64) for i in (0, 1)]
+        lb, rb = (np.array([x[i] for x in rs], np.int64) for i in (2, 3))
+        w = _pow2(int((lb + rb).max()) + 1) if kind == "banded" else rl + 1
+        out[kind] = ((q, lens[0], r, lens[1], lb, rb), w)
+    return out
+
+
 def indel_reads(fasta, n, seed):
     """FASTA of n 1 kb reads from the first sequence of `fasta` with 5 %
     substitutions and short insertions/deletions: their gap fills put
@@ -677,11 +804,60 @@ def native_chain(sqo, eqo, diag, length, valid, kw, rows=None):
     return out
 
 
+def chain_candidates(sqo, eqo, diag, length, valid, kw):
+    """[N, N] bool of one range: whether node i can relax node j (j > i,
+    both valid, SQO, diagonal gap, SRO, desert and new-bases tests in int32
+    arithmetic, chain_jax's candidate test), numpy."""
+    def w32(x):
+        return (np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31
+    s, e, d = w32(sqo), w32(eqo), w32(diag)
+    lw = (np.asarray(length, np.int64) + 0x8000) % 0x10000 - 0x8000
+    n = len(s)
+    m = (np.asarray(valid, bool)[:, None] & np.asarray(valid, bool)[None, :]
+         & np.triu(np.ones((n, n), bool), 1) & (s[None, :] > s[:, None]))
+    m &= np.abs(w32(d[None, :] - d[:, None])) <= kw["max_gap"]
+    sro, ero = w32(d + s), w32(d + e)
+    m &= sro[None, :] > sro[:, None]
+    q_gap = np.maximum(w32(s[None, :] - e[:, None] - 1), 0)
+    r_gap = np.maximum(w32(sro[None, :] - ero[:, None] - 1), 0)
+    m &= np.minimum(q_gap, r_gap) <= kw["max_desert"]
+    q_ov = np.maximum(w32(e[:, None] - s[None, :] + 1), 0)
+    r_ov = np.maximum(w32(ero[:, None] - sro[None, :] + 1), 0)
+    return m & (lw[None, :] - np.maximum(q_ov, r_ov) >= 1)
+
+
+def chain_unsorted_case(seed=3, b=8, n_max=48):
+    """chain_case's ranges with their valid nodes in reverse order: SQO
+    falls from one valid node to the next, so the kernel's pair tests may
+    not stop at the SQO window and scan every pair."""
+    sqo, eqo, diag, length, valid = chain_case(seed, b, n_max)[:5]
+    out = [a.copy() for a in (sqo, eqo, diag, length)]
+    for k in range(b):
+        c = int(valid[k].sum())
+        for a, src in zip(out, (sqo, eqo, diag, length)):
+            a[k, :c] = src[k, :c][::-1]
+    return (*out, valid)
+
+
+def chain_path_case(n, b=2):
+    """Ranges of n nodes whose candidate DAG is one path through all of
+    them: node i starts at query offset 12 i, 20 bases long (it overlaps
+    the next node by 8), on diagonal 30 i, so that only node i + 1 is
+    within max_gap (50) of it: every step has work, and the DAG is n - 1
+    edges deep."""
+    sqo = np.tile(np.arange(n, dtype=np.int64) * 12, (b, 1))
+    length = np.full((b, n), 20, np.int64)
+    diag = np.tile(np.arange(n, dtype=np.int64) * 30, (b, 1))
+    return sqo, sqo + length - 1, diag, length, np.ones((b, n), bool)
+
+
 def chain_edge_case():
     """(name, (sqo, eqo, diag, length, valid)) of edge ranges, each [b, n]
     int64 / bool: one node per range; a range with no valid node beside
     a full one; lengths whose length (and length * m_score) passes 32,767
-    (the int16 wraps of the SINT stores)."""
+    (the int16 wraps of the SINT stores); diagonal and query gaps at the
+    pair tests' limits (CHAIN_KW's max_gap and max_desert) and one past
+    them."""
     out = []
     out.append(("n1", (np.array([[3], [0], [7]]), np.array([[12], [9], [7]]),
                        np.array([[0], [0], [0]]), np.array([[10], [10], [1]]),
@@ -700,4 +876,18 @@ def chain_edge_case():
     diag = np.sort(rng.integers(0, 40, (8, 12)), axis=1)
     out.append(("int16_wrap", (sqo, sqo + length - 1, diag, length,
                                np.ones((8, 12), bool))))
+    # The pair tests' edges: diagonal gaps of exactly max_gap (50, a
+    # candidate) and max_gap + 1 (not), query gaps of exactly max_desert
+    # (200) and max_desert + 1, and a candidate whose query gap is exactly
+    # max_desert + max_gap (its reference gap max_desert), the last node
+    # of the SQO window the kernel's pair tests scan, long enough that
+    # its edge wins (and the next node one base past the window).
+    sqo = np.array([[0, 10, 20, 30, 40, 50], [0, 210, 421, 632, 842, 1053],
+                    [0, 310, 621, 0, 0, 0]])
+    length = np.array([[12] * 6, [10] * 6, [60] * 6])
+    diag = np.array([[0, 50, 101, 151, 202, 252], [0] * 6,
+                     [50, 0, -50, 0, 0, 0]])
+    valid = np.ones((3, 6), bool)
+    valid[2, 3:] = False
+    out.append(("gap_edges", (sqo, sqo + length - 1, diag, length, valid)))
     return out

@@ -1,4 +1,5 @@
-// Anchored gap fill with the band state in registers (sm_90a).
+// Anchored gap fill on Hopper (sm_90a): band state in registers, and a
+// warp per problem for the bands wider than 32 columns.
 //
 // Replaces the two anchored Pallas kernels of yaha_tpu/ops/sw_pallas.py and
 // returns the same arrays byte for byte (whole planes, zeros included):
@@ -9,18 +10,20 @@
 //   yt_anch_full    anchored_forward_pallas (_anch_kernel): score [N],
 //                   bt [N][QL+1][RL+1], full-matrix columns
 //
-// What bounds them on an H100: one thread owns one problem, whose cells are
-// one dependent chain of integer compares, selects and adds; the bytes the
-// launch must move (q, r and the plane) take a few microseconds.  So the
-// time is the longest problem of each warp times the cost of a cell.  The
-// first kernels, which ran the bodies anch_banded_problem /
-// anch_full_problem of sw_kernels.cu for every problem, also waited on L2
-// for every cell (band state in global scratch [3][cols][N]), stored each
-// plane byte on its own (neighbouring lanes' planes 2 KB apart: 32
-// transactions per warp store), read the reference one byte per cell from
-// device memory, stepped over all wband columns of every row, and ran one
-// block of 128 problems per SM, leaving 54 of 132 SMs idle at the 1 kb
-// batch's banded bucket.  Here, following ext_kernels.cu:
+// Each entry launches two kernels on its stream, both over the whole
+// bucket: anch_reg_kernel, which takes the warps of 32 consecutive
+// problems whose lanes are all at most 32 columns wide, and, when the
+// plane is wider than 32 columns (wband > 32, RL > 32), anch_wide_kernel,
+// which takes the other warps' problems, a warp each.  A problem's route
+// is its warp's, by shape (band_live / full_live): the narrow lanes of a
+// wide warp go to the wide route too.
+//
+// What bounds them on an H100: a problem's cells are one dependent chain
+// of integer compares, selects and adds a row (the delete run's cap makes
+// the horizontal carry a recurrence that is not a scan); the bytes the
+// launch must move (q, r and the plane) take a few microseconds.
+//
+// anch_reg_kernel, one thread a problem (following ext_kernels.cu):
 //
 //   * Width classes.  Each warp takes the smallest K in {8, 16, 32} that
 //     covers every lane's live width (__reduce_max_sync, so the choice is
@@ -37,6 +40,7 @@
 //       - full, live width min(rlen, RL): an active cell reads its own
 //         column and the one to its left, never one to its right, and no
 //         cell right of rlen is ever active; column 0 is one register.
+//     A warp with a lane wider than 32 columns leaves at once.
 //   * Predicates only on rows that need them.  Banded: a row runs without
 //     any when every lane has i > lbw and its band reaches column K-1;
 //     with the right edge only (o <= min(live-1, rlen-i+lbw)) when every
@@ -51,24 +55,68 @@
 //     lane's rows, contiguous in its plane, to device memory together (a
 //     word a lane, 128 consecutive bytes a store), with zeros past the
 //     staged columns, and after its last row each lane's rows up to QL as
-//     zeros.  So the kernel writes every byte of its planes and the
-//     wrapper allocates them with torch.empty.
+//     zeros.
 //   * The warp runs its rows in step until its longest problem ends;
 //     anchored problems run to qlen, with no early exit.
 //   * Blocks of 64 threads (two warps), so that a bucket of 10,000 problems
 //     reaches every SM; 32 and 128 timed the same on the H100.
 //
-// Warps with a lane wider than 32 columns run sw_kernels.cu's bodies, one
-// problem a lane, with the state in global scratch [3][cols][N], after
-// zeroing their planes.  The route is chosen by shape, warp by warp.
+// anch_wide_kernel, a warp per problem on a row wavefront (the design of
+// ext_wide_kernels.cu, whose strip staging, shared row and 16-byte copy it
+// shares through wavefront.cuh).  The first kernels ran the port's first
+// bodies here, one thread a problem with the band state in global scratch
+// [3][cols][N]: a load/store round trip on every cell's chain, plane bytes
+// stored one at a time a plane apart between lanes, and a warp as slow as
+// its widest lane's rows times columns.  Here lane k computes the rows
+// 32 s + k + 1 of strip s and reaches column c of its row at step s P +
+// 2 k + c, with P = max(live + 1, 64) and c in [0, ncols):
 //
-// The per-problem bodies (AnchBand<K>, AnchFull<K>, anch_reg_problem) are
-// __host__ __device__: without __CUDACC__ they compile with g++, and the CPU
-// tests hold them to the plain PyTorch versions.
+//   * banded (ncols = live): cell (i, o) reads the row above at o + 1
+//     ("up") and o ("diag"), which lane k - 1 handed down one and two
+//     steps earlier; lane 0 reads them from the shared row, whose column
+//     live is the band-edge sentinel DP_WORST / DP_WORST / 0.  A cell
+//     outside j >= 1, j <= rlen (j = i + o - lbw) resets to DP_WORST /
+//     DP_WORST / 0 and ends the horizontal carry, except the column-0
+//     insert boundary at o = lbw - i;
+//   * full (ncols = live + 1, column 0 included): cell (i, j) reads (i-1,
+//     j) and (i-1, j-1), which lane k - 1 handed down two and three steps
+//     earlier (a lane offset of one step would put the lanes' byte stores
+//     into the staged rows, RL apart for a power-of-two RL, in one or two
+//     banks); a cell outside [max(1, i - lbw), min(i + rbw, live)] keeps
+//     the row above's state and writes 0; column 0 takes the insert
+//     boundary for i <= lbw and otherwise keeps its state;
+//   * a lane's state is O(1) registers whatever the width; the codes of
+//     strip s + 2 are staged in shared memory when strip s is copied out
+//     (query codes, and banded the reference window 32 s - lbw .. that the
+//     strip's rows read; full the reference row, which every row shares);
+//   * each strip's rows are staged as bytes (the stages zeroed first, so
+//     the columns past ncols read 0) and copied out, contiguous in the
+//     problem's plane, as 16-byte stores once the strip's last row (lane
+//     31's, or the problem's last) is done; row 0 and the rows past
+//     min(qlen, QL) are written by the same copy from a generator.  The
+//     kernel writes every byte of its planes, so the wrapper allocates
+//     them with torch.empty.  The score is the cell (qlen, rlen), taken
+//     from the lane that computed it (a ballot).
+//
+// The wide route is launched over every problem of a plane wider than 32
+// columns, kAnchWideWarps warps a block (fewer when a warp's shared memory,
+// wide_warp_bytes of the plane width, would not fit four times): each warp
+// reads its 32-problem group's live widths and leaves at once unless one
+// is over 32 columns.  Its cost on a bucket without a wide warp is that
+// launch, N / 4 blocks that read 32 lengths a warp and leave; the register
+// kernel's wide warps, likewise, leave after their class test.  A plane
+// whose warp would need more shared memory than a block has (wband or
+// RL + 1 above 2,829 bytes) is refused with cudaErrorInvalidValue before
+// either launch.
+//
+// The per-problem bodies (AnchBand<K>, AnchFull<K>, anch_reg_problem) and
+// the wide route's lane step and schedule (AnchWideProblem, AnchWideLane,
+// AnchWideSched) are __host__ __device__: without __CUDACC__ they compile
+// with g++, and the CPU tests hold them, the wide route over an emulated
+// 32-lane warp, to the plain PyTorch versions.
 #include <utility>
 
-#include "sw_cells.cuh"
-#include "sw_kernels.cu"
+#include "wavefront.cuh"
 
 namespace ytsw {
 
@@ -218,7 +266,7 @@ struct AnchBand {
             c = {o.pe, o.pd, o.v};
             out[J] = (uint8_t)o.bt;
         } else {
-            // Outside [lo, hi] the scratch body resets the cell (the carry
+            // Outside [lo, hi] the plain version resets the cell (the carry
             // past hi is never read again; before lo it is set at the
             // boundary cell).
             const bool act = (kMode == 1 || J >= lo) && J <= hi;
@@ -532,6 +580,230 @@ YT_HD bool anch_reg_problem(int64_t p, const AnchArgs& a, int64_t w,
     return true;
 }
 
+// ---- The wide route: a warp per problem on a row wavefront ----
+
+// Warps a block of anch_wide_kernel, at most.
+constexpr int kAnchWideWarps = 4;
+
+// One problem of the wide route, layout kFullLayout (false: band-relative
+// columns o, plane rows of wband bytes; true: columns 0..RL, rows of RL + 1).
+template <bool kFullLayout>
+struct AnchWideProblem {
+    const uint8_t* qp;
+    const uint8_t* rp;
+    int64_t ql, rl;
+    int32_t qlen, rlen, lbw, rbw, live, last;
+    int32_t w;       // plane row bytes
+    int32_t ncols;   // columns a row steps over: banded live, full live + 1
+    int32_t period;  // steps between a lane's two strips
+    int32_t base;    // row 0's origin column: banded lbw, full 0
+    int32_t hi0;     // row 0's delete boundary ends at base + hi0
+    Scoring s;
+
+    YT_HD void init(int64_t p, const AnchArgs& a) {
+        qp = a.q + p * a.ql;
+        rp = a.r + p * a.rl;
+        ql = a.ql;
+        rl = a.rl;
+        s = a.s;
+        qlen = a.qlens[p];
+        rlen = a.rlens[p];
+        lbw = a.lbws[p];
+        rbw = a.rbws[p];
+        w = (int32_t)(kFullLayout ? a.rl + 1 : a.wband);
+        live = kFullLayout ? full_live(rlen, a.rl)
+                           : band_live(lbw, rbw, a.wband);
+        last = imin(qlen, (int32_t)a.ql);
+        ncols = kFullLayout ? live + 1 : live;
+        period = imax(live + 1, 2 * kWideLanes);
+        base = kFullLayout ? 0 : lbw;
+        hi0 = imin(rbw, rlen);
+    }
+
+    // Strip `strip`'s codes: its rows' query codes, then the reference
+    // codes its cells read: banded r[32 strip - lbw ..] (lane k, column o
+    // reads index k + o), full r[0 ..] (column j reads index j - 1).
+    YT_HD void stage_codes(int lane, int32_t strip, uint8_t* codes) const {
+        const int64_t i0 = (int64_t)strip * kWideLanes;
+        stage_strip_codes(lane, i0, qp, ql, rp, rl, kFullLayout ? 0 : i0 - lbw,
+                          ncols + kWideLanes - 1, codes);
+    }
+
+    // Row 0's state at column c (j0 = c - base): the origin at j0 = 0, the
+    // delete boundary for 1 <= j0 <= min(rbw, rlen), DP_WORST elsewhere
+    // and at c = ncols (banded: the band-edge sentinel).
+    YT_HD Band3 row0(int32_t c) const {
+        const int32_t j0 = c - base;
+        const int32_t v =
+            c >= ncols           ? DP_WORST
+            : j0 == 0            ? 0
+            : j0 >= 1 && j0 <= hi0 ? wsub(0, wadd(s.go, wmul(j0, s.ge)))
+                                 : DP_WORST;
+        return band3(v, DP_WORST, 0);
+    }
+};
+
+// The plane bytes the wavefront does not compute, from plane offset x0 on:
+// row 0's delete cells (j0 = column - base in [1, hi0]), 0 in every later
+// row (the rows past min(qlen, QL)).
+struct AnchFillSrc {
+    int64_t x0;
+    int32_t w, base, hi0;
+    YT_HD uint8_t byte(int64_t o) const {
+        const int64_t x = x0 + o;
+        if (x >= w) return 0;
+        const int64_t j0 = x - base;
+        return (uint8_t)(j0 >= 1 && j0 <= hi0
+                             ? OP_DELETE + (j0 >= 2 ? BT_CD : 0)
+                             : 0);
+    }
+    YT_HD void words(int64_t o, uint32_t (&out)[4]) const {
+        for (int m = 0; m < 4; m++) out[m] = 0;
+        if (x0 + o >= w) return;   // past row 0: zeros
+        for (int b = 0; b < 16; b++)
+            out[b >> 2] |= (uint32_t)byte(o + b) << 8 * (b & 3);
+    }
+};
+
+// One lane of the wavefront.  h1, h2 and h3 are the cells lane k - 1 (for
+// lane 0 the shared row) handed down one, two and three steps ago: banded
+// up = h1 (column o + 1) and diag = h2 (column o); full up = h2 (column j)
+// and diag = h3 (column j - 1).
+template <bool kFullLayout>
+struct AnchWideLane {
+    int32_t k;              // lane
+    int32_t i, j;           // row of the current strip; column this step
+    int32_t qc, edge_val;   // the row's query code and boundary value
+    int32_t pe, pd, pvl;    // horizontal carry
+    int32_t sc;             // the score, if this lane computed it
+    bool got;
+    Band3 h1, h2;
+    int32_t h3;
+
+    YT_HD void init(int lane) {
+        k = lane;
+        i = lane + 1;
+        j = -2 * lane;
+        qc = edge_val = pe = pd = pvl = 0;
+        sc = DP_WORST;
+        got = false;
+        h1 = h2 = band3(DP_WORST, DP_WORST, 0);
+        h3 = DP_WORST;
+    }
+
+    // Lane 0's cells of the row above, from the shared row.
+    YT_HD void take_row(const Band3* row,
+                        const AnchWideProblem<kFullLayout>& P) {
+        if (j < 0 || j >= P.ncols) return;
+        if (kFullLayout) {
+            h2 = row[j];
+        } else {
+            if (j == 0) h2 = row[0];
+            h1 = row[j + 1];
+        }
+    }
+
+    // Cell (i, j) if j is one of the row's columns, from the strip's staged
+    // codes: writes its plane byte to stage_row[j] and returns what the row
+    // below reads at this column (outside the columns, the sentinel).
+    YT_HD Band3 step(const AnchWideProblem<kFullLayout>& P,
+                     const uint8_t* codes, uint8_t* stage_row) {
+        if (j == 0) {
+            qc = codes[k];
+            edge_val = wsub(0, wadd(P.s.go, wmul(i, P.s.ge)));
+            pe = DP_WORST;
+            pd = 0;
+            pvl = kFullLayout && i <= P.lbw ? edge_val : DP_WORST;
+        }
+        if (j < 0 || j >= P.ncols) return band3(DP_WORST, DP_WORST, 0);
+        const Band3 up = kFullLayout ? h2 : h1;
+        Band3 out = up;
+        int32_t b = 0;
+        if (kFullLayout && j == 0) {
+            // Column 0: the insert boundary for i <= lbw (its chain runs
+            // straight up), else the state above.
+            if (i <= P.lbw) {
+                out.v = edge_val;
+                b = OP_INSERT + (i > 1 ? BT_CF : 0);
+            }
+        } else {
+            const int32_t rch = codes[kWideLanes + (kFullLayout ? j - 1
+                                                                : k + j)];
+            const CellOut o = cell<false>(kFullLayout ? h3 : h2.v, qc, rch,
+                                          pe, pd, pvl, up.f, up.v, up.ii,
+                                          P.s);
+            // The cell's reference column; banded o <= lbw + rbw holds for
+            // every column below live.
+            const int32_t rj = kFullLayout ? j : i + j - P.lbw;
+            const bool act =
+                kFullLayout
+                    ? (int64_t)j >= (int64_t)i - P.lbw &&
+                          (int64_t)j <= (int64_t)i + P.rbw && j <= P.live
+                    : rj >= 1 && rj <= P.rlen;
+            if (act) {
+                out = band3(o.v, o.f, o.ii);
+                pe = o.pe;
+                pd = o.pd;
+                pvl = o.v;
+                b = o.bt;
+                if (i == P.qlen && i <= P.last && rj == P.rlen) {
+                    sc = o.v;
+                    got = true;
+                }
+            } else if (!kFullLayout) {
+                // Reset, and the column-0 insert boundary at o = lbw - i.
+                const bool bound = rj == 0;
+                out = band3(bound ? edge_val : DP_WORST, DP_WORST, 0);
+                pe = DP_WORST;
+                pd = 0;
+                pvl = out.v;
+                b = bound ? OP_INSERT + (i > 1 ? BT_CF : 0) : 0;
+            }
+        }
+        stage_row[j] = (uint8_t)b;
+        return out;
+    }
+
+    // To the next step, with the cell lane k - 1 handed down this step.
+    YT_HD void advance(const Band3& handed,
+                       const AnchWideProblem<kFullLayout>& P) {
+        h3 = h2.v;
+        h2 = h1;
+        h1 = handed;
+        if (++j == P.period) {
+            j = 0;
+            i += kWideLanes;
+        }
+    }
+};
+
+// When the warp copies a strip out: at the step at which the strip's last
+// row (lane 31's, or in the last strip the problem's last) has done its
+// last column.
+struct AnchWideSched {
+    int32_t strip, last_strip, rows, copy_at;
+
+    template <class P>
+    YT_HD void init(const P& pr) {
+        strip = 0;
+        last_strip = (pr.last - 1) / kWideLanes;
+        set(pr);
+    }
+    template <class P>
+    YT_HD void set(const P& pr) {
+        rows = strip == last_strip ? pr.last - kWideLanes * strip
+                                   : kWideLanes;
+        copy_at = strip * pr.period + 2 * (rows - 1) +
+                  (pr.ncols > 1 ? pr.ncols - 1 : 0);
+    }
+    YT_HD bool last() const { return strip == last_strip; }
+    template <class P>
+    YT_HD void next(const P& pr) {
+        strip++;
+        set(pr);
+    }
+};
+
 }  // namespace ytsw
 
 #if defined(__CUDACC__)
@@ -587,8 +859,7 @@ __device__ void reg_warp(const ytsw::AnchArgs& a, int64_t p, bool valid,
 
 template <bool kFullLayout>
 __global__ void __launch_bounds__(ytsw::kAnchBlock)
-anch_reg_kernel(ytsw::AnchArgs a, int64_t n, int8_t* bt, int32_t* score,
-                int32_t* scratch) {
+anch_reg_kernel(ytsw::AnchArgs a, int64_t n, int8_t* bt, int32_t* score) {
     extern __shared__ __align__(16) uint8_t smem[];
     const int lane = threadIdx.x & 31;
     uint8_t* wsm = smem + (threadIdx.x >> 5) * (32 * ytsw::kAnchStageStride);
@@ -614,38 +885,112 @@ anch_reg_kernel(ytsw::AnchArgs a, int64_t n, int8_t* bt, int32_t* score,
     YT_ANCH_K(16)
     YT_ANCH_K(32)
 #undef YT_ANCH_K
-    // A wide warp: sw_kernels.cu's body, one problem a lane, on zeroed
-    // planes, the state in global scratch.
-    const int64_t p0 = p - lane;
-    const int64_t cnt = n - p0 < 32 ? n - p0 : 32;
-    ytsw::anch_zero((uint8_t*)bt + p0 * (a.ql + 1) * w,
-                    cnt * (a.ql + 1) * w, lane, 32);
-    __syncwarp();
-    if (!valid) return;
-    if constexpr (kFullLayout)
-        ytsw::anch_full_problem(p, n, a.q, a.ql, a.r, a.rl, a.qlens, a.rlens,
-                                a.lbws, a.rbws, a.s, bt, score, scratch);
-    else
-        ytsw::anch_banded_problem(p, n, a.q, a.ql, a.r, a.rl, a.qlens,
-                                  a.rlens, a.lbws, a.rbws, a.wband, a.s, bt,
-                                  score, scratch);
+    // A warp with a lane wider than 32 columns: anch_wide_kernel takes
+    // its problems.
 }
 
-// wide: a lane may be wider than 32 columns, and then scratch must be
-// given.  Each warp stages its rows in its own part of shared memory.
+// The wide route: warp `warp` of block b takes problem b * warps + warp
+// when its group of 32 problems (the register kernel's warp) has a lane
+// wider than 32 columns; its shared memory is wide_warp_bytes(w).
 template <bool kFullLayout>
-int launch(const ytsw::AnchArgs& a, int64_t n, bool wide, int8_t* bt,
-           int32_t* score, int32_t* scratch, cudaStream_t stream) {
-    if (wide && scratch == nullptr) return (int)cudaErrorInvalidValue;
+__global__ void __launch_bounds__(ytsw::kAnchWideWarps * 32)
+anch_wide_kernel(ytsw::AnchArgs a, int64_t n, int8_t* bt, int32_t* score) {
+    using namespace ytsw;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t p = blockIdx.x * (int64_t)(blockDim.x >> 5) + warp;
+    if (p >= n) return;   // the whole warp
+    const int64_t g = (p & ~(int64_t)31) + lane;
+    int32_t glive = 0;
+    if (g < n)
+        glive = kFullLayout ? full_live(a.rlens[g], a.rl)
+                            : band_live(a.lbws[g], a.rbws[g], a.wband);
+    if (__reduce_max_sync(kFull, glive) <= 32) return;   // a register warp
+    AnchWideProblem<kFullLayout> P;
+    P.init(p, a);
+    const int64_t w = P.w;
+    uint8_t* wsm = smem + warp * wide_warp_bytes(w);
+    Band3* row = (Band3*)wsm;
+    uint8_t* stage = wsm + wide_row_bytes(w);
+    const int64_t sb = wide_stage_bytes(w);
+    uint8_t* codes = stage + 2 * sb;
+    const int64_t cb = wide_code_bytes(w);
+    uint8_t* plane = (uint8_t*)bt + p * (a.ql + 1) * w;
+
+    // Columns past ncols of a staged row must read 0.
+    anch_zero(stage, (int32_t)(2 * sb), lane, kWideLanes);
+    for (int32_t c = lane; c <= P.ncols; c += kWideLanes) row[c] = P.row0(c);
+    copy_share(lane, plane, w, AnchFillSrc{0, P.w, P.base, P.hi0});
+    AnchWideLane<kFullLayout> L;
+    L.init(lane);
+    if (P.last >= 1) {
+        P.stage_codes(lane, 0, codes);
+        P.stage_codes(lane, 1, codes + cb);
+        __syncwarp();
+        AnchWideSched S;
+        S.init(P);
+        for (int32_t t = 0;; t++) {
+            if (lane == 0) L.take_row(row, P);
+            const int32_t par = ((L.i - 1) / kWideLanes) & 1;
+            const Band3 out =
+                L.step(P, codes + par * cb, stage + par * sb + lane * w);
+            if (lane == kWideLanes - 1 && L.j >= 0 && L.j < P.ncols)
+                row[L.j] = out;
+            L.advance(shfl_up3(out), P);
+            __syncwarp();
+            if (t != S.copy_at) continue;
+            copy_share(lane, plane + ((int64_t)S.strip * kWideLanes + 1) * w,
+                       (int64_t)S.rows * w,
+                       StageSrc{stage + (S.strip & 1) * sb});
+            if (S.last()) break;
+            // No lane has reached strip + 2: its codes take this strip's
+            // buffers, and its rows this strip's stage once copied.
+            if (S.strip + 2 <= S.last_strip)
+                P.stage_codes(lane, S.strip + 2, codes + (S.strip & 1) * cb);
+            __syncwarp();
+            S.next(P);
+        }
+    }
+    const int64_t x0 = ((int64_t)(P.last > 0 ? P.last : 0) + 1) * w;
+    copy_share(lane, plane + x0, (a.ql + 1) * w - x0,
+               AnchFillSrc{x0, P.w, P.base, P.hi0});
+    const unsigned got = __ballot_sync(kFull, L.got);
+    const int32_t sc = __shfl_sync(kFull, L.sc, got ? __ffs(got) - 1 : 0);
+    if (lane == 0) score[p] = got ? sc : DP_WORST;
+}
+
+// The register kernel over every problem, then, for a plane wider than 32
+// columns, the wide route.  Each register warp stages its rows in its own
+// part of shared memory; each wide warp has wide_warp_bytes(w).
+template <bool kFullLayout>
+int launch(const ytsw::AnchArgs& a, int64_t n, int8_t* bt, int32_t* score,
+           cudaStream_t stream) {
+    const int64_t w = kFullLayout ? a.rl + 1 : a.wband;
+    const bool wide = kFullLayout ? a.rl > 32 : a.wband > 32;
+    const int64_t wbytes = ytsw::wide_warp_bytes(w);
+    if (wide && wbytes > ytsw::kWideSmemMax)
+        return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)ytsw::kAnchBlock * ytsw::kAnchStageStride;
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         anch_reg_kernel<kFullLayout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int64_t grid = (n + ytsw::kAnchBlock - 1) / ytsw::kAnchBlock;
     anch_reg_kernel<kFullLayout>
-        <<<(unsigned)grid, ytsw::kAnchBlock, smem, stream>>>(a, n, bt, score,
-                                                            scratch);
+        <<<(unsigned)grid, ytsw::kAnchBlock, smem, stream>>>(a, n, bt, score);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || !wide) return (int)e;
+    int warps = ytsw::kAnchWideWarps;
+    while (warps > 1 && warps * wbytes > ytsw::kWideSmemMax) warps >>= 1;
+    const size_t wsmem = (size_t)(warps * wbytes);
+    e = cudaFuncSetAttribute(anch_wide_kernel<kFullLayout>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wsmem);
+    if (e != cudaSuccess) return (int)e;
+    anch_wide_kernel<kFullLayout>
+        <<<(unsigned)((n + warps - 1) / warps), 32 * warps, wsmem, stream>>>(
+            a, n, bt, score);
     return (int)cudaGetLastError();
 }
 
@@ -676,11 +1021,11 @@ ytsw::AnchArgs args(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each launches on the given
-// stream, allocates nothing and does not synchronise; it returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a missing scratch.
-// `scratch` ([3][cols][N] int32, cols = wband + 1 or RL + 2) is read only
-// by a warp wider than 32 columns; it may be null where none can be
-// (wband <= 32, RL <= 32).
+// stream (the register kernel, then for a plane wider than 32 columns the
+// wide route), allocates nothing and does not synchronise; it returns
+// cudaGetLastError(), or cudaErrorInvalidValue, launching nothing, for a
+// plane wider than 32 columns whose wide warp would not fit a block's
+// shared memory (wband or RL + 1 above 2,829).
 extern "C" {
 
 int yt_anch_banded(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
@@ -688,12 +1033,11 @@ int yt_anch_banded(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
                    const int32_t* rbws, int64_t n, int64_t ql, int64_t rl,
                    int32_t wband, int32_t go, int32_t ge, int32_t rc,
                    int32_t ms, int32_t max_gap, int32_t max_intron,
-                   int8_t* bt, int32_t* score, int32_t* scratch,
-                   void* stream) {
+                   int8_t* bt, int32_t* score, void* stream) {
     return launch<false>(
         args(q, r, qlens, rlens, lbws, rbws, ql, rl, wband, go, ge, rc, ms,
              max_gap, max_intron),
-        n, wband > 32, bt, score, scratch, (cudaStream_t)stream);
+        n, bt, score, (cudaStream_t)stream);
 }
 
 int yt_anch_full(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
@@ -701,11 +1045,11 @@ int yt_anch_full(const uint8_t* q, const uint8_t* r, const int32_t* qlens,
                  const int32_t* rbws, int64_t n, int64_t ql, int64_t rl,
                  int32_t go, int32_t ge, int32_t rc, int32_t ms,
                  int32_t max_gap, int32_t max_intron, int8_t* bt,
-                 int32_t* score, int32_t* scratch, void* stream) {
+                 int32_t* score, void* stream) {
     return launch<true>(
         args(q, r, qlens, rlens, lbws, rbws, ql, rl, 0, go, ge, rc, ms,
              max_gap, max_intron),
-        n, rl > 32, bt, score, scratch, (cudaStream_t)stream);
+        n, bt, score, (cudaStream_t)stream);
 }
 
 }  // extern "C"

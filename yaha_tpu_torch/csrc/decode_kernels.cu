@@ -2,9 +2,9 @@
 //
 // yt_rle_walk replaces decode_jax.rle_decode_band and rle_decode_full
 // (yaha_tpu/ops/decode_jax.py:208, :222): it walks each problem's packed
-// backtrack plane (sw_kernels.cu, ext_kernels.cu) on the device and writes
-// only the run-length items, int32 op << 28 | len, so the planes never
-// leave the card.  The walk is the native packed-plane walker's
+// backtrack plane (anch_kernels.cu, ext_kernels.cu, ext_wide_kernels.cu)
+// on the device and writes only the run-length items, int32 op << 28 |
+// len, so the planes never leave the card.  The walk is the native packed-plane walker's
 // (ops/dp_common.py traceback_*_packed, SW.cpp:1137-1195):
 //
 //   band layout (extension and band-relative gap planes):

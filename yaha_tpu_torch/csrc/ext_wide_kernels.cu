@@ -61,28 +61,9 @@
 // without __CUDACC__ they compile with g++, and tests/test_torch_csrc.py
 // runs them over an emulated 32-lane warp against the plain PyTorch
 // version.
-#include "sw_cells.cuh"
+#include "wavefront.cuh"
 
 namespace ytsw {
-
-constexpr int kWideLanes = 32;
-constexpr int64_t kWideSmemMax = 232448;  // shared memory a block can have
-
-// What a row hands to the row below at one band column: the cell value
-// and the insert run's value and length.  16 bytes, so that the shared row
-// moves with one vector load or store.
-struct alignas(16) Band3 {
-    int32_t v, f, ii, pad;
-};
-
-YT_HD Band3 band3(int32_t v, int32_t f, int32_t ii) {
-    Band3 b;
-    b.v = v;
-    b.f = f;
-    b.ii = ii;
-    b.pad = 0;
-    return b;
-}
 
 // Steps between two strips of a lane: W + 1, so that a lane hands the
 // band-edge sentinel to the next lane after its last column, and at least
@@ -90,22 +71,6 @@ YT_HD Band3 band3(int32_t v, int32_t f, int32_t ii) {
 // column J+1 before the next strip's lane 0 reads it.
 YT_HD int32_t wide_period(int32_t w) {
     return w + 1 > 2 * kWideLanes ? w + 1 : 2 * kWideLanes;
-}
-
-// Shared memory of one warp: the row of W+1 Band3 columns, then two strip
-// stages of 32 rows of W bytes (16 bytes of slack: the copy reads whole
-// words past a strip's last byte), then two strips' codes: 32 query codes
-// and the W + 31 reference codes from 32 s - bw2 on.
-YT_HD int64_t wide_row_bytes(int32_t w) { return 16 * ((int64_t)w + 1); }
-YT_HD int64_t wide_stage_bytes(int32_t w) {
-    return (kWideLanes * (int64_t)w + 16 + 15) / 16 * 16;
-}
-YT_HD int64_t wide_code_bytes(int32_t w) {
-    return (2 * kWideLanes + (int64_t)w + 15) / 16 * 16;
-}
-YT_HD int64_t wide_warp_bytes(int32_t w) {
-    return wide_row_bytes(w) + 2 * wide_stage_bytes(w) +
-           2 * wide_code_bytes(w);
 }
 
 // Row 0 (SW.cpp:899-933) at band column c, and the sentinel at c = W.
@@ -144,15 +109,7 @@ struct WideProblem {
     // bw2 + x for x in [0, W + 31) (255 outside the reference).
     YT_HD void stage_codes(int lane, int32_t strip, uint8_t* codes) const {
         const int64_t i0 = (int64_t)strip * kWideLanes;
-        for (int32_t x = lane; x < 2 * kWideLanes - 1 + w; x += kWideLanes) {
-            if (x < kWideLanes) {
-                codes[x] = (uint8_t)(i0 + x < ql ? ld_u8(qp + i0 + x) : 0);
-            } else {
-                const int64_t ri = i0 - bw2 + x - kWideLanes;
-                codes[x] =
-                    (uint8_t)(ri >= 0 && ri < rl ? ld_u8(rp + ri) : 255);
-            }
-        }
+        stage_strip_codes(lane, i0, qp, ql, rp, rl, i0 - bw2, w + 31, codes);
     }
 
     YT_HD void init(int64_t p, const uint8_t* q, int64_t ql_,
@@ -276,36 +233,6 @@ YT_HD bool wide_exits(int32_t row_best, int32_t run_max, int32_t i,
     return row_best < wsub(run_max, P.x_cutoff) || i >= P.last;
 }
 
-YT_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, int sh) {
-#if defined(__CUDA_ARCH__)
-    return __funnelshift_r(lo, hi, sh);
-#else
-    return sh ? (lo >> sh) | (hi << (32 - sh)) : lo;
-#endif
-}
-
-YT_HD void store16(uint8_t* dst, const uint32_t (&w)[4]) {
-#if defined(__CUDA_ARCH__)
-    *(uint4*)dst = make_uint4(w[0], w[1], w[2], w[3]);
-#else
-    for (int m = 0; m < 4; m++)
-        for (int b = 0; b < 4; b++) dst[4 * m + b] = (uint8_t)(w[m] >> 8 * b);
-#endif
-}
-
-// Bytes from a staged strip (4-byte aligned, 16 bytes of slack).
-struct StageSrc {
-    const uint8_t* st;
-    YT_HD uint8_t byte(int64_t o) const { return st[o]; }
-    YT_HD void words(int64_t o, uint32_t (&out)[4]) const {
-        const uint32_t* a = (const uint32_t*)(st + (o & ~(int64_t)3));
-        const int sh = (int)(o & 3) * 8;
-        uint32_t v[5];
-        for (int m = 0; m < 5; m++) v[m] = a[m];
-        for (int m = 0; m < 4; m++) out[m] = funnel_r(v[m], v[m + 1], sh);
-    }
-};
-
 // Bytes the wavefront does not compute, from plane offset x0 on.
 struct FillSrc {
     int64_t x0;
@@ -321,25 +248,6 @@ struct FillSrc {
     }
 };
 
-// Lane `lane`'s share of writing len bytes from src to dst: the 16-byte
-// aligned chunks, 16 bytes a store, lane-strided; the bytes before the
-// first chunk and after the last, one a lane.
-template <class Src>
-YT_HD void copy_share(int lane, uint8_t* dst, int64_t len, const Src& src) {
-    int64_t head = (int64_t)((16 - ((uintptr_t)dst & 15)) & 15);
-    if (head > len) head = len;
-    const int64_t chunks = (len - head) >> 4;
-    const int64_t tail = head + 16 * chunks;
-    for (int64_t o = lane; o < head; o += kWideLanes) dst[o] = src.byte(o);
-    for (int64_t o = tail + lane; o < len; o += kWideLanes)
-        dst[o] = src.byte(o);
-    for (int64_t c = lane; c < chunks; c += kWideLanes) {
-        uint32_t w[4];
-        src.words(head + 16 * c, w);
-        store16(dst + head + 16 * c, w);
-    }
-}
-
 }  // namespace ytsw
 
 #if defined(__CUDACC__)
@@ -349,12 +257,6 @@ YT_HD void copy_share(int lane, uint8_t* dst, int64_t len, const Src& src) {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ ytsw::Band3 shfl_up3(const ytsw::Band3& b) {
-    return ytsw::band3(__shfl_up_sync(kFull, b.v, 1),
-                       __shfl_up_sync(kFull, b.f, 1),
-                       __shfl_up_sync(kFull, b.ii, 1));
-}
 
 __device__ __forceinline__ ytsw::WideBest shfl_best(const ytsw::WideBest& b,
                                                     int src, bool up) {

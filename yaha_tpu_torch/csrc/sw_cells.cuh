@@ -1,4 +1,5 @@
-// Cell update of the three affine-gap DP kernels (sw_kernels.cu).
+// Cell update of the affine-gap DP kernels (ext_kernels.cu,
+// ext_wide_kernels.cu, anch_kernels.cu).
 //
 // One cell of the reference recurrence (SW.cpp:1007-1084): delete is
 // checked first, then insert, each capped by its run-length limit, and
@@ -68,12 +69,6 @@ YT_HD int32_t ld_u8(const uint8_t* p) {
 #else
     return (int32_t)*p;
 #endif
-}
-
-// Byte idx of a reference row of length len; 255 (a mismatch with every
-// code) outside it.
-YT_HD int32_t ref_at(const uint8_t* row, int64_t len, int64_t idx) {
-    return (idx >= 0 && idx < len) ? (int32_t)row[idx] : 255;
 }
 
 struct Scoring {

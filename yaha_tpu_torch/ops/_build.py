@@ -137,10 +137,10 @@ def load():
         [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 4 + [_i32, _vp])
     lib.yt_anch_full.restype = ct.c_int
     lib.yt_anch_full.argtypes = (
-        [_vp] * 6 + [_i64] * 3 + [_i32] * 6 + [_vp] * 4)
+        [_vp] * 6 + [_i64] * 3 + [_i32] * 6 + [_vp] * 3)
     lib.yt_anch_banded.restype = ct.c_int
     lib.yt_anch_banded.argtypes = (
-        [_vp] * 6 + [_i64] * 3 + [_i32] * 7 + [_vp] * 4)
+        [_vp] * 6 + [_i64] * 3 + [_i32] * 7 + [_vp] * 3)
     lib.yt_gather_problems.restype = ct.c_int
     lib.yt_gather_problems.argtypes = (
         [_vp, _i64, _i64, _vp, _i64, _vp] + [_i64] * 3 + [_i32] + [_vp] * 3)

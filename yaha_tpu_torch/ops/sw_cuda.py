@@ -19,24 +19,27 @@ dtype, shape and contiguity, allocates the outputs, and launches its
 hand-written kernel on the current stream, raising if the launch fails:
 csrc/ext_kernels.cu (band state in registers, a thread a problem) for
 extensions at -BW 1 to 8, csrc/ext_wide_kernels.cu (a warp a problem on a
-row wavefront) for the other band widths, csrc/anch_kernels.cu (band
-state in registers, a width class per warp) for both anchored entries.
+row wavefront) for the other band widths, csrc/anch_kernels.cu for both
+anchored entries (band state in registers, a width class per warp of 32
+problems; a warp a problem on a row wavefront for the warps with a lane
+wider than 32 columns).
 
 On a CPU tensor it runs its plain PyTorch version (``*_reference``),
 which loops over rows and band columns, vectorised over problems, with
 the same tie rules and int32 wrap-around as the kernel.  Unlike the
 Pallas entries, N may be any size.
 
-The wide kernel replaces a first version that gave each problem a thread
-and kept its band state in global scratch, a load/store round trip a cell
-on the dependent chain, with plane bytes stored one at a time a plane
-apart between the lanes of a warp; and a thread's band state cannot grow
-past -BW 8 in registers.  What bounds the wide kernel is each row's
-dependent chain of cells and the lanes a strip leaves idle (for W < 64,
-W/64 of the steps busy).  Its rows are spread over a warp's lanes, the
-row above handed down by a shuffle, so a lane's state does not grow with
-W; the plane is staged 32 rows at a time and written with 16-byte stores,
-every byte of it, into an uninitialised buffer.
+The two wavefront routes (the wide extension, the anchored wide warps)
+replace first versions that gave each problem a thread and kept its band
+state in global scratch, a load/store round trip a cell on the dependent
+chain, with plane bytes stored one at a time a plane apart between the
+lanes of a warp; a thread's band state cannot grow past 32 columns in
+registers.  What bounds them is each row's dependent chain of cells and
+the lanes a strip leaves idle (for widths under 64, width/64 of the steps
+busy).  Their rows are spread over a warp's lanes, the row above handed
+down by a shuffle, so a lane's state does not grow with the width; the
+plane is staged 32 rows at a time and written with 16-byte stores, every
+byte of it, into an uninitialised buffer.
 
 Packed backtrack byte: bits 0-2 the op code, bit 3 (BT_CD) "delete run
 continues one cell left", bit 4 (BT_CF) "insert run continues up the
@@ -72,8 +75,8 @@ REG_WIDTHS = (5, 9, 13, 17, 21, 25, 29, 33)
 REG_BLOCKS = (32, 64, 128)
 EXT_BLOCK = 64
 # Columns of band state the anchored kernels keep in registers, at most
-# (width classes 8, 16 and 32); a warp with a wider lane runs with its
-# state in global scratch.
+# (width classes 8, 16 and 32); the problems of a warp with a wider lane
+# go to the wide route, a warp a problem.
 ANCH_REG_COLS = 32
 _launch_lock = threading.Lock()
 
@@ -369,7 +372,7 @@ def _launched(name, err):
 
 
 def _p(t):
-    return None if t is None else t.data_ptr()
+    return t.data_ptr()
 
 
 def ext_variant(band_width):
@@ -435,7 +438,10 @@ def anchored_forward_banded(q, qlens, r, rlens, left_bw, right_bw, *, wband,
     contract of sw_pallas.anchored_forward_pallas_banded for any N.
 
     wband >= max(left_bw + right_bw) + 1.  Returns score [N] int32 and
-    bt_b [N, QL+1, wband] int8 (insert chains run diagonally).
+    bt_b [N, QL+1, wband] int8 (insert chains run diagonally).  On the
+    card wband may be at most 2,829 when it is over 32 (the wide route's
+    warp must fit a block's shared memory; the C entry refuses a wider
+    plane).
     """
     kw = dict(go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
               max_intron=max_intron)
@@ -449,18 +455,15 @@ def anchored_forward_banded(q, qlens, r, rlens, left_bw, right_bw, *, wband,
         raise ValueError("%s: wband must be at least 1" % name)
     n, ql = q.shape
     dev = q.device
-    # The kernel writes every byte of its planes.
+    # The kernels write every byte of their planes.
     bt = torch.empty((n, ql + 1, wband), dtype=torch.int8, device=dev)
     score = torch.empty(n, dtype=I32, device=dev)
     if n:
-        # State of the warps wider than 32 columns (none below that).
-        scratch = torch.empty((3, wband + 1, n), dtype=I32, device=dev) \
-            if wband > ANCH_REG_COLS else None
         from . import _build
         _launched(name, _build.load().yt_anch_banded(
             _p(q), _p(r), _p(qlens), _p(rlens), _p(lbw), _p(rbw), n, ql,
             r.shape[1], wband, go, ge, rc, ms, max_gap, max_intron, _p(bt),
-            _p(score), _p(scratch), _stream(dev)))
+            _p(score), _stream(dev)))
     return {"score": score, "bt_b": bt}
 
 
@@ -470,7 +473,8 @@ def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
     sw_pallas.anchored_forward_pallas for any N and any RL.
 
     Returns score [N] int32 and bt [N, QL+1, RL+1] int8 (insert chains
-    run straight up).
+    run straight up).  On the card RL may be at most 2,828 when it is over
+    32 (the C entry refuses a wider plane, as for anchored_forward_banded).
     """
     kw = dict(go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
               max_intron=max_intron)
@@ -483,16 +487,15 @@ def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
     n, ql = q.shape
     rl = r.shape[1]
     dev = q.device
+    # The kernels write every byte of their planes.
     bt = torch.empty((n, ql + 1, rl + 1), dtype=torch.int8, device=dev)
     score = torch.empty(n, dtype=I32, device=dev)
     if n:
-        scratch = torch.empty((3, rl + 2, n), dtype=I32, device=dev) \
-            if rl > ANCH_REG_COLS else None
         from . import _build
         _launched(name, _build.load().yt_anch_full(
             _p(q), _p(r), _p(qlens), _p(rlens), _p(lbw), _p(rbw), n, ql,
             rl, go, ge, rc, ms, max_gap, max_intron, _p(bt), _p(score),
-            _p(scratch), _stream(dev)))
+            _stream(dev)))
     return {"score": score, "bt": bt}
 
 

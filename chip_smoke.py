@@ -126,6 +126,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one --trace run whose Chrome trace must name a CUDA kernel of the
      port.
 
+  9. the scale-out: the four long-gap reads of
+     tests/torch_dp_cases.long_gap_reads at -G 3,600 (gap buckets of RL
+     4,096, too wide for the anchored wide route) through the default
+     configuration, their buckets on the lockstep twin (gap_twin > 0), SAM
+     bytes equal to the native engine's; at -BW 708, past the staged
+     wide extension kernel, its direct variant equal to the plain version
+     and readsA's first ten reads with SAM bytes equal to the native
+     engine's; the device seeder over the
+     hash-range sharded L15 index on (data x model) grids (1 x 2) and
+     (2 x 2) of the card, on the 1 kb batch: beside a single-device
+     seeder, each grid's cold and warm run (counts set to 0 just before
+     the warm run and read after it; the (1 x 2) run's are the merge
+     kernel's launches), SAM bytes equal to the native engine's, hit rows
+     equal to the single seeder's wherever both serve a row, seed wall,
+     per-shard SO and ROA bytes and all_gather_bytes; each shard's
+     range-masked expansion and the merge kernel at that run's largest
+     launch of each tier (32,768 rows at 2 x 1,024, the tier-2 rows at 2 x
+     8,192) equal to their plain versions, timed beside their bounds, the
+     merge beside torch.sort of the packed keys; two CLI processes on the
+     card (--num-hosts 2, a gloo group on a free local port), on the 1 kb
+     batch with the host seed scan and on the golden readsA with --seed
+     device --model-shards 2, each merged SAM equal, apart from @PG, to
+     one process's run of the same flags.
+
 Each phase's seconds are printed.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
@@ -181,19 +205,24 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                          "yaha_tpu/ops/seeds_jax.py:63"),
     "chain_dp": ("yaha_tpu_torch/csrc/chain_kernels.cu",
                  "yaha_tpu/ops/chain_jax.py:38"),
+    "merge_sorted_runs": ("yaha_tpu_torch/csrc/seed_kernels.cu",
+                          "yaha_tpu/parallel/mesh.py:204"),
 }
 # The device seed phase's kernels (--seed device, phase 6); the chain DP,
 # which no engine runs (the JAX package wires it into none), driven by
 # phase 7; the other kernels run on the host-seed path of phases 3-4.
 SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
 CHAIN_KERNELS = ("chain_dp",)
+# The merge of the index shards' hit rows: the sharded seeder's alone
+# (--model-shards, phase 9).
+SCALE_KERNELS = ("merge_sorted_runs",)
 DP_KERNELS = [k for k in KERNELS
-              if k not in SEED_KERNELS + CHAIN_KERNELS]
+              if k not in SEED_KERNELS + CHAIN_KERNELS + SCALE_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
 NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|anch_reg_kernel|"
                       r"anch_wide_kernel|rle_win_kernel|gather_kernel|"
                       r"seed_hash_kernel|expand_sort_kernel|"
-                      r"chain_dp_kernel")
+                      r"merge_runs_kernel|chain_dp_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
 WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
@@ -234,6 +263,12 @@ PAIR_STAGE_OPS = (3, 3, 3, 23)
 # the window's compare (a subtract, a compare).
 WINDOW_PAIR_OPS = 2
 QUEUE_CYCLES = 20_000_000  # ~10 ms of card clock ahead of a timed window
+# Phase 9, the scale-out: the (data, model) grids of the card that shard
+# the index, the -G of the long-gap reads (whose gap fills are too wide for
+# the anchored wide route), and the seconds a CLI process may take.
+SCALE_GRIDS = ((1, 2), (2, 2))
+LONG_GAP_MAX_GAP = 3600
+CLI_TIMEOUT = 300
 
 
 def sync(torch, dev):
@@ -398,9 +433,10 @@ def phase_build():
                                  "and the full layout" % (kind, anch))
     hashes = [k for k in report if "seed_hash_kernel" in k]
     expands = [k for k in report if "expand_sort_kernel" in k]
-    if not (hashes and expands):
-        raise AssertionError("phase1: seed kernel instances %s and %s" % (
-            hashes, expands))
+    merges = [k for k in report if "merge_runs_kernel" in k]
+    if not (hashes and expands and merges):
+        raise AssertionError("phase1: seed kernel instances %s, %s and %s"
+                             % (hashes, expands, merges))
     chains = [k for k in report if "chain_dp_kernel" in k]
     if len(chains) != 7:
         raise AssertionError("phase1: chain kernel instances %s, want the 7 "
@@ -595,6 +631,7 @@ def phase_kernels(torch, sw, errs, dev):
     """Each kernel on the card against its plain version on the card."""
     from yaha_tpu_torch.utils import codec
     from yaha_tpu_torch.ops import decode, gather_dp, seeds
+    from yaha_tpu_torch.parallel.mesh import rebase_so
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_dp_cases import indel_extension_inputs
     rng = np.random.default_rng(SEED)
@@ -631,8 +668,8 @@ def phase_kernels(torch, sw, errs, dev):
 
     # Extension, both kernels: N = 4096 at QL = 256 for BW 5 (the register
     # kernel at each block size, and the wide kernel at W = 21) and BW 3; a
-    # few hundred problems at QL = 4096 (the read lengths the Pallas entry
-    # sent to its windowed variant); BW 8 (W = 33, the widest register
+    # few hundred problems at QL = 2112 (past 2048, the read lengths the
+    # Pallas entry sent to its windowed variant); BW 8 (W = 33, the widest register
     # instance); by dispatch the wide kernel at BW 0, 9 and 16 (W = 1, 37,
     # 65), with an early X-drop (x_cutoff 4), the int32-wrap scoring, and
     # reads with an indel of up to 2*bw bases (X-drop 60: paths out to the
@@ -643,7 +680,7 @@ def phase_kernels(torch, sw, errs, dev):
     for n, ql, bw, xc, kw, kernels, indel in (
             (4096, 256, 5, 25, kw0, default + forced, False),
             (4096, 256, 3, 15, kw0, default, False),
-            (256, 4096, 5, 25, kw0, default, False),
+            (256, 2112, 5, 25, kw0, default, False),
             (1024, 128, 8, 25, kw0, default, False),
             (1024, 128, 0, 25, kw0, default, False),
             (1024, 128, WIDE_BW, 25, kw0, default, False),
@@ -726,9 +763,9 @@ def phase_kernels(torch, sw, errs, dev):
         sync(torch, dev)
         compare(torch, errs, "phase2", name,
                 "%s = unpacked entry" % fn.__name__, got, out)
-    # Band-relative, mostly wide warps: N = 2048 at QL = 256, wband 64 and
-    # 256, and N = 64 at wband 1024.
-    for n, ql, wband, kw in ((2048, 256, 64, kw0), (2048, 256, 256, kw0),
+    # Band-relative, mostly wide warps: N = 2048 at QL = 128 (four strips),
+    # wband 64 and 256, and N = 64 at wband 1024.
+    for n, ql, wband, kw in ((2048, 128, 64, kw0), (2048, 128, 256, kw0),
                              (512, 64, 64, wrap), (64, 16, 1024, kw0)):
         rl = ql + wband
         q, r = _rand_problems(rng, n, ql, rl, similar=True)
@@ -812,6 +849,31 @@ def phase_kernels(torch, sw, errs, dev):
             compare(torch, errs, "phase2", "expand_sort_hits", "%s C=%d" % (
                 tag, cap), got, seeds.expand_sort_hits_reference(
                     *args, max_hits=max_hits, capacity=cap))
+        # Over two model shards (the scale-out's range-masked expansion),
+        # then the shards' rows merged.
+        so_local, bases, lens = rebase_so(so, 2)
+        per = so_local.shape[1] - 1
+        for cap in caps:
+            outs = []
+            for m in range(2):
+                sargs = args[:2] + up(so_local[m].view(np.int32), np.append(
+                    roa[bases[m]:bases[m] + lens[m]], 0).view(np.int32))
+                kw = dict(max_hits=max_hits, capacity=cap, hash_lo=m * per,
+                          per=per)
+                outs.append(seeds.expand_sort_hits(*sargs, **kw))
+                sync(torch, dev)
+                compare(torch, errs, "phase2", "expand_sort_hits",
+                        "%s shard %d of 2 C=%d" % (tag, m, cap), outs[-1],
+                        seeds.expand_sort_hits_reference(*sargs, **kw))
+            runs = [torch.stack([o[k] for o in outs]) for k in ("diag",
+                                                                "qo")]
+            got = seeds.merge_sorted_runs(*runs)
+            sync(torch, dev)
+            want = seeds.merge_sorted_runs_reference(*runs)
+            compare(torch, errs, "phase2", "merge_sorted_runs",
+                    "%s 2 shards C=%d" % (tag, cap),
+                    {"diag": got[0], "qo": got[1]},
+                    {"diag": want[0], "qo": want[1]})
 
 
 def _recorder(StagedAligner, gap_dispatch, pack_coords):
@@ -1547,7 +1609,7 @@ def phase_seed(torch, sw, StagedAligner, SeedRecorder, genome, index, aa,
     _seed_report("phase6 1kb", seeder)
     for name in KERNELS:
         if (launches[name] == 0) != (name == "extension_forward_wide" or
-                                     name in CHAIN_KERNELS):
+                                     name in CHAIN_KERNELS + SCALE_KERNELS):
             raise AssertionError("phase6: %s launched %d times" % (
                 name, launches[name]))
     # The host seed scan (a fresh default aligner) and the device seeder
@@ -2263,6 +2325,371 @@ def phase_engines_cli(tg_nib, tg_idx):
                                        k[:40] for k in ours)))
 
 
+def phase_long_gaps(torch, sw, host, StagedAligner, tg_nib, tg_idx,
+                    threads, dev):
+    """The four long-gap reads of tests/torch_dp_cases.long_gap_reads (7-8
+    kb flanks around a 3.0-3.5 kb deletion and 30-45 inserted bases) at -G
+    3,600 through the default configuration: their unbanded gap buckets of
+    RL 4,096 are too wide for the anchored wide route and go, by shape, to
+    the lockstep twin on the card (gap_twin > 0); SAM bytes equal to the
+    native engine's."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import long_gap_reads
+    index = host.load_index(tg_idx)
+    genome = host.load_genome(tg_nib)
+    aa = _aa(host, index, tg_idx, max_gap=LONG_GAP_MAX_GAP)
+    pr = host.parse_queries_native(
+        long_gap_reads(os.path.join(REPO, "tests", "data", "testgen.fasta")),
+        False, aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=threads)[0]
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads)
+    wall, launches = _timed(torch, sw, st, pr, ref, dev,
+                            "phase9 long gaps -G %d" % LONG_GAP_MAX_GAP)
+    s = st.stats
+    log("phase9 long gaps -G %d: reads=%d parity=true wall_s=%.3f "
+        "gap_problems=%d gap_twin=%d banded=%d full=%d fallback=%d "
+        "launches=%s" % (LONG_GAP_MAX_GAP, pr.n, wall, s["gap_problems"],
+                         s["gap_twin"], s["gap_banded"], s["gap_full"],
+                         s["gap_fallback"], json.dumps(
+                             {k: v for k, v in launches.items() if v})))
+    if not s["gap_twin"]:
+        raise AssertionError("phase9 long gaps: no bucket took the twin")
+
+
+def phase_wide_band(torch, sw, host, StagedAligner, tg_nib, tg_idx,
+                    threads, errs, dev):
+    """-BW 708 (W 2,833), past the staged wide extension kernel's shared
+    memory: the direct variant (lanes store their rows straight into the
+    plane) equal to the plain version on 48 numpy-seeded problems, then
+    readsA's first ten reads through the default configuration, every
+    extension on the wide kernel, SAM bytes equal to the native
+    engine's."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import KW, extension_inputs
+    # The plain version takes a PyTorch op a cell column: on the host, on
+    # 16 problems of QL 40 (two strips).
+    arrs = [torch.from_numpy(a) for a in
+            extension_inputs(708, 16, 40, 708, 0.15)]
+    kw = dict(KW, band_width=708, x_cutoff=25)
+    got = sw.extension_forward(*(a.to(dev) for a in arrs), **kw)
+    compare(torch, errs, "phase9", "extension_forward_wide", "BW708 direct",
+            {k: v.cpu() for k, v in got.items()},
+            sw.extension_forward_reference(*arrs, **kw))
+    # Time: the direct kernel at -BW 708 beside the staged one at -BW 707
+    # on 256 problems of QL 1,024 each (4 seeded copies).
+    for bw in (707, 708):
+        sets = [[torch.from_numpy(a).to(dev) for a in extension_inputs(
+            bw + k, 256, 1024, bw, 0.05)] for k in range(4)]
+        ms = _time_kernel(torch, dev, lambda *a: sw.extension_forward(
+            *a, **dict(kw, band_width=bw)), sets)
+        plane = 256 * 1025 * (4 * bw + 1)
+        bound_ms, bound_by = _bound(plane + _nbytes(*sets[0]), 0)
+        log("phase9 extension_forward_wide BW%d (%s) 256 x 1024 W %d: "
+            "kernel %.6f ms, bound %.6f ms (%s: the plane), %.2f %% of the "
+            "bound" % (bw, "direct" if bw > 707 else "staged", 4 * bw + 1,
+                       ms, bound_ms, bound_by, 100 * bound_ms / ms))
+        del sets
+    index = host.load_index(tg_idx)
+    genome = host.load_genome(tg_nib)
+    aa = _aa(host, index, tg_idx, band_width=708)
+    with open(os.path.join(REPO, "tests", "data", "readsA_100bp.fasta"),
+              "rb") as f:
+        data = b">" + b">".join(f.read().split(b">")[1:11])
+    pr = host.parse_queries_native(data, False, aa.max_query_length,
+                                   aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=threads)[0]
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads)
+    wall, launches = _timed(torch, sw, st, pr, ref, dev, "phase9 -BW 708")
+    log("phase9 -BW 708: reads=%d parity=true wall_s=%.3f ext_problems=%d "
+        "launches=%s" % (pr.n, wall, st.stats["ext_problems"], json.dumps(
+            {k: v for k, v in launches.items() if v})))
+    if not launches["extension_forward_wide"]:
+        raise AssertionError("phase9 -BW 708: the wide kernel did not run")
+
+
+def _same_rows(what, got, want):
+    """Raise unless two seeders' rows (diag, qo, offs, totals) are equal
+    wherever both serve a row on the card (totals >= 0), and the sharded
+    one (`got`) serves every row the single one does.  Returns the count
+    of rows both serve."""
+    both = (got[3] >= 0) & (want[3] >= 0)
+    if both.sum() != (want[3] >= 0).sum() or not np.array_equal(
+            got[3][both], want[3][both]):
+        raise AssertionError("%s: row totals differ" % what)
+    for k in (0, 1):
+        sel = [np.repeat(both, np.diff(x[2])) for x in (got, want)]
+        if not np.array_equal(got[k][sel[0]], want[k][sel[1]]):
+            raise AssertionError("%s: hit rows differ from the single "
+                                 "seeder's" % what)
+    return int(both.sum())
+
+
+def phase_sharded_seed(torch, sw, StagedAligner, SeedRecorder, DeviceSeeder,
+                       genome, index, aa, pr, ref, threads, dev):
+    """The seeder over the hash-range sharded L15 index on (data x model)
+    grids of the card (SCALE_GRIDS), on the 1 kb batch: beside a fresh
+    single-device seeder, each grid's seeder built (the index rebased and
+    placed: its bytes and seconds), a cold run, then a warm run with the
+    counts set to 0 just before it and read just after, SAM bytes equal to
+    the native engine's; its hit rows equal to the single seeder's
+    wherever both serve a row; seed_device_s, the per-shard SO and ROA
+    bytes and all_gather_bytes beside the single seeder's.  Returns the
+    (1 x 2) grid's recorder seeder and its warm run's launches."""
+    from yaha_tpu_torch.parallel import mesh as pmesh
+    one = DeviceSeeder(aa, index, device=dev)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads,
+                       seeder=one)
+    _timed(torch, sw, st, pr, ref, dev, "phase9 single seeder first run")
+    _reset_stats(st, one)
+    wall, _ = _timed(torch, sw, st, pr, ref, dev, "phase9 single seeder")
+    s = one.stats
+    log("phase9 1kb grid=1x1 (single seeder): warm_wall_s=%.4f "
+        "seed_device_s=%.4f seed_launches=%d all_gather_bytes=%d "
+        "index_bytes=%d (SO %d + ROA %d)" % (
+            wall, s["seed_device_s"], s["seed_launches"],
+            s["all_gather_bytes"], s["index_upload_bytes"],
+            one.iview.starting_offs.nbytes, one.iview.roa.nbytes))
+    want = one.seed_chunk(pr, 0, pr.n, st._chunk_rows(pr, 0, pr.n))
+    del st, one
+    kept = None
+    for n_data, n_model in SCALE_GRIDS:
+        tag = "phase9 1kb grid=%dx%d" % (n_data, n_model)
+        grid = pmesh.make_mesh([dev] * n_data * n_model, n_model)
+        t0 = time.time()
+        seeder = SeedRecorder(aa, index, mesh=grid)
+        placed = time.time() - t0
+        st = StagedAligner(aa, genome, index, device=dev, n_threads=threads,
+                           seeder=seeder)
+        _timed(torch, sw, st, pr, ref, dev, tag + " cold run")
+        _reset_stats(st, seeder)
+        wall, launches = _timed(torch, sw, st, pr, ref, dev,
+                                tag + " warm run")
+        s = seeder.stats
+        sidx = seeder.sidx
+        log("%s: warm_wall_s=%.4f seed_device_s=%.4f seed_launches=%d "
+            "cap_retries=%d fallback_rows=%d all_gather_bytes=%d "
+            "index_bytes=%d placed_s=%.2f shards=%s launches=%s" % (
+                tag, wall, s["seed_device_s"], s["seed_launches"],
+                s["cap_retries"], s["fallback_rows"], s["all_gather_bytes"],
+                s["index_upload_bytes"], placed, json.dumps([
+                    {"so_bytes": sidx.shard_nbytes(m)[0],
+                     "roa_bytes": sidx.shard_nbytes(m)[1]}
+                    for m in range(n_model)]), json.dumps(
+                        {k: v for k, v in launches.items() if v})))
+        if not (launches["expand_sort_hits"] and
+                launches["merge_sorted_runs"]):
+            raise AssertionError("%s: launches %s" % (tag, launches))
+        got = seeder.seed_chunk(pr, 0, pr.n, st._chunk_rows(pr, 0, pr.n))
+        n_rows = _same_rows(tag, got, want)
+        log("%s: hit rows equal to the single seeder's on %d rows (it "
+            "serves %d, the grid %d)" % (tag, n_rows, (want[3] >= 0).sum(),
+                                         (got[3] >= 0).sum()))
+        if (n_data, n_model) == SCALE_GRIDS[0]:
+            kept = (seeder, launches)
+        del st, got
+    return kept
+
+
+def _packed_key(torch, diag, qo):
+    """[b, M C] int64 keys of the gathered shard rows whose order is (diag
+    uint32, qo): (diag - 2^31) << 32 | qo, so that no shift leaves the
+    int64 range."""
+    m, b, c = diag.shape
+    return (((diag.to(torch.int64) & 0xFFFFFFFF) - (1 << 31)) << 32 |
+            qo.to(torch.int64)).permute(1, 0, 2).reshape(b, m * c)
+
+
+def phase_shard_kernels(torch, seeds, seeder, kernels, errs, dev):
+    """The range-masked expansion and the merge kernel at the sharded
+    seeder's largest launch of each tier (the 1 kb batch's [32,768 rows,
+    2 x 1,024], and the tier-2 rows at 2 x 8,192): each shard's expansion
+    and the merge of the shards' rows equal to their plain versions; both
+    timed (CUDA events, 4 shuffled copies, queued behind a spin) beside
+    their bounds and plain versions, the merge beside torch.sort of the
+    packed int64 keys."""
+    rng = np.random.default_rng(SEED)
+    sidx = seeder.sidx
+    n_model = sidx.n_model
+    mh = int(seeder.aa.max_hits)
+    tables = [sidx.tables[(seeder.mesh.grid[0][m], m)]
+              for m in range(n_model)]
+    for cap in seeder.CAP_TIERS:
+        if cap not in seeder.kept:
+            log("phase9 expand_sort_hits: no launch at C=%d in the sharded "
+                "run" % cap)
+            continue
+        hashes, clean = seeder.kept[cap]
+        rows, windows = hashes.shape
+        perms = [torch.from_numpy(rng.permutation(rows)).to(dev)
+                 for _ in range(4)]
+        sets = [[hashes.index_select(0, p), clean.index_select(0, p)]
+                for p in perms]
+        tier = "tier %d" % (seeder.CAP_TIERS.index(cap) + 1)
+        outs = []
+        for m, (so, roa) in enumerate(tables):
+            kw = dict(max_hits=mh, capacity=cap,
+                      hash_lo=int(sidx.hash_lo[m]), per=sidx.per)
+            tag = "%s shard %d of %d C=%d rows=%d N=%d" % (
+                tier, m, n_model, cap, rows, windows)
+            ms = _time_kernel(torch, dev, lambda *a: seeds.expand_sort_hits(
+                *a, so, roa, **kw), sets)
+            plain_ms, want = _time_once(
+                torch, dev, lambda *a: seeds.expand_sort_hits_reference(
+                    *a, so, roa, **kw), sets[1])
+            got = seeds.expand_sort_hits(*sets[1], so, roa, **kw)
+            sync(torch, dev)
+            compare(torch, errs, "phase9", "expand_sort_hits", tag, got,
+                    want)
+            local = sets[1][0].to(torch.int64) - kw["hash_lo"]
+            in_rng = sets[1][1] & (local >= 0) & (local < sidx.per)
+            valid = want["total"].to(torch.int64).clamp(0, cap)
+            steps = torch.where(valid > 1, valid * torch.ceil(torch.log2(
+                valid.clamp(min=2).double())).to(torch.int64), 0)
+            nbytes = (_nbytes(*sets[1]) + 8 * int(in_rng.sum()) +
+                      4 * int(valid.sum()) + _nbytes(*got.values()))
+            ops = SORT_CMP_OPS * int(steps.sum()) + WINDOW_OPS * rows * \
+                windows
+            bound_ms, bound_by = _bound(nbytes, ops)
+            kernels["expand_sort_hits"].setdefault("shards", []).append(
+                {"tier": seeder.CAP_TIERS.index(cap) + 1, "shard": m,
+                 "rows": rows, "capacity": cap, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+            log("phase9 expand_sort_hits %s: kernel %.6f ms, plain %.3f ms, "
+                "bound %.6f ms (%s: %d bytes, %d int32 ops), %.1f %% of the "
+                "bound" % (tag, ms, plain_ms, bound_ms, bound_by, nbytes,
+                           ops, 100 * bound_ms / ms))
+            outs.append(got)
+            del want
+        diag = torch.stack([o["diag"] for o in outs])
+        qo = torch.stack([o["qo"] for o in outs])
+        # The copy into one [M, b, C] tensor that sharded_expand_sort no
+        # longer makes (the shards expand into the merge's input).
+        runs = [o[k] for k in ("diag", "qo") for o in outs]
+        stack_ms = _time_kernel(torch, dev, lambda *t: (
+            torch.stack(t[:n_model]), torch.stack(t[n_model:])), [runs])
+        log("phase9 %s C=%d rows=%d: the stack copy of the shards' rows "
+            "that the merge's input no longer needs %.6f ms (%d bytes "
+            "read, as many written)" % (tier, cap, rows, stack_ms,
+                                        _nbytes(*runs)))
+        del outs, runs
+        msets = [[diag.index_select(1, p), qo.index_select(1, p)]
+                 for p in perms]
+        tag = "%s M=%d C=%d rows=%d" % (tier, n_model, cap, rows)
+        ms = _time_kernel(torch, dev, seeds.merge_sorted_runs, msets)
+        plain_ms, want = _time_once(torch, dev,
+                                    seeds.merge_sorted_runs_reference,
+                                    msets[1])
+        got = seeds.merge_sorted_runs(*msets[1])
+        keys = [[_packed_key(torch, *ms_)] for ms_ in msets]
+        lib_ms = _time_kernel(torch, dev, lambda k: torch.sort(k, dim=1),
+                              keys)
+        lib = torch.sort(keys[1][0], dim=1).values
+        sync(torch, dev)
+        if not (torch.equal((lib >> 32) + (1 << 31), got[0].to(
+                torch.int64) & 0xFFFFFFFF) and torch.equal(
+                    lib & 0xFFFFFFFF, got[1].to(torch.int64))):
+            raise AssertionError("phase9 merge_sorted_runs %s: torch.sort "
+                                 "of the keys differs from the kernel" % tag)
+        del keys, lib
+        elems = n_model * rows * cap
+        nbytes = 2 * _nbytes(*msets[1])
+        ops = SORT_CMP_OPS * elems * (n_model - 1) * (
+            int(np.log2(cap)) + 1)
+        got = {"diag": got[0], "qo": got[1]}
+        want = {"diag": want[0], "qo": want[1]}
+        if cap == seeder.CAP_TIERS[0]:
+            _record(torch, kernels, errs, "phase9", "merge_sorted_runs", tag,
+                    ms, plain_ms, got, want, nbytes, ops, library_ms=lib_ms)
+        else:
+            compare(torch, errs, "phase9", "merge_sorted_runs", tag, got,
+                    want)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            kernels["merge_sorted_runs"]["tier2"] = {
+                "rows": rows, "capacity": cap, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log("phase9 merge_sorted_runs %s: kernel %.6f ms, plain %.3f "
+                "ms, torch.sort %.6f ms, bound %.6f ms (%s), %.1f %% of the "
+                "bound" % (tag, ms, plain_ms, lib_ms, bound_ms, bound_by,
+                           100 * bound_ms / ms))
+        del got, want, msets, sets, diag, qo
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_multihost(reads, idx, tg_idx):
+    """Two CLI processes on the card (--num-hosts 2, each its --host-id,
+    a gloo group at a free local port, both on cuda:0): the 1 kb batch with
+    the host seed scan, and the golden readsA with --seed device
+    --model-shards 2 (hosts, data and model at once); each merged SAM equal,
+    apart from @PG, to one process's run of the same flags.  Every process
+    has CLI_TIMEOUT seconds; one that fails or times out fails the phase
+    and the other is stopped."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def body(p):
+        with open(p, "rb") as f:
+            return [ln for ln in f.read().split(b"\n")
+                    if not ln.startswith(b"@PG")]
+    with tempfile.TemporaryDirectory(dir=CACHE) as d:
+        batch = os.path.join(d, "batch_1kb.fasta")
+        with open(batch, "wb") as f:
+            f.write(b"".join(reads))
+        for tag, q, x, flags in (
+                ("1kb host seed", batch, idx, []),
+                ("readsA seed device model-shards 2",
+                 os.path.join(REPO, "tests", "data", "readsA_100bp.fasta"),
+                 tg_idx, ["--seed", "device", "--model-shards", "2"])):
+            base = [sys.executable, "-m", "yaha_tpu_torch.cli", "-x", x,
+                    "-q", q, "--engine", "batch-cuda", "--device",
+                    "cuda"] + flags
+            t0 = time.time()
+            run(base + ["-osh", os.path.join(d, "one.sam")], env=env,
+                timeout=CLI_TIMEOUT)
+            one_s = time.time() - t0
+            port = _free_port()
+            t0 = time.time()
+            procs = [subprocess.Popen(
+                base + ["--coordinator", "127.0.0.1:%d" % port,
+                        "--num-hosts", "2", "--host-id", str(k), "-osh",
+                        os.path.join(d, "two.sam")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                for k in range(2)]
+            try:
+                for k, p in enumerate(procs):
+                    out = p.communicate(timeout=CLI_TIMEOUT)[0].decode()
+                    if p.returncode != 0:
+                        raise RuntimeError("phase9 %s: host %d exited %d:\n%s"
+                                           % (tag, k, p.returncode,
+                                              out[-3000:]))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            two_s = time.time() - t0
+            if body(os.path.join(d, "two.sam")) != body(
+                    os.path.join(d, "one.sam")):
+                raise AssertionError("phase9 %s: the two hosts' merged SAM "
+                                     "differs from one process's" % tag)
+            parts = [os.path.getsize(os.path.join(d, "two.sam.part%05d" % k))
+                     for k in range(2)]
+            log("phase9 cli 2 hosts %s: merged SAM == one process's "
+                "(%d records); one process %.1f s, two hosts %.1f s, part "
+                "bytes %s" % (tag, len(body(os.path.join(d, "one.sam"))),
+                              one_s, two_s, parts))
+
+
 def _device_time(torch, prof, wall):
     """(busy ms, idle share of `wall`, ms by kind, ms of the 8 costliest
     names) from the card's events of one torch.profiler run."""
@@ -2414,7 +2841,8 @@ def main():
     # the host seed scan launches no seed kernel.
     for name in KERNELS:
         if (launches[name] == 0) != (name == "extension_forward_wide" or
-                                     name in SEED_KERNELS + CHAIN_KERNELS):
+                                     name in SEED_KERNELS + CHAIN_KERNELS +
+                                     SCALE_KERNELS):
             raise AssertionError("phase3: %s launched %d times" % (
                 name, launches[name]))
     log("phase3 1kb launches by route: %s" % json.dumps(
@@ -2496,6 +2924,22 @@ def main():
                 reads, threads, dev)
     phase_engines_cli(tg_nib, tg_idx)
     phase_done("phase8 seconds")
+    # The scale-out: the gap buckets too wide for the kernels, then the
+    # sharded seeder, whose (1 x 2) grid's warm run (counts set to 0 just
+    # before it and read just after) is the merge kernel's path.
+    phase_long_gaps(torch, sw, host, StagedAligner, tg_nib, tg_idx, threads,
+                    dev)
+    phase_wide_band(torch, sw, host, StagedAligner, tg_nib, tg_idx, threads,
+                    errs, dev)
+    sharded, shard_launches = phase_sharded_seed(
+        torch, sw, StagedAligner, _seed_recorder(torch, DeviceSeeder),
+        DeviceSeeder, genome, index, aa, pr, ref, threads, dev)
+    for name in SCALE_KERNELS:
+        kernels[name]["launches"] = shard_launches[name]
+    phase_shard_kernels(torch, seeds, sharded, kernels, errs, dev)
+    del sharded
+    phase_multihost(reads, idx, tg_idx)
+    phase_done("phase9 seconds")
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

@@ -11,8 +11,9 @@ tolerance zero (integer arrays, the whole backtrack plane included):
     W in {13, 21, 33} (-BW 3, 5, 8), run row by row as a lone problem and
     with every row on its predicated path, as a lane does when another lane
     of its warp needs that path;
-  * the wide kernel of csrc/ext_wide_kernels.cu at W in {1, 21, 37, 65}:
-    its lane step, fold and copies over an emulated 32-lane warp, each
+  * the wide kernel of csrc/ext_wide_kernels.cu at W in {1, 21, 37, 65},
+    staged and direct (its lanes' rows straight into the plane): its lane
+    step, fold and copies over an emulated 32-lane warp, each
     lane's output handed to the next lane a step later as the shuffle
     does, on planes prefilled with garbage;
 
@@ -44,7 +45,19 @@ an indel of up to 2*bw bases (indel_extension_inputs);
     entry (the golden index's seed rows at capacities 64, 1,024 and 8,192,
     the wrapped run at a tier's last slots, unsigned-order and sentinel
     edges, 650-hit runs across C in rows of three batches, row totals
-    around every sort size); every output prefilled with garbage;
+    around every sort size), and over each model shard of 2 and 4 (a
+    shard's hash range, its rebased SO and ROA slice:
+    parallel/mesh.ShardedIndex) held to the plain version with the same
+    range; merge_element (merge_runs_kernel's body: each element's slot by
+    binary searches in the other runs) over every element of every row,
+    held to seeds.merge_sorted_runs_reference (torch.sort of the gathered
+    keys) on runs with diag >= 2^31, 0xFFFFFFFF beside the sentinel,
+    equal keys across runs, full and empty runs; every output prefilled
+    with garbage;
+  * wavefront.cuh's wide_warp_bytes and kWideSmemMax, and
+    ext_wide_kernels.cu's ext_direct_warp_bytes, equal to their Python
+    copy in ops/sw_cuda.py (full_wide_fits, ext_wide_fits) at every plane
+    width 33-4,200 (1-13,000 for the direct extension);
   * the anchored gap fill of csrc/anch_kernels.cu: the register bodies
     (AnchBand<K>, AnchFull<K>) in every width class and the wide route
     (AnchWideProblem, AnchWideLane, AnchWideSched and the shared copies of
@@ -361,6 +374,7 @@ static void sort_row(std::vector<uint64_t>& keys, int64_t valid,
 extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
                                 int64_t b, int64_t n, const uint32_t* so,
                                 const uint32_t* roa, int32_t max_hits,
+                                int32_t hash_lo, int64_t per,
                                 int64_t cap, uint32_t* diag, int32_t* qo,
                                 int32_t* total, uint8_t* overflow,
                                 uint8_t* wrapped, uint8_t* allwrapped) {
@@ -381,7 +395,7 @@ extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
                 if (w < n)
                     runs[lw] = ytsw::window_run(hashes[r * n + w],
                                                 clean[r * n + w] != 0, so,
-                                                max_hits);
+                                                max_hits, hash_lo, per);
                 at += (uint32_t)runs[lw].kept;
                 cum[lw] = at;
             }
@@ -416,6 +430,29 @@ extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
         overflow[r] = tot > cap ? 1 : 0;
         allwrapped[r] = any ? 1 : 0;
     }
+}
+
+// merge_runs_kernel's blocks: every element of every row through
+// merge_element, rows last to first and elements in no set order (the
+// threads write their slots in no set order).
+extern "C" void run_merge(const uint32_t* diag, const int32_t* qo,
+                          int32_t m, int64_t b, int64_t cap,
+                          uint32_t* out_diag, int32_t* out_qo) {
+    for (int64_t row = b - 1; row >= 0; row--)
+        for (int64_t k = 0; k < (int64_t)m * cap; k++) {
+            const int64_t e = (k * 7919) % ((int64_t)m * cap);
+            ytsw::merge_element(diag, qo, m, b, cap, row, e, out_diag,
+                                out_qo);
+        }
+}
+
+// The wide routes' shared memory (wavefront.cuh), for its Python copy.
+extern "C" int64_t wide_warp_bytes(int64_t w) {
+    return ytsw::wide_warp_bytes(w);
+}
+extern "C" int64_t wide_smem_max() { return ytsw::kWideSmemMax; }
+extern "C" int64_t ext_direct_warp_bytes(int64_t w) {
+    return ytsw::ext_direct_warp_bytes(w);
 }
 
 // variant 1: ext_problem_reg<W>; 2: ext_problem_reg<W> with every row
@@ -460,8 +497,10 @@ extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
 // row, and each lane's output goes to the next lane for the next step (the
 // shuffle); the fold is a sequential max-scan over the strip's rows and
 // the first exiting row (the ballot); every copy runs as 32 lane shares.
-// The strip stages start as garbage, as shared memory does.
-extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
+// The strip stages start as garbage, as shared memory does.  direct:
+// ext_wide_kernel<true>, whose lanes write their rows straight into the
+// plane (none past QL) and which copies no strip.
+extern "C" void run_ext_wide(int direct, const uint8_t* q, const uint8_t* r,
                              const int32_t* qlens, const int32_t* rlens,
                              int64_t n, int64_t ql, int64_t rl, int32_t bw2,
                              const int32_t* kw, int8_t* bt, int32_t* score,
@@ -507,7 +546,8 @@ extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
                 for (int k = 0; k < lanes; k++) {
                     const int par = ((L[k].i - 1) / lanes) & 1;
                     out[k] = L[k].step(P, codes + par * cb,
-                                       stage + par * sb + k * w);
+                                       wide_row_dst(direct, stage, sb, k,
+                                                    L[k].i, plane, ql, w));
                 }
                 if (L[lanes - 1].j >= 0 && L[lanes - 1].j < w)
                     row[L[lanes - 1].j] = out[lanes - 1];
@@ -525,7 +565,7 @@ extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
                 const bool ex = el >= 0;
                 if (!ex) el = lanes - 1;
                 run = e[el];
-                for (int k = 0; k < lanes; k++)
+                for (int k = 0; k < lanes && !direct; k++)
                     copy_share(k, plane + ((int64_t)strip * lanes + 1) * w,
                                (int64_t)(el + 1) * w,
                                StageSrc{stage + (strip & 1) * sb});
@@ -698,7 +738,7 @@ def lib(tmp_path_factory):
     out.run_ext.restype = ct.c_int
     out.run_ext.argtypes = [ct.c_int] + ext_args
     out.run_ext_wide.restype = None
-    out.run_ext_wide.argtypes = ext_args
+    out.run_ext_wide.argtypes = [ct.c_int] + ext_args
     out.run_anch.restype = ct.c_int
     out.run_anch.argtypes = ([ct.c_int] * 4 + [ct.c_void_p] * 6 +
                              [ct.c_int64] * 3 + [ct.c_int32] +
@@ -722,8 +762,18 @@ def lib(tmp_path_factory):
     out.run_expand_sort.restype = None
     out.run_expand_sort.argtypes = ([ct.c_void_p] * 2 + [ct.c_int64] * 2 +
                                     [ct.c_void_p] * 2 +
-                                    [ct.c_int32, ct.c_int64] +
+                                    [ct.c_int32, ct.c_int32, ct.c_int64,
+                                     ct.c_int64] +
                                     [ct.c_void_p] * 6)
+    out.run_merge.restype = None
+    out.run_merge.argtypes = ([ct.c_void_p] * 2 + [ct.c_int32] +
+                              [ct.c_int64] * 2 + [ct.c_void_p] * 2)
+    out.wide_warp_bytes.restype = ct.c_int64
+    out.wide_warp_bytes.argtypes = [ct.c_int64]
+    out.wide_smem_max.restype = ct.c_int64
+    out.wide_smem_max.argtypes = []
+    out.ext_direct_warp_bytes.restype = ct.c_int64
+    out.ext_direct_warp_bytes.argtypes = [ct.c_int64]
     return out
 
 
@@ -740,23 +790,24 @@ def _inputs(bw, err, short, seed, indel):
 
 def _run(lib, variant, bw, kw, q, qlens, r, rlens):
     """The register body (variant 1, or 2 with every row predicated) on
-    zeroed planes, or the wide body ("wide") on planes and outputs
-    prefilled with garbage: it must write every byte."""
+    zeroed planes, or the wide body ("wide", and "direct" with no strip
+    stages) on planes and outputs prefilled with garbage: it must write
+    every byte."""
     n, ql = q.shape
     w = 4 * bw + 1
-    fill = UNWRITTEN_BT if variant == "wide" else 0
+    wide = variant in ("wide", "direct")
+    fill = UNWRITTEN_BT if wide else 0
     out = {"bt": np.full((n, ql + 1, w), fill, np.int8)}
     for key in ("score", "maxi", "maxj"):
-        out[key] = np.full(n, UNWRITTEN if variant == "wide" else 0,
-                           np.int32)
+        out[key] = np.full(n, UNWRITTEN if wide else 0, np.int32)
     params = np.array([kw["go"], kw["ge"], kw["rc"], kw["ms"], kw["max_gap"],
                        kw["max_intron"], kw["x_cutoff"]], np.int32)
     arrays = [np.ascontiguousarray(a) for a in (q, r, qlens, rlens)]
     args = ([a.ctypes.data for a in arrays] +
             [n, ql, r.shape[1], 2 * bw, params.ctypes.data] +
             [out[k].ctypes.data for k in ("bt", "score", "maxi", "maxj")])
-    if variant == "wide":
-        lib.run_ext_wide(*args)
+    if wide:
+        lib.run_ext_wide(int(variant == "direct"), *args)
     else:
         assert lib.run_ext(variant, *args) == 0
     return out
@@ -792,11 +843,12 @@ def test_register_body_matches_plain(lib, w, case):
 @pytest.mark.parametrize("case", WIDE_CASES, ids=WIDE_CASE_IDS)
 @pytest.mark.parametrize("w", WIDE_WIDTHS)
 def test_wide_body_matches_plain(lib, w, case):
-    """The wide kernel's lane step, fold and copies over an emulated warp:
-    every byte of the plane (garbage before), score, maxi and maxj equal
-    the plain version's."""
+    """The wide kernel's lane step, fold and copies over an emulated warp,
+    staged and direct: every byte of the plane (garbage before), score,
+    maxi and maxj equal the plain version's."""
     bw = (w - 1) // 4
-    qlens, want = _check(lib, ("wide",), bw, case, seed=w * 100 + case[1])
+    qlens, want = _check(lib, ("wide", "direct"), bw, case,
+                         seed=w * 100 + case[1])
     if case[1] < 10:
         assert (want["maxi"].numpy() < qlens).mean() > 0.5
     if case[7] and case[1] > 25 and w > 1:
@@ -1194,6 +1246,29 @@ def test_expand_bodies_match_plain(lib, case):
     across C in rows of three batches and row totals around every sort
     size; every output prefilled with garbage."""
     hashes, clean, so, roa, max_hits, cap = _seed_inputs(case)
+    out = _expand_body(lib, hashes, clean, so, roa, max_hits, cap)
+    want = seeds.expand_sort_hits_reference(
+        *(_t(a) for a in (hashes, clean, so, roa)), max_hits=max_hits,
+        capacity=cap)
+    _equal_plain(out, want)
+    assert out["wrapped"].any()
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _equal_plain(out, want):
+    for key, w in want.items():
+        got = out[key].view(np.int32) if key == "diag" else out[key]
+        np.testing.assert_array_equal(got, w.numpy().astype(got.dtype),
+                                      err_msg=key)
+
+
+def _expand_body(lib, hashes, clean, so, roa, max_hits, cap, hash_lo=0):
+    """run_expand_sort on every output prefilled with garbage; so holds
+    per + 1 words: the shard of hashes [hash_lo, hash_lo + per)."""
     b, n = hashes.shape
     out = {"diag": np.full((b, cap), UNWRITTEN, np.uint32),
            "qo": np.full((b, cap), UNWRITTEN, np.int32),
@@ -1204,17 +1279,88 @@ def test_expand_bodies_match_plain(lib, case):
     arrs = [np.ascontiguousarray(a) for a in (hashes, clean, so, roa)]
     lib.run_expand_sort(arrs[0].ctypes.data, arrs[1].ctypes.data, b, n,
                         arrs[2].ctypes.data, arrs[3].ctypes.data, max_hits,
-                        cap, *(out[k].ctypes.data for k in (
+                        hash_lo, len(so) - 1, cap, *(out[k].ctypes.data
+                                                     for k in (
                             "diag", "qo", "total", "overflow", "wrapped",
                             "allwrapped")))
-    want = seeds.expand_sort_hits_reference(
-        *(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
-          for a in arrs), max_hits=max_hits, capacity=cap)
-    for key, w in want.items():
-        got = out[key].view(np.int32) if key == "diag" else out[key]
-        np.testing.assert_array_equal(got, w.numpy().astype(got.dtype),
-                                      err_msg=key)
-    assert out["wrapped"].any()
+    return out
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("case", ["golden1024", "unsigned16", "longrun1024",
+                                  "wrapped64"])
+def test_expand_shard_bodies_match_plain(lib, case, n_model):
+    """The same bodies over one model shard at a time (the shard's range
+    and its rebased SO and ROA slice, parallel/mesh.ShardedIndex): equal
+    to the plain version with the same range, and the shards' kept hits
+    add up to the whole index's."""
+    from yaha_tpu_torch.parallel import mesh
+
+    class Idx:
+        pass
+    hashes, clean, Idx.starting_offs, Idx.roa, max_hits, cap = \
+        _seed_inputs(case)
+    Idx.word_len = Idx.max_hits = 0
+    sidx = mesh.ShardedIndex(Idx, n_model)
+    totals = np.zeros(hashes.shape[0], np.int64)
+    for m in range(n_model):
+        so, roa = sidx.so_local[m], sidx.roa_parts[m]
+        lo = int(sidx.hash_lo[m])
+        out = _expand_body(lib, hashes, clean, so, roa, max_hits, cap,
+                           hash_lo=lo)
+        _equal_plain(out, seeds.expand_sort_hits_reference(
+            *(_t(a) for a in (hashes, clean, so, roa)), max_hits=max_hits,
+            capacity=cap, hash_lo=lo, per=sidx.per))
+        totals += out["total"]
+    whole = seeds.expand_sort_hits_reference(
+        *(_t(a) for a in (hashes, clean, Idx.starting_offs, Idx.roa)),
+        max_hits=max_hits, capacity=cap)
+    np.testing.assert_array_equal(totals, whole["total"].numpy())
+
+
+# (shards M, rows b, capacity C)
+MERGE_SHAPES = [(1, 5, 1), (2, 9, 2), (2, 17, 64), (3, 9, 32), (4, 7, 128),
+                (2, 3, 1024)]
+
+
+@pytest.mark.parametrize("m,b,cap", MERGE_SHAPES)
+def test_merge_body_matches_plain(lib, m, b, cap):
+    """merge_element over every element of every row (outputs prefilled
+    with garbage): equal to merge_sorted_runs_reference, torch.sort of the
+    gathered keys, on runs with diag >= 2^31, 0xFFFFFFFF beside the
+    sentinel, equal keys across runs, full runs and empty ones."""
+    rng = np.random.default_rng(m * 1000 + cap)
+    pool = np.concatenate([rng.integers(0, 1 << 32, 30, dtype=np.uint64),
+                           [0, 1, (1 << 31) - 1, 1 << 31, 0xFFFFFFFF]])
+    diag = np.full((m, b, cap), 0xFFFFFFFF, np.uint32)
+    qo = np.full((m, b, cap), 0x7FFFFFFF, np.int32)
+    for k in range(m):
+        for r in range(b):
+            v = (cap, 0)[r] if r < 2 else int(rng.integers(0, cap + 1))
+            d = rng.choice(pool, v).astype(np.uint32)
+            q = rng.integers(0, 8, v).astype(np.int32)
+            o = np.lexsort((q, d.astype(np.int64)))
+            diag[k, r, :v], qo[k, r, :v] = d[o], q[o]
+    out_d = np.full((b, m * cap), UNWRITTEN, np.uint32)
+    out_q = np.full((b, m * cap), UNWRITTEN, np.int32)
+    lib.run_merge(diag.ctypes.data, qo.ctypes.data, m, b, cap,
+                  out_d.ctypes.data, out_q.ctypes.data)
+    want_d, want_q = seeds.merge_sorted_runs_reference(_t(diag), _t(qo))
+    np.testing.assert_array_equal(out_d, want_d.numpy().view(np.uint32))
+    np.testing.assert_array_equal(out_q, want_q.numpy())
+
+
+def test_wide_warp_bytes_copy_matches_c(lib):
+    """ops/sw_cuda's copy of the wide routes' shared-memory limit is the C
+    one at every plane width 33..4,200 (and the direct extension's up to
+    13,000), so full_wide_fits and ext_wide_fits say what the C entries
+    take."""
+    assert sw_cuda.WIDE_SMEM_MAX == lib.wide_smem_max()
+    for w in range(33, 4201):
+        assert sw_cuda.wide_warp_bytes(w) == lib.wide_warp_bytes(w), w
+    for w in range(1, 13001):
+        assert sw_cuda.ext_direct_warp_bytes(w) == (
+            lib.ext_direct_warp_bytes(w)), w
 
 
 def _chain_inputs(case):

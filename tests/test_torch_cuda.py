@@ -18,15 +18,20 @@ unsigned-order, sentinel and wrapped-run edges, on 650-hit runs across C
 in rows of three expansion batches, on row totals around every sort size,
 and on hash rows whose 16-window runs cross row ends, at two alignments
 (tests/test_torch_seeds.py holds the plain versions to the JAX
-package).  The chain DP kernel is held to its plain version on the ranges
-of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
+package); the expansion also on each shard of 2 and 4 of the index
+(parallel/mesh.ShardedIndex), and the merge of the shards' rows
+(merge_sorted_runs) on them and on random sorted runs up to the 1 kb
+batch's [2, 32,768, 1,024].  The chain DP kernel is held to its plain
+version on the ranges of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
 ranges, at every team shape (N = 20 to 4,096 nodes) and on ranges whose
 candidate DAG is one path through every node.  The lockstep
 twins of ops/sw_batch.py on the card are held to the same functions on
 the CPU, array for array.  The engine is held to the
 native C++ engine, SAM bytes equal, in its default configuration (device
 assembly + device walk) and in the A/B one, with the device seeder, and
-with the "torch" backend.  Neither jax nor tests/conftest.py is
+with the "torch" backend, on the long-gap reads at -G 3,600 (their RL
+4,096 gap buckets on the lockstep twin) and with the seeder on (1 x 2) and
+(2 x 2) grids of the card.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
 with
 
@@ -54,8 +59,9 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             gather_aligned_coords, gather_case,
                             gather_clamp_coords, gather_coords, hash_rows,
                             indel_extension_inputs, indel_reads,
-                            long_run_inputs, medium_indel_gaps, read_rows,
-                            seed_case, seed_rows)
+                            long_gap_reads, long_run_inputs,
+                            medium_indel_gaps, read_rows, seed_case,
+                            seed_rows)
 from yaha_tpu_torch.ops import (chain, decode, gather_dp, seeds, sw_batch,
                                 sw_cuda)
 
@@ -128,6 +134,28 @@ def test_wide_extension_kernel_matches_plain(dev, bw, xc, mg, mi, err,
     kw = dict(KW, band_width=bw, x_cutoff=xc, max_gap=mg, max_intron=mi)
     _equal(sw_cuda.extension_forward(*args, variant="wide", **kw),
            sw_cuda.extension_forward_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("indel", [False, True], ids=["subst", "indel"])
+@pytest.mark.parametrize("bw", [708, 3226])
+def test_direct_extension_kernel_matches_plain(dev, bw, indel):
+    """Past W 2,829 the wide kernel's strip stages do not fit a block's
+    shared memory and its direct variant (lanes store their rows straight
+    into the plane) serves, up to -BW 3,226 (W 12,905); every byte of the
+    plane equals the plain version's.  QL 40 is two strips; the plain
+    version (a PyTorch op a cell column) runs on the CPU, where its small
+    ops cost less than a launch each."""
+    if indel:
+        arrs = indel_extension_inputs(bw, 16, 40, bw)
+    else:
+        arrs = extension_inputs(bw, 16, 40, bw, 0.15)
+    kw = dict(KW, band_width=bw, x_cutoff=25)
+    sw_cuda.reset_launches()
+    got = sw_cuda.extension_forward(*_up(dev, *arrs), **kw)
+    assert sw_cuda.launches()["extension_forward_wide"] == 1
+    want = sw_cuda.extension_forward_reference(
+        *(torch.from_numpy(a) for a in arrs), **kw)
+    _equal({k: v.cpu() for k, v in got.items()}, want)
 
 
 @pytest.mark.parametrize("bw", [0, 1, 8, 9, 16])
@@ -270,11 +298,11 @@ def test_wrappers_count_launches_and_check_inputs(dev):
                 dict(variant="reg", band_width=9)):
         with pytest.raises(ValueError):
             sw_cuda.extension_forward(q, qlens, r, rlens, **dict(kw, **bad))
-    # W 4097: one warp's shared memory exceeds a block's; the C entry
-    # refuses the launch.
+    # W 12,909: even the direct warp's shared memory exceeds a block's;
+    # the C entry refuses the launch.
     with pytest.raises(RuntimeError):
         sw_cuda.extension_forward(q, qlens, r, rlens, variant="wide",
-                                  **dict(kw, band_width=1024))
+                                  **dict(kw, band_width=3227))
     assert sw_cuda.launches()["extension_forward"] == 1
     assert sw_cuda.launches()["extension_forward_wide"] == 0
 
@@ -445,6 +473,92 @@ def test_expand_sort_kernel_matches_plain(dev, case):
         "expand_sort_hits": 1}
     _equal(got, seeds.expand_sort_hits_reference(hashes, clean, so, roa,
                                                  **kw))
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("case", ["golden1024", "golden8192", "unsigned16",
+                                  "longrun1024", "wrapped64"])
+def test_expand_sort_shard_kernel_matches_plain(dev, case, n_model):
+    """The range-masked expansion on each model shard of the index
+    (parallel/mesh.ShardedIndex: its range, rebased SO and ROA slice) and
+    the merge of the shards' rows, each kernel equal to its plain version
+    on the card, one launch each; the merged rows equal the plain
+    version's whole-index rows wherever no shard overflowed."""
+    from yaha_tpu_torch.parallel import mesh
+
+    class Idx:
+        word_len = max_hits = 0
+    src, Idx.starting_offs, Idx.roa, max_hits, cap = seed_case(case)
+    if src[0] == "rows":
+        codes, lens = _up(dev, src[1], src[2])
+        hashes, clean = seeds.seed_hashes_reference(codes, lens,
+                                                    word_len=src[3])
+    else:
+        hashes, clean = _up(dev, src[1], src[2])
+    sidx = mesh.ShardedIndex(Idx, n_model)
+    kw = dict(max_hits=max_hits, capacity=cap, per=sidx.per)
+    outs = []
+    for m in range(n_model):
+        so, roa = _up(dev, sidx.so_local[m].view(np.int32),
+                      sidx.roa_parts[m].view(np.int32))
+        lo = int(sidx.hash_lo[m])
+        sw_cuda.reset_launches()
+        got = seeds.expand_sort_hits(hashes, clean, so, roa, hash_lo=lo,
+                                     **kw)
+        assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+            "expand_sort_hits": 1}
+        _equal(got, seeds.expand_sort_hits_reference(
+            hashes, clean, so, roa, hash_lo=lo, **kw))
+        outs.append(got)
+    diag = torch.stack([o["diag"] for o in outs])
+    qo = torch.stack([o["qo"] for o in outs])
+    sw_cuda.reset_launches()
+    got = seeds.merge_sorted_runs(diag, qo)
+    assert {k: v for k, v in sw_cuda.launches().items() if v} == {
+        "merge_sorted_runs": 1}
+    want = seeds.merge_sorted_runs_reference(diag, qo)
+    _equal({"diag": got[0], "qo": got[1]}, {"diag": want[0], "qo": want[1]})
+    so, roa = _up(dev, Idx.starting_offs.view(np.int32),
+                  Idx.roa.view(np.int32))
+    whole = seeds.expand_sort_hits_reference(
+        hashes, clean, so, roa, max_hits=max_hits, capacity=n_model * cap)
+    ok = ~torch.stack([o["overflow"] for o in outs]).any(0)
+    tot = whole["total"].clamp(min=0)
+    mask = (torch.arange(n_model * cap, device=dev)[None, :] <
+            tot[:, None]) & ok[:, None]
+    assert torch.equal(got[0][mask], whole["diag"][mask])
+    assert torch.equal(got[1][mask], whole["qo"][mask])
+
+
+@pytest.mark.parametrize("m,b,cap", [(2, 32768, 1024), (2, 300, 8192),
+                                     (3, 1000, 64), (4, 17, 2048),
+                                     (1, 5, 16)])
+def test_merge_kernel_matches_plain(dev, m, b, cap):
+    """The merge kernel on random sorted runs (diag >= 2^31, 0xFFFFFFFF
+    beside the sentinel, equal keys across runs, full and empty runs) at
+    the 1 kb batch's tier-1 shape and a tier-2 one: equal to
+    torch.sort of the gathered keys."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + cap)
+    valid = torch.randint(0, cap + 1, (m, b, 1), generator=gen, device=dev)
+    valid[:, 0] = cap
+    valid[:, 1] = 0
+    pool = torch.tensor([0, 1, 2 ** 31 - 1, -2 ** 31, -1], dtype=torch.int32,
+                        device=dev)
+    d = torch.randint(-2 ** 31, 2 ** 31, (m, b, cap), generator=gen,
+                      device=dev, dtype=torch.int32)
+    pick = torch.randint(0, 8, (m, b, cap), generator=gen, device=dev)
+    d = torch.where(pick < 5, pool[pick.clamp(max=4)], d)
+    q = torch.randint(0, 16, (m, b, cap), generator=gen, device=dev,
+                      dtype=torch.int32)
+    live = torch.arange(cap, device=dev)[None, None, :] < valid
+    key = torch.where(live, ((d.to(torch.int64) & 0xFFFFFFFF) << 31) | q,
+                      (0xFFFFFFFF << 31) | 0x7FFFFFFF)
+    key, _ = torch.sort(key, dim=2)
+    diag = seeds._as_i32(key >> 31)
+    qo = (key & 0x7FFFFFFF).to(torch.int32)
+    got = seeds.merge_sorted_runs(diag, qo)
+    want = seeds.merge_sorted_runs_reference(diag, qo)
+    _equal({"diag": got[0], "qo": got[1]}, {"diag": want[0], "qo": want[1]})
 
 
 def test_seed_wrappers_refuse_shapes(dev):
@@ -626,6 +740,107 @@ def test_anchored_twin_card_matches_cpu(dev, seed, d, mg, mi):
         *(torch.from_numpy(a) for a in args), **kw)
     _equal({k: v.cpu() for k, v in sw_batch.batched_anchored_forward(
         *_up(dev, *args), **kw).items()}, cpu)
+
+
+def test_staged_cuda_too_wide_gap_buckets_take_the_twin(dev, testgen):
+    """tests/torch_dp_cases.long_gap_reads at -G 3,600: the two unbanded
+    gap buckets of RL 4,096, too wide for the anchored wide route, go to
+    the lockstep twin on the card (gap_twin), every other bucket to the
+    kernels; SAM bytes equal the native engine's."""
+    from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = testgen
+    aa = host.AlignmentArgs()
+    aa.xfile_name = INDEX
+    aa.ofile_name = "out.sam"
+    aa.max_gap = 3600
+    aa.post_process(True)
+    aa.word_len = index.word_len
+    pr = host.parse_queries_native(
+        long_gap_reads(os.path.join(DATA, "testgen.fasta")), False,
+        aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=4)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=4)
+    sw_cuda.reset_launches()
+    text, sm, nr = st.align_chunk(pr, 0, pr.n)
+    assert text == ref[0]
+    assert (sm, nr) == (ref[2], ref[3])
+    assert st.stats["gap_twin"] == 2
+    assert sw_cuda.launches()["anchored_forward_banded"] > 0
+
+
+def test_staged_cuda_bw_708_takes_the_direct_kernel(dev, testgen):
+    """readsA's first reads at -BW 708 (W 2,833, past the staged wide
+    kernel): every extension bucket goes to the direct wide kernel, none
+    to a twin; SAM bytes equal the native engine's."""
+    from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.staged import StagedAligner
+    genome, index = testgen
+    aa = host.AlignmentArgs()
+    aa.xfile_name = INDEX
+    aa.ofile_name = "out.sam"
+    aa.band_width = 708
+    aa.post_process(True)
+    aa.word_len = index.word_len
+    data = _reads("readsA_100bp.fasta")
+    pr = host.parse_queries_native(b">" + b">".join(data.split(b">")[1:11]),
+                                   False, aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=4)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=4)
+    sw_cuda.reset_launches()
+    text, sm, nr = st.align_chunk(pr, 0, pr.n)
+    assert text == ref[0]
+    assert (sm, nr) == (ref[2], ref[3])
+    assert st.stats["ext_problems"] > 0
+    assert sw_cuda.launches()["extension_forward_wide"] > 0
+
+
+def test_sharded_seeder_on_card_matches_native(dev, testgen):
+    """DeviceSeeder on (1 x 2) and (2 x 2) grids of the card (readsC at
+    -BW 3 -G 20 -M 15 -X 15): seed rows equal the single-device seeder's
+    wherever both serve a row, SAM bytes equal the native engine's, both
+    kernels launched."""
+    from yaha_tpu_torch import host
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.models.staged import StagedAligner
+    from yaha_tpu_torch.parallel import mesh
+    genome, index = testgen
+    aa = host.AlignmentArgs()
+    aa.xfile_name = INDEX
+    aa.ofile_name = "out.sam"
+    for k, v in {"band_width": 3, "max_gap": 20, "min_match": 15,
+                 "x_cutoff": 15}.items():
+        setattr(aa, k, v)
+    aa.post_process(True)
+    aa.word_len = index.word_len
+    pr = host.parse_queries_native(_reads("readsC_1kb.fasta"), False,
+                                   aa.max_query_length, aa.word_len)
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=4)
+    want = DeviceSeeder(aa, index, device=dev).seed_chunk(pr, 0, pr.n)
+    for n_data in (1, 2):
+        grid = mesh.make_mesh([dev] * 2 * n_data, 2)
+        seeder = DeviceSeeder(aa, index, mesh=grid)
+        got = seeder.seed_chunk(pr, 0, pr.n)
+        both = (got[3] >= 0) & (want[3] >= 0)
+        assert both.sum() == (want[3] >= 0).sum()
+        for r in np.flatnonzero(both):
+            for k in (0, 1):
+                np.testing.assert_array_equal(
+                    got[k][got[2][r]:got[2][r + 1]],
+                    want[k][want[2][r]:want[2][r + 1]])
+        st = StagedAligner(aa, genome, index, device=dev, n_threads=4,
+                           seeder=seeder)
+        sw_cuda.reset_launches()
+        text, sm, nr = st.align_chunk(pr, 0, pr.n)
+        assert text == ref[0]
+        assert (sm, nr) == (ref[2], ref[3])
+        launched = sw_cuda.launches()
+        assert launched["seed_hashes"] == 1
+        assert launched["expand_sort_hits"] >= 2 * n_data
+        assert launched["merge_sorted_runs"] >= n_data
 
 
 @pytest.mark.parametrize("qfile,over", [

@@ -1,9 +1,10 @@
-"""The port imports nothing of the JAX package.
+"""The port imports nothing of the JAX package, and not jax.
 
 Every module of yaha_tpu_torch, chip_smoke.py and the case file it
 imports (tests/torch_dp_cases.py) is scanned with `ast`:
 no `import yaha_tpu`, `import yaha_tpu.x`, `from yaha_tpu import ...` or
-`from yaha_tpu.x import ...` (yaha_tpu_torch itself is allowed).  The
+`from yaha_tpu.x import ...` (yaha_tpu_torch itself is allowed), and the
+same for jax.  The
 runtime side, a CLI run that loads no yaha_tpu module and no library of
 yaha_tpu/native, is test_cli_imports_no_jax in tests/test_torch_staged.py.
 """
@@ -21,9 +22,10 @@ PORT_FILES = sorted(
                   "chip_smoke.py", "tests/torch_dp_cases.py"]
 
 
-def _reference_imports(path, root=REPO):
-    """(line, module) of every import of yaha_tpu or yaha_tpu.* in a file;
-    relative imports stay inside the file's own package."""
+def _reference_imports(path, root=REPO, package="yaha_tpu"):
+    """(line, module) of every import of `package` or `package`.* in a
+    file (yaha_tpu, or jax); relative imports stay inside the file's own
+    package."""
     with open(os.path.join(root, path)) as f:
         tree = ast.parse(f.read(), filename=path)
     found = []
@@ -35,7 +37,7 @@ def _reference_imports(path, root=REPO):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n == "yaha_tpu" or n.startswith("yaha_tpu.")]
+                  if n == package or n.startswith(package + ".")]
     return found
 
 
@@ -44,12 +46,19 @@ def test_scan_covers_the_port():
     assert "yaha_tpu_torch/native/host.py" in PORT_FILES
     assert "yaha_tpu_torch/models/seeder.py" in PORT_FILES
     assert "yaha_tpu_torch/ops/seeds.py" in PORT_FILES
+    assert "yaha_tpu_torch/parallel/mesh.py" in PORT_FILES
+    assert "yaha_tpu_torch/parallel/distributed.py" in PORT_FILES
     assert len(PORT_FILES) > 15
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_module_imports_nothing_of_yaha_tpu(path):
     assert _reference_imports(path) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_module_imports_no_jax(path):
+    assert _reference_imports(path, package="jax") == []
 
 
 def test_scan_finds_reference_imports(tmp_path):

@@ -394,7 +394,22 @@ def test_cli_batch_torch_device_cuda_without_card_fails(scratch):
 
 
 def test_cli_rejects_unported_flags(scratch):
+    """Every flag of the JAX package's CLI is ported but its engines for
+    other devices: --engine batch-pallas is refused, and --model-shards
+    (the last flag ported) runs, in a process that imports no jax, with
+    the golden output."""
     r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
-                           "--device", "cpu", "--model-shards", "2"])
+                           "--device", "cpu", "--engine", "batch-pallas"])
     assert r.returncode != 0
-    assert b"not ported" in r.stderr
+    assert b"--engine must be one of" in r.stderr
+    r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
+                           "--device", "cpu", "--model-shards", "2", "-osh",
+                           "shards.sam"])
+    assert r.returncode == 0, r.stderr[-2000:]
+
+    def body(p):
+        with open(p, "rb") as f:
+            return [ln for ln in f.read().split(b"\n")
+                    if not ln.startswith(b"@PG")]
+    assert body(os.path.join(scratch, "shards.sam")) == body(
+        os.path.join(GOLD, "F_edge.sam"))

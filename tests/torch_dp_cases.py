@@ -283,6 +283,32 @@ def indel_reads(fasta, n, seed):
     return b"".join(recs)
 
 
+def long_gap_reads(fasta, n=4, seed=31):
+    """FASTA of n reads from the first sequence of `fasta`: a left flank of
+    7-8 kb, 30-45 inserted random bases, then a right flank of 7-8 kb
+    that starts 3.0-3.5 kb past the left one's end (a deletion).  At -G
+    3,600 the chain joins across the deletion and its gap fill has a
+    reference of 3,000-3,500 bases in an unbanded plane: an RL 4,096
+    bucket, wider than the anchored wide route takes."""
+    rng = np.random.default_rng(seed)
+    with open(fasta, "rb") as f:
+        chrom = f.read().split(b">")[1].split(b"\n", 1)[1].replace(b"\n",
+                                                                  b"")
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for k in range(n):
+        left, right = (int(x) for x in rng.integers(7000, 8001, 2))
+        gap = int(rng.integers(3000, 3501))
+        ins = bases[rng.integers(0, 4, int(rng.integers(30, 46)))]
+        p = int(rng.integers(0, len(chrom) - left - gap - right))
+        seq = np.concatenate([
+            np.frombuffer(chrom[p:p + left], np.uint8), ins,
+            np.frombuffer(chrom[p + left + gap:p + left + gap + right],
+                          np.uint8)])
+        recs.append(b">longgap%d_%d_%d\n%s\n" % (k, p, gap, seq.tobytes()))
+    return b"".join(recs)
+
+
 def extension_inputs(seed, n, ql, bw, err=0.15):
     """Queries and references that share a prefix at `err` substitutions,
     RL = QL + 4*bw as the staged engine lays them out."""

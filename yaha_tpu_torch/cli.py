@@ -35,7 +35,25 @@ Counterpart of yaha_tpu/cli.py, with the reference's four operations
                         of every thread, and the card's kernels and copies
                         with --device cuda), written to DIR as a Chrome
                         trace; the batches keep their prefetch schedule
+  --model-shards N      shard the k-mer index by hash range over N columns
+                        of a local (data x model) grid of the --device
+                        kind's devices (parallel/mesh.py); implies --seed
+                        device.  N is a power of two (it divides the
+                        index's 4^L hashes).  n local devices give data = max(1, n // N)
+                        rows; n > N must be a multiple of N, and with fewer
+                        devices than N the shards share them (one card, or
+                        the CPU, holds every shard)
+  --coordinator HOST:PORT, --num-hosts N, --host-id I
+                        a run over N processes (hosts): each runs the same
+                        command with its own --host-id in [0, N), aligns its range of
+                        the query file into OUT.partIIIII, and after a
+                        barrier host 0 writes OUT from the parts in host
+                        order (parallel/distributed.py; a gloo group at
+                        host 0's HOST:PORT)
   --prewarm             accepted and does nothing: nothing is cached
+
+--engine native ignores --model-shards and the three host flags, as the
+reference's does.
 
 The host work runs in the port's own native library (native/host.py).
 """
@@ -61,16 +79,16 @@ _INT_FLAGS = {
     "-S": "skip_dist", "--batch-size": "batch_size",
     "--max-query-length": "max_query_length",
     "--max-region-frags": "max_region_frags",
+    "--model-shards": "model_shards", "--num-hosts": "num_hosts",
+    "--host-id": "host_id",
 }
 _FLOAT_FLAGS = {"-P": "min_identity", "-PRL": "fbs_ps_length",
                 "-PSS": "fbs_ps_score"}
 _BOOL_FLAGS = {"-AGS": "affine_gap_scoring", "-OQC": "oqc", "-FBS": "fbs"}
 _STR_FLAGS = {"-x": "xfile_name", "-q": "qfile_name", "-qs": "qs_file_name",
-              "-g": "gfile_name", "--trace": "trace_dir"}
+              "-g": "gfile_name", "--trace": "trace_dir",
+              "--coordinator": "coordinator"}
 _SWITCHES = {"-v": "verbose", "--prewarm": "prewarm", "--resume": "resume"}
-# Flags of the JAX package's CLI whose paths are not ported yet.
-_NOT_PORTED = ("--model-shards", "--coordinator", "--num-hosts",
-               "--host-id")
 
 USAGE = """\
 yaha_tpu_torch: split-read DNA aligner, DP phases on an NVIDIA GPU
@@ -86,6 +104,8 @@ Align queries:
            [--engine batch-cuda|batch-torch|native] [--device cuda|cpu]
            [--seed host|device] [--trace DIR] [--batch-size N]
            [--max-query-length N] [--max-region-frags N] [--resume]
+           [--model-shards N] [--coordinator HOST:PORT --num-hosts N
+            --host-id I]
 --engine batch-cuda (the default) assembles the DP problems and walks
 their backtrack planes on the device; YT_STAGED_DEVRES=0 /
 YT_STAGED_RLE=0 select the host-fetch / plane-transfer A/B
@@ -93,7 +113,14 @@ configurations.  batch-torch runs the DPs as PyTorch ops on the device;
 native runs the per-read C++ pipeline with no device.  --seed device
 runs a staged engine's seed scan on the device as well.  --trace DIR
 writes a torch.profiler trace of the align loop into DIR.
-Not ported yet: %s.""" % ", ".join(_NOT_PORTED)
+--model-shards N shards the index by hash range over N columns of a
+local (data x model) grid of the --device kind's devices (implies --seed
+device; N a power of two): n local devices give max(1, n // N) data rows, n > N must be a
+multiple of N, and with fewer devices than N the shards share them.
+--coordinator/--num-hosts/--host-id run the staged engines over N
+processes, host ids 0 to N - 1: each aligns its range of the reads into a part file, and host
+0 merges the parts after a barrier (gloo).  --engine native ignores these
+four flags."""
 
 
 def _fail(msg):
@@ -150,10 +177,6 @@ def parse_args(argv):
     i = 0
     while i < len(argv):
         a = argv[i]
-        if a in _NOT_PORTED:
-            _fail("%s is not ported to yaha_tpu_torch yet (not ported: "
-                  "%s); use python -m yaha_tpu.cli."
-                  % (a, ", ".join(_NOT_PORTED)))
         if a in _SWITCHES:
             setattr(aa, _SWITCHES[a], True)
             i += 1
@@ -197,6 +220,7 @@ def parse_args(argv):
         else:
             _fail("%s is not a valid option.\n" % a)
         i += 2
+    _check_scale_flags(aa)
     # The reference's order: compress, uncompress, query, index.
     op = next((o for o in ("compress", "uncompress", "query") if o in ops),
               "index")
@@ -222,6 +246,24 @@ def parse_args(argv):
         aa.xfile_name = os.path.splitext(aa.gfile_name)[0] + (
             ".X%02d_%02d_%05dS" % (aa.word_len, aa.skip_dist, aa.max_hits))
     return aa, device, op
+
+
+def _check_scale_flags(aa):
+    """Refuse a shard or host count below 1, a host id outside [0,
+    --num-hosts) and several hosts without --coordinator."""
+    shards = getattr(aa, "model_shards", 1)
+    hosts = getattr(aa, "num_hosts", 1)
+    host_id = getattr(aa, "host_id", 0)
+    if shards < 1:
+        _fail("--model-shards must be at least 1, got %d." % shards)
+    if hosts < 1:
+        _fail("--num-hosts must be at least 1, got %d." % hosts)
+    if not 0 <= host_id < hosts:
+        _fail("--host-id must be in [0, %d) for --num-hosts %d, got %d."
+              % (hosts, hosts, host_id))
+    if hosts > 1 and not getattr(aa, "coordinator", None):
+        _fail("--num-hosts %d needs --coordinator HOST:PORT (host 0's "
+              "address)." % hosts)
 
 
 # ---- compress, uncompress, index ----
@@ -329,7 +371,8 @@ def _iter_query_chunks(path, block_size=64 << 20):
             carry = data[cut:]
 
 
-def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
+def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
+                       read_range=None, write_header=True):
     """The streaming query loop: the file streams through bounded chunks,
     each parsed natively and aligned in batches by `align_fn(pr, lo, hi,
     dist, want_stats) -> (text, stats, seed_matches, records)`; output is
@@ -337,7 +380,10 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
     YT_STAGED_PREFETCH on (default), batch k+1's host phases overlap
     batch k, traced (--trace) or not.  `dp_stats` is a staged engine's
     launch/byte accounting (None for the native engine) and `seed_stats`
-    the device seeder's (or None), reported under -v."""
+    the device seeder's (or None), reported under -v.  `read_range`
+    restricts the run to the file's reads [lo, hi) (a host's share of a
+    multi-host run); `write_header` off leaves the SAM header out (a part
+    file's; host 0 writes it at the merge)."""
     import concurrent.futures as cf
     import ctypes as ct
     import queue
@@ -401,10 +447,14 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
     rec_total = 0
     dist_acc = [0, 0, (1 << 62), 0, 0, (1 << 62), 0, 0, 0, (1 << 62), -1] \
         if aa.verbose else None
+    rlo, rhi = read_range if read_range is not None else (0, None)
+    eff_start = max(start_read, rlo)
 
     def _batches():
         nonlocal done
         for chunk, fastq in _iter_query_chunks(aa.qfile_name):
+            if rhi is not None and done >= rhi:
+                return   # this host's read range is done
             with timers.stage("parse"):
                 pr = host.parse_queries_native(
                     chunk, fastq, aa.max_query_length, aa.word_len)
@@ -412,11 +462,15 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
             done += pr.n
             for lo in range(0, pr.n, batch_size):
                 hi = min(lo + batch_size, pr.n)
-                if base + hi <= start_read:
-                    continue   # resume: whole batch already emitted
+                if rhi is not None:
+                    hi = min(hi, rhi - base)
+                if hi <= lo:
+                    break
+                if base + hi <= eff_start:
+                    continue   # resume, or before this host's range
                 # Partial overlap (e.g. a different --batch-size than
                 # the interrupted run): start inside the batch.
-                yield pr, max(lo, start_read - base), hi, base + hi
+                yield pr, max(lo, eff_start - base), hi, base + hi
             if pr.stopped:
                 # Reference semantics: a zero-length record ends the
                 # run (Query.c:306).
@@ -449,7 +503,7 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
 
     prefetch = os.environ.get("YT_STAGED_PREFETCH", "1") != "0"
     try:
-        if start_read == 0:
+        if start_read == 0 and write_header:
             emit_q.put((sam.file_header(aa, genome).encode("latin-1"),
                         None))
         if prefetch:
@@ -484,7 +538,7 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
         if emit_err:
             raise emit_err[0]
         if aa.verbose:
-            _report(timers, n - start_read, seed_total, rec_total,
+            _report(timers, n - eff_start, seed_total, rec_total,
                     dp_stats, dist_acc, seed_stats)
     finally:
         if writer.is_alive():
@@ -497,7 +551,8 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None):
             qs_file.close()
         if out is not sys.stdout.buffer:
             out.close()
-            if os.path.exists(cursor_path) and n >= done:
+            target = done if rhi is None else min(rhi, done)
+            if os.path.exists(cursor_path) and n >= target:
                 os.unlink(cursor_path)
 
 
@@ -515,18 +570,21 @@ def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
               file=sys.stderr)
     if dp_stats is not None:
         print("Device DP: %d launches, %d gap + %d ext problems, %.1f MB "
-              "h2d, %.1f MB d2h, %.2fs device+transfer."
+              "h2d, %.1f MB d2h, %.2fs device+transfer; %d gap problems "
+              "too wide for the kernels, on the lockstep twin."
               % (dp_stats["dp_launches"], dp_stats["gap_problems"],
                  dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
-                 dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"]),
+                 dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"],
+                 dp_stats["gap_twin"]),
               file=sys.stderr)
     if seed_stats is not None:
-        print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %d "
-              "retries, %d phantom rows, %d host-scan rows, %.2fs; index "
-              "%.1f MB placed in %.2fs."
+        print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %.1f MB "
+              "gathered from index shards, %d retries, %d phantom rows, %d "
+              "host-scan rows, %.2fs; index %.1f MB placed in %.2fs."
               % (seed_stats["seed_launches"],
                  seed_stats["seed_h2d_bytes"] / 1e6,
                  seed_stats["seed_d2h_bytes"] / 1e6,
+                 seed_stats["all_gather_bytes"] / 1e6,
                  seed_stats["cap_retries"], seed_stats["phantom_rows"],
                  seed_stats["fallback_rows"], seed_stats["seed_device_s"],
                  seed_stats["index_upload_bytes"] / 1e6,
@@ -594,10 +652,33 @@ def _do_query(aa, device):
     from .models.staged import StagedAligner
     if not getattr(aa, "batch_size", 0):
         aa.batch_size = 16384
+    mshards = getattr(aa, "model_shards", 1)
+    if (4 ** aa.word_len) % mshards:
+        _fail("--model-shards %d does not divide the %d hashes of the L%d "
+              "index (it must be a power of two up to 4^%d)."
+              % (mshards, 4 ** aa.word_len, aa.word_len, aa.word_len))
+    # The usage errors come before a host joins the group.
+    mesh = local_mesh(device, mshards) if mshards > 1 else None
+    num_hosts = getattr(aa, "num_hosts", 1)
+    read_range = merged_ofile = None
+    if num_hosts > 1:
+        # Reads range-shard over the hosts; each writes a part file and
+        # host 0 merges the parts in host order after the run.
+        from .parallel import distributed as dist
+        dist.initialize(getattr(aa, "coordinator", None), num_hosts,
+                        getattr(aa, "host_id", 0))
+        read_range = dist.host_read_range(_count_records(aa))
+        merged_ofile = aa.ofile_name
+        aa.ofile_name = dist.part_file_name(merged_ofile)
+        aa.resume = False
     seeder = None
-    if seed == "device":
+    if seed == "device" or mshards > 1:
         from .models.seeder import DeviceSeeder
-        seeder = DeviceSeeder(aa, index, device=device)
+        if mesh is not None:
+            device = mesh.grid[0][0]
+            seeder = DeviceSeeder(aa, index, mesh=mesh)
+        else:
+            seeder = DeviceSeeder(aa, index, device=device)
     aligner = StagedAligner(aa, genome, index, device=device,
                             n_threads=aa.num_threads, seeder=seeder,
                             backend="torch" if engine == "batch-torch"
@@ -612,7 +693,60 @@ def _do_query(aa, device):
         return text, None, sm, nr
     with device_trace(getattr(aa, "trace_dir", None), device):
         _run_native_engine(aa, genome, _align, aligner.stats,
-                           seeder.stats if seeder else None)
+                           seeder.stats if seeder else None,
+                           read_range=read_range,
+                           write_header=num_hosts == 1)
+    if num_hosts > 1:
+        _multihost_merge(aa, genome, merged_ofile)
+
+
+def local_mesh(device, n_model, n_local=None):
+    """The (data x model) grid of --model-shards n_model over the local
+    devices of the `device` kind (n_local of them: every visible card for
+    cuda, one CPU): data = max(1, n_local // n_model) rows.  More devices
+    than n_model must be a multiple of it, as the reference requires;
+    fewer share the shards (parallel/mesh.make_mesh)."""
+    import torch
+    from .parallel import mesh as pmesh
+    if n_local is None:
+        n_local = torch.cuda.device_count() if device == "cuda" else 1
+    if n_local > n_model and n_local % n_model:
+        _fail("--model-shards %d does not divide the %d local devices."
+              % (n_model, n_local))
+    devices = (["cuda:%d" % k for k in range(n_local)] if device == "cuda"
+               else ["cpu"] * n_local)
+    return pmesh.make_mesh(devices[:max(1, n_local // n_model) * n_model],
+                           n_model)
+
+
+def _count_records(aa):
+    """The query file's read count, by the same native parse every host
+    runs, so that the hosts' ranges tile it exactly."""
+    from .native import host
+    total = 0
+    for chunk, fastq in _iter_query_chunks(aa.qfile_name):
+        pr = host.parse_queries_native(chunk, fastq, aa.max_query_length,
+                                       aa.word_len)
+        total += pr.n
+        if pr.stopped:
+            break
+    return total
+
+
+def _multihost_merge(aa, genome, merged_ofile):
+    """The barrier (an all_reduce of ones over the gloo group), then host 0
+    concatenates the parts in host order under the header, whose @PG line
+    names the merged file."""
+    from .io import sam
+    from .parallel import distributed as dist
+    try:
+        n = dist.barrier()
+        if dist.rank() == 0:
+            aa.ofile_name = merged_ofile
+            dist.merge_part_files(merged_ofile, n,
+                                  sam.file_header(aa, genome))
+    finally:
+        dist.shutdown()
 
 
 def main(argv=None):

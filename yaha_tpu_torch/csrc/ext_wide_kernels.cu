@@ -51,7 +51,16 @@
 // copied out, contiguous in the problem's plane, as 16-byte stores; the
 // bytes before the first 16-byte boundary and after the last go one at a
 // time.  Row 0, the anti-diagonal insert cells of rows past the exit and
-// the zero tail are written by the same copy from a generator.  For W < 64
+// the zero tail are written by the same copy from a generator.
+//
+// Past W 2,829 (-BW 707) the two strip stages no longer fit a block's
+// shared memory beside the row and the codes.  The direct variant
+// (ext_wide_kernel<true>, up to W 12,905, -BW 3,226) has no stages: each
+// lane stores its plane bytes straight into its row of the problem's
+// plane, a byte a step (32 rows apart across the warp, so 32 transactions
+// a step where the staged copy makes 16-byte stores), and skips rows past
+// QL.  The rows after the exit row that its lanes wrote are overwritten by
+// the zero tail's copy, which __syncwarp orders after them.  For W < 64
 // lanes wait for the previous strip's lane 31, so they are busy W/64 of
 // the steps; chip_smoke.py phase 5 prints the share.  A block is one warp:
 // X-drop ends problems at very different rows, and a block frees its slot
@@ -160,8 +169,9 @@ struct WideLane {
     }
 
     // Cell (i, j) if j is a band column, from the strip's staged codes:
-    // writes its plane byte to stage_row[j] and returns what the row below
-    // reads at this column.  Outside the band it hands down the sentinel.
+    // writes its plane byte to stage_row[j] (unless stage_row is null: a
+    // row past QL) and returns what the row below reads at this column.
+    // Outside the band it hands down the sentinel.
     YT_HD Band3 step(const WideProblem& P, const uint8_t* codes,
                      uint8_t* stage_row) {
         if (j == 0) {
@@ -196,7 +206,7 @@ struct WideLane {
             out.v = edge_val;
             b = OP_INSERT + (i > 1 ? BT_CF : 0);
         }
-        stage_row[j] = (uint8_t)b;
+        if (stage_row) stage_row[j] = (uint8_t)b;
         if (j == P.w - 1) {
             done_v = best_v;
             done_j = best_j;
@@ -215,6 +225,21 @@ struct WideLane {
         }
     }
 };
+
+// Shared memory of the direct variant: the row and two strips' codes (its
+// plane bytes go straight to the plane).
+YT_HD int64_t ext_direct_warp_bytes(int64_t w) {
+    return wide_row_bytes(w) + 2 * wide_code_bytes(w);
+}
+
+// Where lane step writes row i's plane bytes: the strip stage (staged), or
+// the row itself in the problem's plane, none past QL (direct).
+YT_HD uint8_t* wide_row_dst(bool direct, uint8_t* stage, int64_t sb,
+                            int lane, int32_t i, uint8_t* plane,
+                            int64_t ql, int32_t w) {
+    if (direct) return i <= ql ? plane + (int64_t)i * w : nullptr;
+    return stage + (((i - 1) / kWideLanes) & 1) * sb + (int64_t)lane * w;
+}
 
 // The running first maximum: value, row, column.  Rows fold in order and a
 // later row replaces an earlier one only when strictly greater.
@@ -267,6 +292,7 @@ __device__ __forceinline__ ytsw::WideBest shfl_best(const ytsw::WideBest& b,
     return o;
 }
 
+template <bool kDirect>
 __global__ void __launch_bounds__(ytsw::kWideLanes)
 ext_wide_kernel(const uint8_t* q, int64_t ql, const uint8_t* r, int64_t rl,
                 const int32_t* qlens, const int32_t* rlens, int32_t bw2,
@@ -281,7 +307,7 @@ ext_wide_kernel(const uint8_t* q, int64_t ql, const uint8_t* r, int64_t rl,
     const int32_t w = P.w;
     Band3* row = (Band3*)smem;
     uint8_t* stage = smem + wide_row_bytes(w);
-    const int64_t sb = wide_stage_bytes(w);
+    const int64_t sb = kDirect ? 0 : wide_stage_bytes(w);
     uint8_t* codes = stage + 2 * sb;
     const int64_t cb = wide_code_bytes(w);
     uint8_t* plane = (uint8_t*)bt + p * (ql + 1) * w;
@@ -303,7 +329,9 @@ ext_wide_kernel(const uint8_t* q, int64_t ql, const uint8_t* r, int64_t rl,
             if (lane == 0) L.take_row(row, P);
             const int32_t par = ((L.i - 1) / kWideLanes) & 1;
             const Band3 out =
-                L.step(P, codes + par * cb, stage + par * sb + lane * w);
+                L.step(P, codes + par * cb,
+                       wide_row_dst(kDirect, stage, sb, lane, L.i, plane,
+                                    ql, w));
             if (lane == kWideLanes - 1 && L.j >= 0 && L.j < w) row[L.j] = out;
             L.advance(shfl_up3(out), P);
             __syncwarp();
@@ -320,9 +348,11 @@ ext_wide_kernel(const uint8_t* q, int64_t ql, const uint8_t* r, int64_t rl,
                 __ballot_sync(kFull, wide_exits(L.done_v, e.v, i_f, P));
             const int el = ex ? __ffs(ex) - 1 : kWideLanes - 1;
             run = shfl_best(e, el, false);
-            copy_share(lane, plane + ((int64_t)strip * kWideLanes + 1) * w,
-                       (int64_t)(el + 1) * w,
-                       StageSrc{stage + (strip & 1) * sb});
+            if (!kDirect)
+                copy_share(lane,
+                           plane + ((int64_t)strip * kWideLanes + 1) * w,
+                           (int64_t)(el + 1) * w,
+                           StageSrc{stage + (strip & 1) * sb});
             if (ex) {
                 exit_row = strip * kWideLanes + el + 1;
                 break;
@@ -348,10 +378,11 @@ ext_wide_kernel(const uint8_t* q, int64_t ql, const uint8_t* r, int64_t rl,
 
 extern "C" {
 
-// The extension for any W = 2*bw2 + 1, a warp (a block) a problem.
-// Launches on the given stream, allocates nothing, does not synchronise;
-// returns cudaGetLastError(), or cudaErrorInvalidValue for a band too wide
-// for a block's shared memory.
+// The extension for any W = 2*bw2 + 1, a warp (a block) a problem: the
+// staged kernel while its warp fits a block's shared memory, the direct
+// one past that.  Launches on the given stream, allocates nothing, does
+// not synchronise; returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a band too wide for the direct kernel too.
 int yt_ext_forward_wide(const uint8_t* q, const uint8_t* r,
                         const int32_t* qlens, const int32_t* rlens,
                         int64_t n, int64_t ql, int64_t rl, int32_t bw2,
@@ -359,13 +390,16 @@ int yt_ext_forward_wide(const uint8_t* q, const uint8_t* r,
                         int32_t max_gap, int32_t max_intron, int32_t x_cutoff,
                         int8_t* bt, int32_t* score, int32_t* maxi,
                         int32_t* maxj, void* stream) {
-    const int64_t smem = ytsw::wide_warp_bytes(2 * bw2 + 1);
+    const int64_t w = 2 * (int64_t)bw2 + 1;
+    const bool direct = ytsw::wide_warp_bytes(w) > ytsw::kWideSmemMax;
+    const int64_t smem = direct ? ytsw::ext_direct_warp_bytes(w)
+                                : ytsw::wide_warp_bytes(w);
     if (bw2 < 0 || smem > ytsw::kWideSmemMax)
         return (int)cudaErrorInvalidValue;
+    auto kernel = direct ? ext_wide_kernel<true> : ext_wide_kernel<false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            ext_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     ytsw::Scoring s;
@@ -375,10 +409,9 @@ int yt_ext_forward_wide(const uint8_t* q, const uint8_t* r,
     s.ms = ms;
     s.max_gap = max_gap;
     s.max_intron = max_intron;
-    ext_wide_kernel<<<(unsigned)n, ytsw::kWideLanes, (size_t)smem,
-                      (cudaStream_t)stream>>>(q, ql, r, rl, qlens, rlens, bw2,
-                                              s, x_cutoff, bt, score, maxi,
-                                              maxj);
+    kernel<<<(unsigned)n, ytsw::kWideLanes, (size_t)smem,
+             (cudaStream_t)stream>>>(q, ql, r, rl, qlens, rlens, bw2, s,
+                                     x_cutoff, bt, score, maxi, maxj);
     return (int)cudaGetLastError();
 }
 

@@ -75,9 +75,27 @@
 // 0xFFFFFFFF before the sentinel by its qo.  Shared memory holds max(C,
 // 256) keys (64 KB at C = 8,192, as dynamic shared memory past 48 KB).
 //
+// Over a hash-range sharded index (yaha_tpu_torch/parallel/mesh.py) the
+// same kernel runs once a model shard: it takes the shard's range
+// [hash_lo, hash_lo + per) and its SO rebased to offsets into its own ROA
+// slice, and keeps only the windows whose hash lies in the range (the
+// range mask of yaha_tpu/parallel/mesh.py:157-169).  The whole index is
+// hash_lo = 0, per = 4^wl, which keeps every clean window as before.
+//
+// merge_runs_kernel replaces the all_gather over `model` and the sort of
+// the gathered buffers (yaha_tpu/parallel/mesh.py:204-213): the M shards'
+// [b, C] rows, each sorted, become one sorted [b, M C] row.  A block a
+// row; each element's slot is its index plus, for every other shard, the
+// number of that shard's keys that sort before it (a binary search of
+// log2(C) + 1 probes; ties go to the lower shard), so every element costs
+// the same and nothing is sorted again.  What bounds it on an H100 is bytes
+// (the shards' rows in, the merged rows out); the probes read the row's
+// other runs, which stay in L1.
+//
 // The per-run and per-window bodies (seed_hash_run, seed_hash_window,
-// window_run, slot_window, slot_key) and the sort's compare-exchange math
-// (bitonic_keeps_min, bitonic_low, reg_steps, smem_step, keep, sort_span)
+// window_run, slot_window, slot_key, merge_element) and the sort's
+// compare-exchange math (bitonic_keeps_min, bitonic_low, reg_steps,
+// smem_step, keep, sort_span)
 // are __host__ __device__, so the CPU tests build them with g++ and, with
 // a sequential scan and the shuffles emulated, hold them to the plain
 // versions.
@@ -243,19 +261,24 @@ YT_HD void seed_hash_run(const uint8_t* codes, int64_t b, int64_t l,
 #endif
 }
 
-// A window's SO run: its kept count (0 unless clean and 0 < count <=
-// max_hits; the count is the uint32 difference read as int32) and start.
-// Both SO words are read whether or not the window is clean (so[0] and
-// so[1] for one that is not), so a thread's reads carry no branch and go
-// out together.
+// A window's SO run in the shard that owns hashes [hash_lo, hash_lo +
+// per), whose SO (so[0 .. per]) holds offsets into its own ROA: its kept
+// count (0 unless clean, in the shard's range and 0 < count <= max_hits;
+// the count is the uint32 difference read as int32) and start.  The whole
+// index is the shard hash_lo = 0, per = 4^wl.  Both SO words are read
+// whether or not the window is kept (so[0] and so[1] for one outside the
+// shard or not clean), so a thread's reads carry no branch and go out
+// together.
 struct WindowRun {
     int32_t kept;
     uint32_t so_lo;
 };
 
 YT_HD WindowRun window_run(int32_t hash, bool clean, const uint32_t* so,
-                           int32_t max_hits) {
-    const uint32_t h = clean ? (uint32_t)hash : 0u;
+                           int32_t max_hits, int32_t hash_lo, int64_t per) {
+    const int64_t local = (int64_t)hash - hash_lo;
+    clean = clean && local >= 0 && local < per;
+    const uint32_t h = clean ? (uint32_t)local : 0u;
 #if defined(__CUDA_ARCH__)
     const uint32_t lo = __ldg(so + h);
     const uint32_t hi = __ldg(so + h + 1);
@@ -328,6 +351,55 @@ YT_HD void smem_step(uint64_t* keys, int64_t q, int64_t j, int64_t k) {
     }
 }
 
+// The merge of a row's M sorted runs of cap keys each (one a model shard,
+// keys diag << 32 | qo as in the expansion) into one sorted row of M cap
+// keys: element i of run m goes to slot i plus, for every other run, the
+// number of its keys that sort before it (those <= the key in a run before
+// m, those < the key in a run after it, so that equal keys keep the order
+// of their runs).  Each count is a binary search of log2(cap) + 1 probes
+// (cap a power of two), the same for every element.  diag and qo are
+// [M, b, cap]; the row's keys of run m start at (m b + row) cap.
+YT_HD uint64_t run_key(const uint32_t* diag, const int32_t* qo, int64_t at) {
+#if defined(__CUDA_ARCH__)
+    return ((uint64_t)__ldg(diag + at) << 32) | (uint32_t)__ldg(qo + at);
+#else
+    return ((uint64_t)diag[at] << 32) | (uint32_t)qo[at];
+#endif
+}
+
+// Keys of the sorted run at `at` (cap of them) below `key`, or at most
+// `key` when `upper`.
+YT_HD int64_t run_rank(const uint32_t* diag, const int32_t* qo, int64_t at,
+                       int64_t cap, uint64_t key, bool upper) {
+    int64_t c = 0;
+    for (int64_t step = cap >> 1; step > 0; step >>= 1) {
+        const uint64_t k = run_key(diag, qo, at + c + step - 1);
+        if (upper ? k <= key : k < key) c += step;
+    }
+    const uint64_t k = run_key(diag, qo, at + c);
+    return c + ((upper ? k <= key : k < key) ? 1 : 0);
+}
+
+// Element e (run e / cap, index e % cap) of row `row`: its slot in the
+// merged row [row, M cap] of out_diag / out_qo, where it is written.
+YT_HD void merge_element(const uint32_t* diag, const int32_t* qo, int32_t m,
+                         int64_t b, int64_t cap, int64_t row, int64_t e,
+                         uint32_t* out_diag, int32_t* out_qo) {
+    const int32_t mine = (int32_t)(e / cap);
+    const int64_t i = e - (int64_t)mine * cap;
+    const uint64_t key = run_key(diag, qo, ((int64_t)mine * b + row) * cap +
+                                               i);
+    int64_t slot = i;
+    for (int32_t o = 0; o < m; o++) {
+        if (o == mine) continue;
+        slot += run_rank(diag, qo, ((int64_t)o * b + row) * cap, cap, key,
+                         o < mine);
+    }
+    const int64_t at = row * (int64_t)m * cap + slot;
+    out_diag[at] = (uint32_t)(key >> 32);
+    out_qo[at] = (int32_t)(uint32_t)key;
+}
+
 // Keys the sort of a row with `valid` keys runs over: pow2(valid), and
 // at least a warp's share; none for a row of one key or none.
 YT_HD int64_t sort_span(int64_t valid) {
@@ -353,6 +425,7 @@ constexpr int kHashThreads = 256;
 constexpr int kSeedWarps = kSeedThreads / 32;
 // Largest capacity: C keys of 8 bytes in one block's shared memory.
 constexpr int64_t kMaxCap = 16384;
+constexpr int kMergeThreads = 256;
 
 template <int WL>
 __global__ void __launch_bounds__(kHashThreads)
@@ -419,9 +492,9 @@ __device__ void sort_row(uint64_t* keys, int64_t valid, int64_t p) {
 __global__ void __launch_bounds__(kSeedThreads)
 expand_sort_kernel(const int32_t* hashes, const uint8_t* clean, int64_t n,
                    const uint32_t* so, const uint32_t* roa, int32_t max_hits,
-                   int64_t cap, uint32_t* diag, int32_t* qo, int32_t* total,
-                   uint8_t* overflow, uint8_t* wrapped,
-                   uint8_t* allwrapped) {
+                   int32_t hash_lo, int64_t per, int64_t cap, uint32_t* diag,
+                   int32_t* qo, int32_t* total, uint8_t* overflow,
+                   uint8_t* wrapped, uint8_t* allwrapped) {
     extern __shared__ uint64_t keys[];
     __shared__ uint32_t cum[kBatch];    // inclusive kept-count sums
     __shared__ uint32_t so_lo[kBatch];  // run starts in the ROA
@@ -453,7 +526,8 @@ expand_sort_kernel(const int32_t* hashes, const uint8_t* clean, int64_t n,
         uint32_t s = 0;
 #pragma unroll
         for (int r = 0; r < kWinPerThread; r++) {
-            run[r] = ytsw::window_run(h[r], c[r], so, max_hits);
+            run[r] = ytsw::window_run(h[r], c[r], so, max_hits, hash_lo,
+                                      per);
             s += (uint32_t)run[r].kept;
         }
         uint32_t incl = s;
@@ -557,9 +631,10 @@ int launch_hashes(const uint8_t* codes, int64_t b, int64_t l,
 
 int launch_expand(const int32_t* hashes, const uint8_t* clean, int64_t b,
                   int64_t n, const uint32_t* so, const uint32_t* roa,
-                  int32_t max_hits, int64_t cap, uint32_t* diag, int32_t* qo,
-                  int32_t* total, uint8_t* overflow, uint8_t* wrapped,
-                  uint8_t* allwrapped, cudaStream_t stream) {
+                  int32_t max_hits, int32_t hash_lo, int64_t per,
+                  int64_t cap, uint32_t* diag, int32_t* qo, int32_t* total,
+                  uint8_t* overflow, uint8_t* wrapped, uint8_t* allwrapped,
+                  cudaStream_t stream) {
     const int64_t slots = cap > kSeedThreads ? cap : kSeedThreads;
     const int smem = (int)(slots * sizeof(uint64_t));
     cudaError_t err = cudaFuncSetAttribute(
@@ -567,9 +642,19 @@ int launch_expand(const int32_t* hashes, const uint8_t* clean, int64_t b,
     if (err != cudaSuccess) return (int)err;
     if (b > 0)
         expand_sort_kernel<<<(unsigned)b, kSeedThreads, smem, stream>>>(
-            hashes, clean, n, so, roa, max_hits, cap, diag, qo, total,
-            overflow, wrapped, allwrapped);
+            hashes, clean, n, so, roa, max_hits, hash_lo, per, cap, diag, qo,
+            total, overflow, wrapped, allwrapped);
     return (int)cudaGetLastError();
+}
+
+// A block a row; its threads take the row's M cap elements in stride.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_runs_kernel(const uint32_t* diag, const int32_t* qo, int32_t m,
+                  int64_t b, int64_t cap, uint32_t* out_diag,
+                  int32_t* out_qo) {
+    const int64_t row = blockIdx.x;
+    for (int64_t e = threadIdx.x; e < (int64_t)m * cap; e += kMergeThreads)
+        ytsw::merge_element(diag, qo, m, b, cap, row, e, out_diag, out_qo);
 }
 
 }  // namespace
@@ -606,16 +691,32 @@ int yt_seed_hashes(const uint8_t* codes, int64_t b, int64_t l,
     }
 }
 
+// so holds per + 1 words: the shard of hashes [hash_lo, hash_lo + per).
 int yt_expand_sort(const int32_t* hashes, const uint8_t* clean, int64_t b,
                    int64_t n, const uint32_t* so, const uint32_t* roa,
-                   int32_t max_hits, int64_t cap, uint32_t* diag,
-                   int32_t* qo, int32_t* total, uint8_t* overflow,
-                   uint8_t* wrapped, uint8_t* allwrapped, void* stream) {
-    if (cap < 1 || cap > kMaxCap || (cap & (cap - 1)) || b > 0x7FFFFFFF)
+                   int32_t max_hits, int32_t hash_lo, int64_t per,
+                   int64_t cap, uint32_t* diag, int32_t* qo, int32_t* total,
+                   uint8_t* overflow, uint8_t* wrapped, uint8_t* allwrapped,
+                   void* stream) {
+    if (cap < 1 || cap > kMaxCap || (cap & (cap - 1)) || b > 0x7FFFFFFF ||
+        per < 1 || hash_lo < 0)
         return (int)cudaErrorInvalidValue;
-    return launch_expand(hashes, clean, b, n, so, roa, max_hits, cap, diag,
-                         qo, total, overflow, wrapped, allwrapped,
-                         (cudaStream_t)stream);
+    return launch_expand(hashes, clean, b, n, so, roa, max_hits, hash_lo,
+                         per, cap, diag, qo, total, overflow, wrapped,
+                         allwrapped, (cudaStream_t)stream);
+}
+
+// diag / qo [m, b, cap], each row of each run sorted -> out [b, m cap].
+int yt_merge_runs(const uint32_t* diag, const int32_t* qo, int32_t m,
+                  int64_t b, int64_t cap, uint32_t* out_diag,
+                  int32_t* out_qo, void* stream) {
+    if (m < 1 || cap < 1 || (cap & (cap - 1)) || b > 0x7FFFFFFF)
+        return (int)cudaErrorInvalidValue;
+    if (b > 0)
+        merge_runs_kernel<<<(unsigned)b, kMergeThreads, 0,
+                            (cudaStream_t)stream>>>(diag, qo, m, b, cap,
+                                                    out_diag, out_qo);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,11 +1,17 @@
 """Device seed phase for the staged engine (``--seed device``).
 
-Counterpart of yaha_tpu/models/seeder.py on one device.  Each chunk's
-strand rows (the engine's own, ops/gather_dp.chunk_strand_rows) are hashed
-and expanded on the device against the index's SO and ROA tables, which
-stay resident there for the run, and the rows come back as per-(read,
-strand) hit lists sorted by (diag, qo), which yt_batch_begin takes in place
-of its host seed scan (hits_diag / hits_qo / hit_offs / hit_totals).
+Counterpart of yaha_tpu/models/seeder.py.  Each chunk's strand rows (the
+engine's own, ops/gather_dp.chunk_strand_rows) are hashed and expanded on
+the device against the index's SO and ROA tables, which stay resident
+there for the run, and the rows come back as per-(read, strand) hit lists
+sorted by (diag, qo), which yt_batch_begin takes in place of its host seed
+scan (hits_diag / hits_qo / hit_offs / hit_totals).
+
+With a mesh (parallel/mesh.py, --model-shards) the index is split by hash
+range over the grid's `model` columns and the rows over its `data` rows
+(parallel/mesh.sharded_expand_sort): a row's hits are M shard buffers of C
+slots merged into M C, and it overflows a tier when some shard passes C.
+The rows start and end on grid entry (0, 0), the engine's device.
 Reference match: Query.c:361-412 (seed loop) + QueryMatch.c:52-121 (heap
 merge).
 
@@ -23,8 +29,8 @@ The reference's behaviour at its edges is kept:
 Hits leave the device as one masked_select per plane of the rows served,
 in row order, plus one small transfer of total / overflow / allwrapped per
 tier.  The JAX seeder's pow2 batch padding, its pow2-padded ragged fetch
-with the sort / unsort round trip, its ROA < 2^31 refusal and its mesh path
-have no counterpart here.
+with the sort / unsort round trip and its ROA < 2^31 refusal have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ class _IndexView:
     uint32 numpy views of its mmap, zero-copy."""
 
     def __init__(self, index):
+        self.word_len = index.word_len
+        self.max_hits = index.max_hits
         ht = 1 << (2 * index.word_len)
         self.starting_offs = np.ctypeslib.as_array(index.so_ptr,
                                                    shape=(ht + 1,))
@@ -78,15 +86,24 @@ class DeviceSeeder:
     """Seed-phase provider for StagedAligner (its `seeder` argument).
 
     device: a CUDA device runs the kernels of ops/seeds.py, "cpu" their
-    plain versions.  The SO and ROA tables upload once, here; their bytes
-    and seconds are in stats["index_upload_bytes"] / ["index_upload_s"].
+    plain versions.  mesh: a parallel/mesh.Mesh shards the index over its
+    `model` columns and the rows over its `data` rows, on its devices; the seeder's device is then the
+    grid's (0, 0) entry.  None looks up the whole index on `device`.  The
+    SO and ROA tables (or every shard's copy) upload once, here; their
+    bytes and seconds are in stats["index_upload_bytes"] /
+    ["index_upload_s"].
     """
 
     CAP_TIERS = (1024, 8192)
 
-    def __init__(self, aa, index, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+    def __init__(self, aa, index, device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None
+                                   else mesh.grid[0][0])
+        devices = ([self.device] if mesh is None else
+                   [d for row in mesh.grid for d in row])
+        if (any(d.type == "cuda" for d in devices) and
+                not torch.cuda.is_available()):
             raise RuntimeError("DeviceSeeder: device %s requested but no "
                                "CUDA device is available" % self.device)
         self.aa = aa
@@ -96,22 +113,33 @@ class DeviceSeeder:
         self.index = index
         self.iview = _IndexView(index)
         self.stats = {"seed_launches": 0, "seed_h2d_bytes": 0,
-                      "seed_d2h_bytes": 0, "phantom_rows": 0,
-                      "fallback_rows": 0, "seed_device_s": 0.0,
-                      "cap_retries": 0, "index_upload_bytes": 0,
-                      "index_upload_s": 0.0}
+                      "seed_d2h_bytes": 0, "all_gather_bytes": 0,
+                      "phantom_rows": 0, "fallback_rows": 0,
+                      "seed_device_s": 0.0, "cap_retries": 0,
+                      "index_upload_bytes": 0, "index_upload_s": 0.0}
         # seed_chunk may run concurrently under the CLI's depth-2 prefetch:
         # the stats' read-modify-writes take the lock.
         self._stats_lock = threading.Lock()
         self.tables = gather_dp.code_tables(self.device)
         t0 = time.time()
-        self.so_dev, self.roa_dev = (
-            torch.from_numpy(a.view(np.int32)).to(self.device)
-            for a in (self.iview.starting_offs, self.iview.roa))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._acc(index_upload_s=time.time() - t0, index_upload_bytes=(
-            self.iview.starting_offs.nbytes + self.iview.roa.nbytes))
+        self.sidx = None
+        if mesh is not None:
+            from ..parallel.mesh import ShardedIndex
+            # Phantom rows read the host views (iview), not the shards'
+            # host copies, which go once they are placed.
+            self.sidx = ShardedIndex(self.iview,
+                                     mesh.shape["model"]).place(mesh)
+            nbytes = self.sidx.placed_nbytes()
+        else:
+            self.so_dev, self.roa_dev = (
+                torch.from_numpy(a.view(np.int32)).to(self.device)
+                for a in (self.iview.starting_offs, self.iview.roa))
+            nbytes = self.iview.starting_offs.nbytes + self.iview.roa.nbytes
+        for d in set(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        self._acc(index_upload_s=time.time() - t0,
+                  index_upload_bytes=nbytes)
 
     def _acc(self, **kv):
         with self._stats_lock:
@@ -132,10 +160,17 @@ class DeviceSeeder:
         """One tier: the kernel, then (total, overflow, allwrapped) of its
         rows in one transfer."""
         self._acc(seed_launches=1)
-        out = seeds.expand_sort_hits(hashes, clean, self.so_dev,
-                                     self.roa_dev,
-                                     max_hits=int(self.aa.max_hits),
-                                     capacity=capacity)
+        kw = dict(max_hits=int(self.aa.max_hits), capacity=capacity)
+        if self.sidx is not None:
+            from ..parallel.mesh import sharded_expand_sort
+            out = sharded_expand_sort(self.mesh, hashes, clean, self.sidx,
+                                      **kw)
+            # The shards' buffers that the merge gathers: diag and qo.
+            self._acc(all_gather_bytes=2 * 4 * self.sidx.n_model *
+                      hashes.shape[0] * capacity)
+        else:
+            out = seeds.expand_sort_hits(hashes, clean, self.so_dev,
+                                         self.roa_dev, **kw)
         small = self._down(torch.stack([out["total"],
                                         out["overflow"].to(torch.int32),
                                         out["allwrapped"].to(torch.int32)]))

@@ -10,6 +10,12 @@ on the card:
                                    wider than 512 or the whole reference
   phase B  banded X-drop extensions -> sw_cuda.extension_forward
 
+A full-width gap bucket whose plane is wider than the wide route takes
+(more than 2,832 columns: RL 4,096 and up) goes, by its shape and before
+any launch, to the lockstep twin of ops/sw_batch.py on the same device
+with FMT_EOIDC planes, as the reference sends its gap_fallback class to
+its XLA twin (stat gap_twin).  Extensions always take the kernels.
+
 The default configuration is the JAX package's default one:
 
   device_assembly  the genome codes stay on the card for the run, each
@@ -193,13 +199,17 @@ class StagedAligner:
         # Launch/byte accounting and the host-phase decomposition.
         # gap_banded / gap_full / gap_fallback count the gap problems the
         # band-relative kernel serves, and the full-width kernel serves at
-        # rg <= 512 and above it (backend "cuda"); plane_d2h_bytes is the
-        # backtrack-plane part of d2h_bytes (0 when rle is on).
+        # rg <= 512 and above it (backend "cuda"); gap_twin the gap
+        # problems of the "cuda" backend whose plane is too wide for the
+        # wide route's warp (sw_cuda.full_wide_fits), which the lockstep
+        # twin of ops/sw_batch.py takes on the device; plane_d2h_bytes is the backtrack-plane part of d2h_bytes (0 when
+        # rle is on).
         self.stats = {"dp_launches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
                       "plane_d2h_bytes": 0,
                       "gap_problems": 0, "ext_problems": 0,
                       "gap_cells": 0, "ext_cells": 0, "device_s": 0.0,
                       "gap_banded": 0, "gap_full": 0, "gap_fallback": 0,
+                      "gap_twin": 0,
                       "begin_s": 0.0, "gap_host_s": 0.0, "phase2_s": 0.0,
                       "ext_host_s": 0.0, "finish_s": 0.0}
         # align_chunk may run concurrently from the CLI's prefetch
@@ -291,23 +301,26 @@ class StagedAligner:
                            for s in host[:-1]]))
         return parts
 
-    def _eoidc_parts(self, fns, kw, arrs, per, planes, qa, ra, keys):
-        """The "torch" and "native" backends on one bucket: fns[backend](q,
-        qlens, r, rlens, *rest, **kw) for arrs = [qlens, rlens, *rest], in
-        launch slices of at most MAX_LAUNCH_BYTES (`per` bytes a problem),
-        on the device's or the host's problem planes; returns [(local_idx,
-        FMT_EOIDC, eo, idc, plane_stride, row_stride, *the per-problem
-        outputs of `keys`)]."""
-        fn = fns[self.backend]
+    def _eoidc_parts(self, fns, kw, arrs, per, planes, qa, ra, keys,
+                     backend=None):
+        """The "torch" and "native" backends on one bucket (or `backend`,
+        the "torch" twin for a bucket of the "cuda" backend):
+        fns[backend](q, qlens, r, rlens, *rest, **kw) for arrs = [qlens,
+        rlens, *rest], in launch slices of at most MAX_LAUNCH_BYTES (`per`
+        bytes a problem), on the device's or the host's problem planes;
+        returns [(local_idx, FMT_EOIDC, eo, idc, plane_stride, row_stride,
+        *the per-problem outputs of `keys`)]."""
+        backend = backend or self.backend
+        fn = fns[backend]
         n = len(arrs[0])
         parts = []
         t0 = time.time()
-        if self.backend == "torch":
+        if backend == "torch":
             arrs = list(self._up(np.stack(arrs).astype(np.int32)))
         for lo, hi in _slices(n, per):
             self._acc(dp_launches=1)
             ql, rl, *rest = (a[lo:hi] for a in arrs)
-            if self.backend == "native":
+            if backend == "native":
                 out = fn(qa[lo:hi], ql, ra[lo:hi], rl, *rest, **kw)
                 scalars = [out[k] for k in keys]
                 eo, idc = out["eo"], out["idc"]
@@ -336,14 +349,21 @@ class StagedAligner:
         n = len(qlens)
         if qg is None:
             qg, rg = qa.shape[1], ra.shape[1]
-        if self.backend != "cuda":
+        wband, banded = gap_dispatch(lbws, rbws, rg)
+        twin = (self.backend == "cuda" and not banded and
+                not sw_cuda.full_wide_fits(rg))
+        if self.backend != "cuda" or twin:
+            # A plane too wide for the wide route's warp goes to the
+            # lockstep twin, as the reference sends its gap_fallback class
+            # to its XLA twin.
+            self._acc(gap_twin=n if twin else 0)
             return self._eoidc_parts(
                 {"native": host.anchored_forward,
                  "torch": sw_batch.batched_anchored_forward}, self.gap_kw,
                 [qlens, rlens, lbws, rbws],
                 5 * (qg + 1) * (rg + 1) + qg + rg + 16,
-                self._planes(dev_gather, n), qa, ra, ["score"])
-        wband, banded = gap_dispatch(lbws, rbws, rg)
+                self._planes(dev_gather, n), qa, ra, ["score"],
+                backend="torch" if twin else None)
         self._acc(**{("gap_banded" if banded else "gap_full"
                       if rg <= MAX_WBAND else "gap_fallback"): n})
         w = wband if banded else rg + 1

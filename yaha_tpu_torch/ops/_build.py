@@ -153,7 +153,10 @@ def load():
                                    _vp]
     lib.yt_expand_sort.restype = ct.c_int
     lib.yt_expand_sort.argtypes = (
-        [_vp, _vp, _i64, _i64, _vp, _vp, _i32, _i64] + [_vp] * 7)
+        [_vp, _vp, _i64, _i64, _vp, _vp, _i32, _i32, _i64, _i64] +
+        [_vp] * 7)
+    lib.yt_merge_runs.restype = ct.c_int
+    lib.yt_merge_runs.argtypes = [_vp, _vp, _i32, _i64, _i64, _vp, _vp, _vp]
     lib.yt_chain_dp_cuda.restype = ct.c_int
     lib.yt_chain_dp_cuda.argtypes = [_vp] * 5 + [_i64] * 2 + [_i32] * 5 + \
         [_vp] * 5

@@ -7,11 +7,14 @@ Counterpart of yaha_tpu/ops/seeds_jax.py:
                                                seed_hash_kernel
   expand_sort_hits   expand_sort_hits_device   csrc/seed_kernels.cu
                                                expand_sort_kernel
+  merge_sorted_runs  the all_gather over `model` csrc/seed_kernels.cu
+                     and sort of                merge_runs_kernel
+                     parallel/mesh.py:204-213
   seed_counts, strand_hit_totals, fragment_boundaries
                      the functions of the same name: plain PyTorch ops, no
                      kernel (no engine path calls them)
 
-The two kernel entries launch their CUDA kernel on a CUDA tensor and run
+The kernel entries launch their CUDA kernel on a CUDA tensor and run
 their plain version (``*_reference``) on a CPU tensor; there is no other
 route.  Each returns what its JAX function returns, bit for bit, under the
 same dict keys.  uint32 arrays (the SO and ROA tables, ``diag``) are held
@@ -67,17 +70,21 @@ def seed_hashes_reference(codes, lengths, *, word_len):
     return torch.where(clean, h, 0), clean
 
 
-def _expand_reference(hashes, clean, so, roa, *, max_hits, capacity):
+def _expand_reference(hashes, clean, so, roa, *, max_hits, capacity,
+                      hash_lo=0, per=None):
     """The expansion of expand_sort_hits_reference before its sort: diag
     and qo (int64, the sentinel in invalid slots) in slot order, and the
     per-row and per-window outputs."""
     b, n = hashes.shape
     dev = hashes.device
-    h = hashes.to(I64)
+    per = so.shape[0] - 1 if per is None else per
+    h = hashes.to(I64) - hash_lo
+    in_rng = clean & (h >= 0) & (h < per)
+    h = torch.where(in_rng, h, 0)
     so_lo = _u32(so[h])
     cnt = (_u32(so[h + 1]) - so_lo) & M32
     counts = _as_i32(cnt)
-    kept_mask = clean & (counts > 0) & (counts <= max_hits)
+    kept_mask = in_rng & (counts > 0) & (counts <= max_hits)
     kept = torch.where(kept_mask, counts, 0)
     cum = torch.cumsum(kept, 1, dtype=I32).to(I64)
     total = cum[:, -1]
@@ -102,15 +109,27 @@ def _expand_reference(hashes, clean, so, roa, *, max_hits, capacity):
 
 
 def expand_sort_hits_reference(hashes, clean, so, roa, *, max_hits,
-                               capacity):
+                               capacity, hash_lo=0, per=None):
     """Plain version of expand_sort_hits
-    (seeds_jax.expand_sort_hits_device)."""
+    (seeds_jax.expand_sort_hits_device; with hash_lo and per, one model
+    shard of the shard_map body, parallel/mesh.py:157-202)."""
     out = _expand_reference(hashes, clean, so, roa, max_hits=max_hits,
-                            capacity=capacity)
+                            capacity=capacity, hash_lo=hash_lo, per=per)
     key, _ = torch.sort((out.pop("diag") << 31) | out.pop("qo"), dim=1)
     out["diag"] = _as_i32(key >> 31)
     out["qo"] = (key & QO_SENTINEL).to(I32)
     return out
+
+
+def merge_sorted_runs_reference(diag, qo):
+    """Plain version of merge_sorted_runs: torch.sort of the gathered rows'
+    keys, diag << 31 | qo as in expand_sort_hits_reference (equal keys are
+    equal hits, so the order among them does not show)."""
+    m, b, c = diag.shape
+    key = ((_u32(diag) << 31) | qo.to(I64)).permute(1, 0, 2).reshape(
+        b, m * c)
+    key, _ = torch.sort(key, dim=1)
+    return _as_i32(key >> 31), (key & QO_SENTINEL).to(I32)
 
 
 # ---- entries: CUDA kernel on a CUDA tensor, plain version on the CPU ----
@@ -155,23 +174,36 @@ def seed_hashes(codes, lengths, *, word_len):
     return hashes, clean
 
 
-def expand_sort_hits(hashes, clean, so, roa, *, max_hits, capacity):
+def expand_sort_hits(hashes, clean, so, roa, *, max_hits, capacity,
+                     hash_lo=0, per=None, out=None):
     """Every strand row's hits in a [B, capacity] buffer, sorted by (diag
     uint32, qo).
 
     hashes/clean: [B, N] from seed_hashes; so/roa: the index's SO and ROA
-    tables (int32 tensors of their uint32 bits).  Returns diag [B, C]
+    tables (int32 tensors of their uint32 bits), or one model shard's
+    (parallel/mesh.ShardedIndex): the shard of hashes [hash_lo, hash_lo +
+    per), its SO of per + 1 offsets into its own ROA, keeps only the
+    windows in its range.  per defaults to len(so) - 1, with hash_lo 0 the
+    whole index.  Returns diag [B, C]
     (int32 tensor of uint32 bits) and qo [B, C] int32, the sentinel
     (0xFFFFFFFF, 0x7FFFFFFF) past each row's total; total [B] int32,
     overflow [B] (total > capacity: the caller retries a larger tier or
     takes the host scan), wrapped [B, N] (a kept window none of whose slots
     below capacity has ro >= qo: the phantom-hit quirk, QueryMatch.c:57-69)
     and allwrapped [B] = any(wrapped).  capacity is a power of two up to
-    MAX_CAPACITY."""
+    MAX_CAPACITY.  out: a (diag, qo) pair of [B, C] int32 tensors to write
+    the hits into (a shard's slot of the merge's [M, B, C] input), in place
+    of new ones."""
+    per = so.shape[0] - 1 if per is None else per
     if hashes.device.type == "cpu":
-        return expand_sort_hits_reference(hashes, clean, so, roa,
-                                          max_hits=max_hits,
-                                          capacity=capacity)
+        res = expand_sort_hits_reference(hashes, clean, so, roa,
+                                         max_hits=max_hits,
+                                         capacity=capacity,
+                                         hash_lo=hash_lo, per=per)
+        if out is not None:
+            for t, k in zip(out, ("diag", "qo")):
+                res[k] = t.copy_(res[k])
+        return res
     name = "expand_sort_hits"
     dev = hashes.device
     _check(name, dev, (("hashes", hashes, I32, 2),
@@ -179,10 +211,21 @@ def expand_sort_hits(hashes, clean, so, roa, *, max_hits, capacity):
                        ("so", so, I32, 1), ("roa", roa, I32, 1)))
     b, n = hashes.shape
     if (clean.shape != hashes.shape or n < 1 or capacity < 1 or
-            capacity > MAX_CAPACITY or capacity & (capacity - 1)):
-        raise ValueError("%s: hashes %s, clean %s, capacity %d" % (
-            name, tuple(hashes.shape), tuple(clean.shape), capacity))
-    diag, qo = torch.empty((2, b, capacity), dtype=I32, device=dev)
+            capacity > MAX_CAPACITY or capacity & (capacity - 1) or
+            not 1 <= per < so.shape[0] or hash_lo < 0):
+        raise ValueError("%s: hashes %s, clean %s, capacity %d, SO %d, "
+                         "shard [%d, +%d)" % (
+                             name, tuple(hashes.shape), tuple(clean.shape),
+                             capacity, so.shape[0], hash_lo, per))
+    if out is None:
+        diag, qo = torch.empty((2, b, capacity), dtype=I32, device=dev)
+    else:
+        diag, qo = out
+        _check(name, dev, (("out diag", diag, I32, 2),
+                           ("out qo", qo, I32, 2)))
+        if diag.shape != (b, capacity) or qo.shape != (b, capacity):
+            raise ValueError("%s: out %s and %s, want [%d, %d]" % (
+                name, tuple(diag.shape), tuple(qo.shape), b, capacity))
     total = torch.empty(b, dtype=I32, device=dev)
     overflow, allwrapped = torch.empty((2, b), dtype=torch.bool, device=dev)
     wrapped = torch.empty((b, n), dtype=torch.bool, device=dev)
@@ -190,12 +233,35 @@ def expand_sort_hits(hashes, clean, so, roa, *, max_hits, capacity):
         from . import _build
         sw_cuda._launched(name, _build.load().yt_expand_sort(
             hashes.data_ptr(), clean.data_ptr(), b, n, so.data_ptr(),
-            roa.data_ptr(), max_hits, capacity, diag.data_ptr(),
+            roa.data_ptr(), max_hits, hash_lo, per, capacity, diag.data_ptr(),
             qo.data_ptr(), total.data_ptr(), overflow.data_ptr(),
             wrapped.data_ptr(), allwrapped.data_ptr(),
             sw_cuda._stream(dev)))
     return {"diag": diag, "qo": qo, "total": total, "overflow": overflow,
             "wrapped": wrapped, "allwrapped": allwrapped}
+
+
+def merge_sorted_runs(diag, qo):
+    """The M model shards' hit rows merged: diag/qo [M, B, C] (int32
+    tensors; diag of uint32 bits), each [m, row] sorted by (diag uint32,
+    qo) as expand_sort_hits leaves it, -> (diag, qo) [B, M C] sorted the
+    same way, the sentinels last.  C is a power of two."""
+    if diag.device.type == "cpu":
+        return merge_sorted_runs_reference(diag, qo)
+    name = "merge_sorted_runs"
+    dev = diag.device
+    _check(name, dev, (("diag", diag, I32, 3), ("qo", qo, I32, 3)))
+    m, b, c = diag.shape
+    if qo.shape != diag.shape or c < 1 or c & (c - 1):
+        raise ValueError("%s: diag %s, qo %s" % (
+            name, tuple(diag.shape), tuple(qo.shape)))
+    out_d, out_q = torch.empty((2, b, m * c), dtype=I32, device=dev)
+    if b:
+        from . import _build
+        sw_cuda._launched(name, _build.load().yt_merge_runs(
+            diag.data_ptr(), qo.data_ptr(), m, b, c, out_d.data_ptr(),
+            out_q.data_ptr(), sw_cuda._stream(dev)))
+    return out_d, out_q
 
 
 # ---- plain ops with no kernel ----

@@ -67,7 +67,7 @@ I32 = torch.int32
 _launches = {"extension_forward": 0, "extension_forward_wide": 0,
              "anchored_forward_banded": 0, "anchored_forward": 0,
              "gather_problems": 0, "rle_walk": 0, "seed_hashes": 0,
-             "expand_sort_hits": 0, "chain_dp": 0}
+             "expand_sort_hits": 0, "merge_sorted_runs": 0, "chain_dp": 0}
 
 # Band widths W = 4*band_width + 1 the register kernel is instantiated for
 # (-BW 1 to 8), and the block sizes it takes.
@@ -78,7 +78,47 @@ EXT_BLOCK = 64
 # (width classes 8, 16 and 32); the problems of a warp with a wider lane
 # go to the wide route, a warp a problem.
 ANCH_REG_COLS = 32
+# Shared memory a block can have, and a wavefront warp's share of it for
+# plane rows of w bytes: copies of kWideSmemMax and wide_warp_bytes
+# (csrc/wavefront.cuh), which tests/test_torch_csrc.py holds equal.  The
+# wide routes refuse a plane whose warp does not fit.
+WIDE_SMEM_MAX = 232448
+WIDE_LANES = 32
 _launch_lock = threading.Lock()
+
+
+def wide_warp_bytes(w):
+    """Shared memory of one wavefront warp for plane rows of w bytes: the
+    row of w + 1 16-byte cells, two strip stages of 32 rows, two strips'
+    codes."""
+    row = 16 * (w + 1)
+    stage = (WIDE_LANES * w + 16 + 15) // 16 * 16
+    codes = (2 * WIDE_LANES + w + 15) // 16 * 16
+    return row + 2 * stage + 2 * codes
+
+
+def ext_direct_warp_bytes(w):
+    """Shared memory of the wide extension's direct warp (no strip stages;
+    csrc/ext_wide_kernels.cu ext_direct_warp_bytes): the row and two
+    strips' codes."""
+    return 16 * (w + 1) + 2 * ((2 * WIDE_LANES + w + 15) // 16 * 16)
+
+
+def full_wide_fits(rl):
+    """Whether anchored_forward takes full-width rows of rl + 1 columns on
+    the card: up to ANCH_REG_COLS in registers, wider on the wide route,
+    whose warp must fit a block's shared memory.  (A banded plane is at
+    most MAX_WBAND wide, far inside the limit.)"""
+    w = rl + 1
+    return w <= ANCH_REG_COLS or wide_warp_bytes(w) <= WIDE_SMEM_MAX
+
+
+def ext_wide_fits(band_width):
+    """Whether extension_forward takes a band on the card: the register
+    kernel's widths, else the wide kernel's warp, staged or (past W 2,829)
+    direct, fits a block's shared memory: up to W 12,905, -BW 3,226."""
+    w = 4 * band_width + 1
+    return w in REG_WIDTHS or ext_direct_warp_bytes(w) <= WIDE_SMEM_MAX
 
 
 def reset_launches():
@@ -393,9 +433,9 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     backtrack plane bt [N, QL+1, 4*band_width+1] int8.  On the card,
     `variant` (default ext_variant(band_width)) picks the kernel: "reg"
     for W in REG_WIDTHS, with `block` threads a block, or "wide" (a warp
-    a block) for any W whose warp fits a block's shared memory (up to
-    W 2829, -BW 707; the C entry refuses a wider band); both return the
-    same arrays.
+    a block) for any W whose warp fits a block's shared memory (staged up
+    to W 2,829, -BW 707, direct up to W 12,905, -BW 3,226: ext_wide_fits;
+    the C entry refuses a wider band); both return the same arrays.
     """
     kw = dict(band_width=band_width, go=go, ge=ge, rc=rc, ms=ms,
               max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff)
@@ -439,7 +479,7 @@ def anchored_forward_banded(q, qlens, r, rlens, left_bw, right_bw, *, wband,
 
     wband >= max(left_bw + right_bw) + 1.  Returns score [N] int32 and
     bt_b [N, QL+1, wband] int8 (insert chains run diagonally).  On the
-    card wband may be at most 2,829 when it is over 32 (the wide route's
+    card wband may be at most 2,832 when it is over 32 (the wide route's
     warp must fit a block's shared memory; the C entry refuses a wider
     plane).
     """
@@ -473,8 +513,9 @@ def anchored_forward(q, qlens, r, rlens, left_bw, right_bw, *, go, ge, rc,
     sw_pallas.anchored_forward_pallas for any N and any RL.
 
     Returns score [N] int32 and bt [N, QL+1, RL+1] int8 (insert chains
-    run straight up).  On the card RL may be at most 2,828 when it is over
-    32 (the C entry refuses a wider plane, as for anchored_forward_banded).
+    run straight up).  On the card RL may be at most 2,831 when it is over
+    32 (full_wide_fits; the C entry refuses a wider plane, as for
+    anchored_forward_banded).
     """
     kw = dict(go=go, ge=ge, rc=rc, ms=ms, max_gap=max_gap,
               max_intron=max_intron)

@@ -130,10 +130,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tests/torch_dp_cases.long_gap_reads at -G 3,600 (gap buckets of RL
      4,096, too wide for the anchored wide route) through the default
      configuration, their buckets on the lockstep twin (gap_twin > 0), SAM
-     bytes equal to the native engine's; at -BW 708, past the staged
-     wide extension kernel, its direct variant equal to the plain version
-     and readsA's first ten reads with SAM bytes equal to the native
-     engine's; the device seeder over the
+     bytes equal to the native engine's; past -BW 707, where the staged
+     wide extension kernel's warp no longer fits, the block kernel (a
+     block of warps a problem): equal to the plain version on 16 problems
+     of QL 40 that run to their last row at -BW 708 (W 2,833), equal to
+     the staged kernel on 256 x 1,024 problems at W 1,025 and 2,829 (on
+     problems at 5 % substitutions and on a bucket whose every other
+     problem turns random past row 200), timed beside it there and at
+     -BW 708, and readsA's first ten reads at -BW 708 (counts set to 0
+     just before and read after: the block kernel's launches) with SAM
+     bytes equal to the native engine's; the device seeder over the
      hash-range sharded L15 index on (data x model) grids (1 x 2) and
      (2 x 2) of the card, on the 1 kb batch: beside a single-device
      seeder, each grid's cold and warm run (counts set to 0 just before
@@ -143,8 +149,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      per-shard SO and ROA bytes and all_gather_bytes; each shard's
      range-masked expansion and the merge kernel at that run's largest
      launch of each tier (32,768 rows at 2 x 1,024, the tier-2 rows at 2 x
-     8,192) equal to their plain versions, timed beside their bounds, the
-     merge beside torch.sort of the packed keys; two CLI processes on the
+     8,192), and the merge also over four runs (two row orders of the two
+     shards' 32,768 rows, 4 x 1,024: two passes), equal to their plain
+     versions, timed beside their bounds, the merge beside torch.sort of
+     the packed keys; two CLI processes on the
      card (--num-hosts 2, a gloo group on a free local port), on the 1 kb
      batch with the host seed scan and on the golden readsA with --seed
      device --model-shards 2, each merged SAM equal, apart from @PG, to
@@ -191,6 +199,8 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                           "yaha_tpu/ops/sw_pallas.py:764"),
     "extension_forward_wide": ("yaha_tpu_torch/csrc/ext_wide_kernels.cu",
                                "yaha_tpu/ops/sw_pallas.py:764"),
+    "extension_forward_block": ("yaha_tpu_torch/csrc/ext_wide_kernels.cu",
+                                "yaha_tpu/ops/sw_pallas.py:764"),
     "anchored_forward_banded": ("yaha_tpu_torch/csrc/anch_kernels.cu",
                                 "yaha_tpu/ops/sw_pallas.py:554"),
     "anchored_forward": ("yaha_tpu_torch/csrc/anch_kernels.cu",
@@ -213,16 +223,17 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
 # phase 7; the other kernels run on the host-seed path of phases 3-4.
 SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
 CHAIN_KERNELS = ("chain_dp",)
-# The merge of the index shards' hit rows: the sharded seeder's alone
-# (--model-shards, phase 9).
-SCALE_KERNELS = ("merge_sorted_runs",)
+# Phase 9's kernels: the merge of the index shards' hit rows (the sharded
+# seeder's alone, --model-shards) and the block extension (bands past -BW
+# 707).
+SCALE_KERNELS = ("merge_sorted_runs", "extension_forward_block")
 DP_KERNELS = [k for k in KERNELS
               if k not in SEED_KERNELS + CHAIN_KERNELS + SCALE_KERNELS]
 # Kernels of which no instance may spill or use a stack frame.
-NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|anch_reg_kernel|"
-                      r"anch_wide_kernel|rle_win_kernel|gather_kernel|"
-                      r"seed_hash_kernel|expand_sort_kernel|"
-                      r"merge_runs_kernel|chain_dp_kernel")
+NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|ext_block_kernel|"
+                      r"anch_reg_kernel|anch_wide_kernel|rle_win_kernel|"
+                      r"gather_kernel|seed_hash_kernel|expand_sort_kernel|"
+                      r"merge_pass_kernel|chain_dp_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
 WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
@@ -433,10 +444,15 @@ def phase_build():
                                  "and the full layout" % (kind, anch))
     hashes = [k for k in report if "seed_hash_kernel" in k]
     expands = [k for k in report if "expand_sort_kernel" in k]
-    merges = [k for k in report if "merge_runs_kernel" in k]
+    merges = [k for k in report if "merge_pass_kernel" in k]
     if not (hashes and expands and merges):
         raise AssertionError("phase1: seed kernel instances %s, %s and %s"
                              % (hashes, expands, merges))
+    exts = [k for k in report if re.search("ext_wide_kernel|ext_block_kernel",
+                                           k)]
+    if len(exts) != 2:
+        raise AssertionError("phase1: wide extension kernel instances %s, "
+                             "want the warp's and the block's" % exts)
     chains = [k for k in report if "chain_dp_kernel" in k]
     if len(chains) != 7:
         raise AssertionError("phase1: chain kernel instances %s, want the 7 "
@@ -2357,39 +2373,96 @@ def phase_long_gaps(torch, sw, host, StagedAligner, tg_nib, tg_idx,
         raise AssertionError("phase9 long gaps: no bucket took the twin")
 
 
+def _ext_sets(torch, dev, n, ql, bw, early):
+    """Four numpy-seeded draws of n extension problems of QL rows at band
+    width bw: at 5 % substitutions, or (early) with every other problem
+    turning random past a row between 200 and QL (its X-drop exits a few
+    rows later) and the rest alike to the last row."""
+    from torch_dp_cases import extension_inputs, xdrop_extension_inputs
+    out = []
+    for k in range(4):
+        if early:
+            arrs = xdrop_extension_inputs(
+                bw + 1 + k, n, ql, bw,
+                [200 + (j * 37 + k) % (ql - 200) if j % 2 == 0 else ql
+                 for j in range(n)])
+        else:
+            arrs = extension_inputs(bw + k, n, ql, bw, 0.05)
+        out.append([torch.from_numpy(a).to(dev) for a in arrs])
+    return out
+
+
 def phase_wide_band(torch, sw, host, StagedAligner, tg_nib, tg_idx,
-                    threads, errs, dev):
-    """-BW 708 (W 2,833), past the staged wide extension kernel's shared
-    memory: the direct variant (lanes store their rows straight into the
-    plane) equal to the plain version on 48 numpy-seeded problems, then
-    readsA's first ten reads through the default configuration, every
-    extension on the wide kernel, SAM bytes equal to the native
-    engine's."""
+                    threads, kernels, errs, dev):
+    """Bands past -BW 707 (W 2,829), where the staged wide extension
+    kernel's warp no longer fits a block's shared memory: the block kernel
+    (a block of warps a problem) equal to the plain version on 16
+    numpy-seeded problems of QL 40 (two strips, two warps) that run to
+    their last row at -BW 708 (W 2,833); the block and the staged kernel
+    in turns (staged, block,
+    block, staged; CUDA events over 8 launches behind a spin) on 256
+    problems of QL 1,024 at W 1,025 and 2,829, equal to each other, at 5 %
+    substitutions and on a bucket whose every other problem turns random
+    past row 200; the block kernel alone at -BW 708 on both, beside the
+    plane's bound; then readsA's first ten reads through the default
+    configuration at -BW 708, every extension on the block kernel (counts
+    set to 0 just before the run and read after it), SAM bytes equal to
+    the native engine's.  Returns that run's launches."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_dp_cases import KW, extension_inputs
-    # The plain version takes a PyTorch op a cell column: on the host, on
-    # 16 problems of QL 40 (two strips).
-    arrs = [torch.from_numpy(a) for a in
-            extension_inputs(708, 16, 40, 708, 0.15)]
+    from torch_dp_cases import KW, xdrop_extension_inputs
     kw = dict(KW, band_width=708, x_cutoff=25)
+    # The plain version takes a PyTorch op a cell column: on the host.
+    arrs = [torch.from_numpy(a) for a in
+            xdrop_extension_inputs(708, 16, 40, 708, (40,))]
     got = sw.extension_forward(*(a.to(dev) for a in arrs), **kw)
-    compare(torch, errs, "phase9", "extension_forward_wide", "BW708 direct",
-            {k: v.cpu() for k, v in got.items()},
-            sw.extension_forward_reference(*arrs, **kw))
-    # Time: the direct kernel at -BW 708 beside the staged one at -BW 707
-    # on 256 problems of QL 1,024 each (4 seeded copies).
-    for bw in (707, 708):
-        sets = [[torch.from_numpy(a).to(dev) for a in extension_inputs(
-            bw + k, 256, 1024, bw, 0.05)] for k in range(4)]
-        ms = _time_kernel(torch, dev, lambda *a: sw.extension_forward(
-            *a, **dict(kw, band_width=bw)), sets)
-        plane = 256 * 1025 * (4 * bw + 1)
-        bound_ms, bound_by = _bound(plane + _nbytes(*sets[0]), 0)
-        log("phase9 extension_forward_wide BW%d (%s) 256 x 1024 W %d: "
-            "kernel %.6f ms, bound %.6f ms (%s: the plane), %.2f %% of the "
-            "bound" % (bw, "direct" if bw > 707 else "staged", 4 * bw + 1,
-                       ms, bound_ms, bound_by, 100 * bound_ms / ms))
-        del sets
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    want = sw.extension_forward_reference(*arrs, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    compare(torch, errs, "phase9", "extension_forward_block",
+            "BW708 16 x 40 rows", {k: v.cpu() for k, v in got.items()},
+            want)
+    del got, want
+
+    def run(variant, bw):
+        return lambda *a: sw.extension_forward(
+            *a, **dict(kw, band_width=bw), variant=variant)
+
+    n, ql = 256, 1024
+    block_ms = {}
+    for bw in (256, 707, 708):
+        w = 4 * bw + 1
+        for label in ("5 %", "early exits"):
+            sets = _ext_sets(torch, dev, n, ql, bw, label != "5 %")
+            order = (("wide", "block", "block", "wide") if bw <= 707
+                     else ("block",))
+            ms = {}
+            for v in order:
+                ms.setdefault(v, []).append(
+                    _time_kernel(torch, dev, run(v, bw), sets))
+            outs = {v: run(v, bw)(*sets[0]) for v in set(order)}
+            if bw <= 707:
+                compare(torch, errs, "phase9", "extension_forward_block",
+                        "W %d %s (= the staged kernel)" % (w, label),
+                        outs["block"], outs["wide"])
+            bound_ms, bound_by = _bound(n * (ql + 1) * w +
+                                        _nbytes(*sets[0]), 0)
+            means = {v: _mean(t) for v, t in ms.items()}
+            if label == "5 %":
+                block_ms[bw] = (means["block"], bound_ms, bound_by)
+            log("phase9 extension W %d (-BW %d) %d x %d %s: block %s ms%s, "
+                "bound %.6f ms (%s: the plane), block %.2f %% of it" % (
+                    w, bw, n, ql, label, " / ".join(
+                        "%.6f" % t for t in ms["block"]),
+                    "" if bw > 707 else ", staged %s ms, block / staged "
+                    "%.3f" % (" / ".join("%.6f" % t for t in ms["wide"]),
+                              means["block"] / means["wide"]),
+                    bound_ms, bound_by, 100 * bound_ms / means["block"]))
+            del sets, outs
+    ms, bound_ms, bound_by = block_ms[708]
+    kernels["extension_forward_block"].update(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, max_abs_err=errs["extension_forward_block"])
     index = host.load_index(tg_idx)
     genome = host.load_genome(tg_nib)
     aa = _aa(host, index, tg_idx, band_width=708)
@@ -2405,8 +2478,11 @@ def phase_wide_band(torch, sw, host, StagedAligner, tg_nib, tg_idx,
     log("phase9 -BW 708: reads=%d parity=true wall_s=%.3f ext_problems=%d "
         "launches=%s" % (pr.n, wall, st.stats["ext_problems"], json.dumps(
             {k: v for k, v in launches.items() if v})))
-    if not launches["extension_forward_wide"]:
-        raise AssertionError("phase9 -BW 708: the wide kernel did not run")
+    if (not launches["extension_forward_block"] or
+            launches["extension_forward_wide"]):
+        raise AssertionError("phase9 -BW 708: extension launches %s" % (
+            {k: v for k, v in launches.items() if "extension" in k}))
+    return launches
 
 
 def _same_rows(what, got, want):
@@ -2501,6 +2577,48 @@ def _packed_key(torch, diag, qo):
             qo.to(torch.int64)).permute(1, 0, 2).reshape(b, m * c)
 
 
+def _merge_work(runs):
+    """(bytes, int32 operations) the merge of runs [M, b, C] must take:
+    every key in once and out once; a compare of two 64-bit keys an
+    output a pass, ceil(log2 M) passes (one at M <= 2)."""
+    m, b, c = runs[0].shape
+    passes = max(1, int(np.ceil(np.log2(m))))
+    return 2 * _nbytes(*runs), SORT_CMP_OPS * m * b * c * passes
+
+
+def _merge_turn(torch, seeds, errs, tag, msets):
+    """The merge kernel on the input sets msets (timed over them), equal
+    to its plain version and to torch.sort of the packed keys on the
+    second; returns its entry for the kernels line."""
+    dev = msets[0][0].device
+    ms = _time_kernel(torch, dev, seeds.merge_sorted_runs, msets)
+    plain_ms, want = _time_once(torch, dev, seeds.merge_sorted_runs_reference,
+                                msets[1])
+    got = seeds.merge_sorted_runs(*msets[1])
+    keys = [[_packed_key(torch, *m)] for m in msets]
+    lib_ms = _time_kernel(torch, dev, lambda k: torch.sort(k, dim=1), keys)
+    lib = torch.sort(keys[1][0], dim=1).values
+    sync(torch, dev)
+    if not (torch.equal((lib >> 32) + (1 << 31), got[0].to(
+            torch.int64) & 0xFFFFFFFF) and torch.equal(
+                lib & 0xFFFFFFFF, got[1].to(torch.int64))):
+        raise AssertionError("phase9 merge_sorted_runs %s: torch.sort of "
+                             "the keys differs from the kernel" % tag)
+    compare(torch, errs, "phase9", "merge_sorted_runs", tag,
+            {"diag": got[0], "qo": got[1]}, {"diag": want[0], "qo": want[1]})
+    nbytes, ops = _merge_work(msets[1])
+    bound_ms, bound_by = _bound(nbytes, ops)
+    m, rows, cap = msets[1][0].shape
+    log("phase9 merge_sorted_runs %s: kernel %.6f ms, plain %.3f ms, "
+        "torch.sort %.6f ms, bound %.6f ms (%s: %d bytes, %d int32 ops), "
+        "%.1f %% of the bound" % (tag, ms, plain_ms, lib_ms, bound_ms,
+                                  bound_by, nbytes, ops,
+                                  100 * bound_ms / ms))
+    return {"shards": m, "rows": rows, "capacity": cap, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def phase_shard_kernels(torch, seeds, seeder, kernels, errs, dev):
     """The range-masked expansion and the merge kernel at the sharded
     seeder's largest launch of each tier (the 1 kb batch's [32,768 rows,
@@ -2577,45 +2695,24 @@ def phase_shard_kernels(torch, seeds, seeder, kernels, errs, dev):
         del outs, runs
         msets = [[diag.index_select(1, p), qo.index_select(1, p)]
                  for p in perms]
-        tag = "%s M=%d C=%d rows=%d" % (tier, n_model, cap, rows)
-        ms = _time_kernel(torch, dev, seeds.merge_sorted_runs, msets)
-        plain_ms, want = _time_once(torch, dev,
-                                    seeds.merge_sorted_runs_reference,
-                                    msets[1])
-        got = seeds.merge_sorted_runs(*msets[1])
-        keys = [[_packed_key(torch, *ms_)] for ms_ in msets]
-        lib_ms = _time_kernel(torch, dev, lambda k: torch.sort(k, dim=1),
-                              keys)
-        lib = torch.sort(keys[1][0], dim=1).values
-        sync(torch, dev)
-        if not (torch.equal((lib >> 32) + (1 << 31), got[0].to(
-                torch.int64) & 0xFFFFFFFF) and torch.equal(
-                    lib & 0xFFFFFFFF, got[1].to(torch.int64))):
-            raise AssertionError("phase9 merge_sorted_runs %s: torch.sort "
-                                 "of the keys differs from the kernel" % tag)
-        del keys, lib
-        elems = n_model * rows * cap
-        nbytes = 2 * _nbytes(*msets[1])
-        ops = SORT_CMP_OPS * elems * (n_model - 1) * (
-            int(np.log2(cap)) + 1)
-        got = {"diag": got[0], "qo": got[1]}
-        want = {"diag": want[0], "qo": want[1]}
+        entry = _merge_turn(torch, seeds, errs, "%s M=%d C=%d rows=%d" % (
+            tier, n_model, cap, rows), msets)
         if cap == seeder.CAP_TIERS[0]:
-            _record(torch, kernels, errs, "phase9", "merge_sorted_runs", tag,
-                    ms, plain_ms, got, want, nbytes, ops, library_ms=lib_ms)
+            kernels["merge_sorted_runs"].update(
+                {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                max_abs_err=errs["merge_sorted_runs"])
+            # Four runs: the two shards' rows in two row orders (two
+            # passes of the kernel).
+            m4 = [[torch.cat([msets[k][i], msets[(k + 1) % 4][i]])
+                   for i in (0, 1)] for k in range(4)]
+            kernels["merge_sorted_runs"]["m4"] = _merge_turn(
+                torch, seeds, errs, "%s M=4 C=%d rows=%d" % (tier, cap, rows),
+                m4)
+            del m4
         else:
-            compare(torch, errs, "phase9", "merge_sorted_runs", tag, got,
-                    want)
-            bound_ms, bound_by = _bound(nbytes, ops)
-            kernels["merge_sorted_runs"]["tier2"] = {
-                "rows": rows, "capacity": cap, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
-            log("phase9 merge_sorted_runs %s: kernel %.6f ms, plain %.3f "
-                "ms, torch.sort %.6f ms, bound %.6f ms (%s), %.1f %% of the "
-                "bound" % (tag, ms, plain_ms, lib_ms, bound_ms, bound_by,
-                           100 * bound_ms / ms))
-        del got, want, msets, sets, diag, qo
+            kernels["merge_sorted_runs"]["tier2"] = entry
+        del msets, sets, diag, qo
 
 
 def _free_port():
@@ -2929,13 +3026,16 @@ def main():
     # before it and read just after) is the merge kernel's path.
     phase_long_gaps(torch, sw, host, StagedAligner, tg_nib, tg_idx, threads,
                     dev)
-    phase_wide_band(torch, sw, host, StagedAligner, tg_nib, tg_idx, threads,
-                    errs, dev)
+    # The block extension's path, bands past -BW 707 (its readsA run's
+    # counts), then the merge's.
+    kernels["extension_forward_block"]["launches"] = phase_wide_band(
+        torch, sw, host, StagedAligner, tg_nib, tg_idx, threads, kernels,
+        errs, dev)["extension_forward_block"]
     sharded, shard_launches = phase_sharded_seed(
         torch, sw, StagedAligner, _seed_recorder(torch, DeviceSeeder),
         DeviceSeeder, genome, index, aa, pr, ref, threads, dev)
-    for name in SCALE_KERNELS:
-        kernels[name]["launches"] = shard_launches[name]
+    kernels["merge_sorted_runs"]["launches"] = shard_launches[
+        "merge_sorted_runs"]
     phase_shard_kernels(torch, seeds, sharded, kernels, errs, dev)
     del sharded
     phase_multihost(reads, idx, tg_idx)

@@ -11,11 +11,17 @@ tolerance zero (integer arrays, the whole backtrack plane included):
     W in {13, 21, 33} (-BW 3, 5, 8), run row by row as a lone problem and
     with every row on its predicated path, as a lane does when another lane
     of its warp needs that path;
-  * the wide kernel of csrc/ext_wide_kernels.cu at W in {1, 21, 37, 65},
-    staged and direct (its lanes' rows straight into the plane): its lane
-    step, fold and copies over an emulated 32-lane warp, each
+  * the wide kernel of csrc/ext_wide_kernels.cu at W in {1, 21, 37, 65}:
+    its lane step, fold and copies over an emulated 32-lane warp, each
     lane's output handed to the next lane a step later as the shuffle
-    does, on planes prefilled with garbage;
+    does, on planes prefilled with garbage; and the block kernel
+    (ext_block_kernel: BlockWarp's schedule, the lane step, block_store's
+    16-byte units, the fold through shared memory) over 2 and 8 emulated
+    warps under three schedules (lockstep; one warp held back as far as
+    the waits allow; seeded random turns), on the same inputs and on
+    problems whose X-drop exit falls in the first strip, a middle strip
+    (later warps ahead) or the last row, at W 1, 21, 65, 2,833 and
+    12,909, shared memory garbage too;
 
 on the EXT_SWEEP inputs of tests/torch_dp_cases.py, the int32-wrap inputs
 (KW_WRAP) and references shorter than qlen + 2*bw2 (the rows whose band
@@ -48,16 +54,19 @@ an indel of up to 2*bw bases (indel_extension_inputs);
     around every sort size), and over each model shard of 2 and 4 (a
     shard's hash range, its rebased SO and ROA slice:
     parallel/mesh.ShardedIndex) held to the plain version with the same
-    range; merge_element (merge_runs_kernel's body: each element's slot by
-    binary searches in the other runs) over every element of every row,
-    held to seeds.merge_sorted_runs_reference (torch.sort of the gathered
-    keys) on runs with diag >= 2^31, 0xFFFFFFFF beside the sentinel,
-    equal keys across runs, full and empty runs; every output prefilled
-    with garbage;
+    range; the merge's passes (merge_pass_kernel's blocks: the split
+    warps' probes as a ballot, the 16-byte loads and stores, each
+    thread's merge) for 1 to 8 runs of 1 to 16,384 keys, held to
+    seeds.merge_sorted_runs_reference (torch.sort of the gathered keys) on
+    runs with diag >= 2^31, 0xFFFFFFFF beside the sentinel, equal keys
+    across runs, full and empty runs, rows of nothing but pads and tile
+    edges inside runs of equal keys; every output, the passes' second
+    buffer and the shared slots prefilled with garbage;
   * wavefront.cuh's wide_warp_bytes and kWideSmemMax, and
-    ext_wide_kernels.cu's ext_direct_warp_bytes, equal to their Python
-    copy in ops/sw_cuda.py (full_wide_fits, ext_wide_fits) at every plane
-    width 33-4,200 (1-13,000 for the direct extension);
+    ext_wide_kernels.cu's ext_block_bytes and kBlockWarps, equal to their
+    Python copy in ops/sw_cuda.py (full_wide_fits, ext_variant,
+    ext_wide_fits) at every plane width 33-4,200 (1-15,000 for the block
+    extension);
   * the anchored gap fill of csrc/anch_kernels.cu: the register bodies
     (AnchBand<K>, AnchFull<K>) in every width class and the wide route
     (AnchWideProblem, AnchWideLane, AnchWideSched and the shared copies of
@@ -96,7 +105,7 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             gather_case, gather_clamp_coords, gather_coords,
                             hash_rows, indel_extension_inputs,
                             long_run_inputs, read_rows,
-                            seed_case, seed_rows)
+                            seed_case, seed_rows, xdrop_extension_inputs)
 from yaha_tpu_torch.ops import chain, decode, gather_dp, seeds, sw_cuda
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -432,27 +441,98 @@ extern "C" void run_expand_sort(const int32_t* hashes, const uint8_t* clean,
     }
 }
 
-// merge_runs_kernel's blocks: every element of every row through
-// merge_element, rows last to first and elements in no set order (the
-// threads write their slots in no set order).
-extern "C" void run_merge(const uint32_t* diag, const int32_t* qo,
-                          int32_t m, int64_t b, int64_t cap,
-                          uint32_t* out_diag, int32_t* out_qo) {
-    for (int64_t row = b - 1; row >= 0; row--)
-        for (int64_t k = 0; k < (int64_t)m * cap; k++) {
-            const int64_t e = (k * 7919) % ((int64_t)m * cap);
-            ytsw::merge_element(diag, qo, m, b, cap, row, e, out_diag,
-                                out_qo);
+// yt_merge_runs' passes and merge_pass_kernel's blocks, blocks in no set
+// order: the two split warps as 32 probes a round whose true ones must be
+// the first lanes (the ballot's count), the shared slots prefilled with
+// garbage, every thread's load and store shares, every thread's merge
+// before any writes its outputs back (the barrier).  tmp_d / tmp_q: the
+// passes' second buffer (m > 2).  Returns 1 if a round's probes were not
+// a prefix of the lanes.
+extern "C" int run_merge(const uint32_t* diag, const int32_t* qo, int32_t m,
+                         int64_t b, int64_t cap, uint32_t* tmp_d,
+                         int32_t* tmp_q, uint32_t* out_d, int32_t* out_q) {
+    using namespace ytsw;
+    const int np = merge_passes(m);
+    std::vector<uint64_t> keys(kMergeSlots);
+    std::vector<uint64_t> v((size_t)kMergeThreads * kMergeKeys);
+    for (int p = 0; p < np; p++) {
+        const MergePass P = merge_pass(p, np, diag, qo, m, b, cap, tmp_d,
+                                       tmp_q, out_d, out_q);
+        const int64_t grid = b * P.pairs * P.tiles;
+        for (int64_t k = 0; k < grid; k++) {
+            const int64_t blk = (k * 7919) % grid;
+            MergeTile T;
+            if (!T.init(P, blk)) continue;
+            std::fill(keys.begin(), keys.end(), 0x5A5A5A5A5A5A5A5Aull);
+            int64_t split[2];
+            for (int warp = 0; warp < 2; warp++) {
+                const int64_t d = warp ? T.d1 : T.d0;
+                int64_t lo = split_lo(d, T.lb), hi = split_hi(d, T.la);
+                while (lo < hi) {
+                    int c = 0;
+                    for (int lane = 0; lane < 32; lane++) {
+                        const bool pr = split_probe(P, T, d, lo, hi, lane);
+                        if (pr && c != lane) return 1;
+                        c += pr ? 1 : 0;
+                    }
+                    split_narrow(lo, hi, c);
+                }
+                split[warp] = lo;
+            }
+            const int32_t na = (int32_t)(split[1] - split[0]);
+            const int32_t n = (int32_t)(T.d1 - T.d0);
+            for (int t = 0; t < kMergeThreads; t++) {
+                load_keys(t, kMergeThreads, P, T.a_at + split[0], na,
+                          keys.data(), 0);
+                load_keys(t, kMergeThreads, P, T.b_at + (T.d0 - split[0]),
+                          n - na, keys.data(), na);
+            }
+            for (int t = 0; t < kMergeThreads; t++) {
+                uint64_t w[kMergeKeys];
+                merge_thread(t, keys.data(), na, n - na, w);
+                for (int e = 0; e < kMergeKeys; e++)
+                    v[(size_t)t * kMergeKeys + e] = w[e];
+            }
+            for (int32_t x = 0; x < n; x++) keys[merge_slot(x)] = v[x];
+            for (int t = kMergeThreads - 1; t >= 0; t--)
+                store_keys(t, kMergeThreads, keys.data(), n, P,
+                           T.out_at + T.d0);
         }
+    }
+    return 0;
 }
 
-// The wide routes' shared memory (wavefront.cuh), for its Python copy.
+// The wide routes' shared memory (wavefront.cuh) and the block
+// extension's (ext_wide_kernels.cu), for their Python copies.
 extern "C" int64_t wide_warp_bytes(int64_t w) {
     return ytsw::wide_warp_bytes(w);
 }
 extern "C" int64_t wide_smem_max() { return ytsw::kWideSmemMax; }
-extern "C" int64_t ext_direct_warp_bytes(int64_t w) {
-    return ytsw::ext_direct_warp_bytes(w);
+extern "C" int64_t ext_block_bytes(int64_t w) {
+    return ytsw::ext_block_bytes(w);
+}
+extern "C" int ext_block_warps() { return ytsw::kBlockWarps; }
+
+// A wavefront warp's fold of strip `strip` (every lane's last finished
+// row in L[k].done_v / done_j) after the running maximum run, as
+// fold_strip does it with shuffles and a ballot: a sequential max-scan
+// over the rows and the first exiting row (el, -1 for none).
+static ytsw::WideBest fold_lanes(ytsw::WideBest run, const ytsw::WideLane* L,
+                                 int32_t strip, const ytsw::WideProblem& P,
+                                 int& el) {
+    using namespace ytsw;
+    WideBest e = run;
+    el = -1;
+    WideBest at_el = run;
+    for (int k = 0; k < kWideLanes; k++) {
+        const int32_t i_f = strip * kWideLanes + k + 1;
+        e = best_after(e, WideBest{L[k].done_v, i_f, L[k].done_j});
+        if (el < 0 && wide_exits(L[k].done_v, e.v, i_f, P)) {
+            el = k;
+            at_el = e;
+        }
+    }
+    return el >= 0 ? at_el : e;
 }
 
 // variant 1: ext_problem_reg<W>; 2: ext_problem_reg<W> with every row
@@ -497,10 +577,8 @@ extern "C" int run_ext(int variant, const uint8_t* q, const uint8_t* r,
 // row, and each lane's output goes to the next lane for the next step (the
 // shuffle); the fold is a sequential max-scan over the strip's rows and
 // the first exiting row (the ballot); every copy runs as 32 lane shares.
-// The strip stages start as garbage, as shared memory does.  direct:
-// ext_wide_kernel<true>, whose lanes write their rows straight into the
-// plane (none past QL) and which copies no strip.
-extern "C" void run_ext_wide(int direct, const uint8_t* q, const uint8_t* r,
+// The strip stages start as garbage, as shared memory does.
+extern "C" void run_ext_wide(const uint8_t* q, const uint8_t* r,
                              const int32_t* qlens, const int32_t* rlens,
                              int64_t n, int64_t ql, int64_t rl, int32_t bw2,
                              const int32_t* kw, int8_t* bt, int32_t* score,
@@ -533,7 +611,6 @@ extern "C" void run_ext_wide(int direct, const uint8_t* q, const uint8_t* r,
         if (P.last >= 1) {
             std::vector<WideLane> L(lanes);
             std::vector<Band3> out(lanes);
-            std::vector<WideBest> e(lanes);
             for (int k = 0; k < lanes; k++) {
                 P.stage_codes(k, 0, codes);
                 P.stage_codes(k, 1, codes + cb);
@@ -546,30 +623,20 @@ extern "C" void run_ext_wide(int direct, const uint8_t* q, const uint8_t* r,
                 for (int k = 0; k < lanes; k++) {
                     const int par = ((L[k].i - 1) / lanes) & 1;
                     out[k] = L[k].step(P, codes + par * cb,
-                                       wide_row_dst(direct, stage, sb, k,
-                                                    L[k].i, plane, ql, w));
+                                       wide_row_dst(stage, sb, k, L[k].i, w));
                 }
                 if (L[lanes - 1].j >= 0 && L[lanes - 1].j < w)
                     row[L[lanes - 1].j] = out[lanes - 1];
                 for (int k = 0; k < lanes; k++)
                     L[k].advance(out[k > 0 ? k - 1 : 0], P);
                 if (t != fold_at) continue;
-                int el = -1;
-                for (int k = 0; k < lanes; k++) {
-                    const int32_t i_f = strip * lanes + k + 1;
-                    e[k] = best_after(k > 0 ? e[k - 1] : run,
-                                      WideBest{L[k].done_v, i_f, L[k].done_j});
-                    if (el < 0 && wide_exits(L[k].done_v, e[k].v, i_f, P))
-                        el = k;
-                }
-                const bool ex = el >= 0;
-                if (!ex) el = lanes - 1;
-                run = e[el];
-                for (int k = 0; k < lanes && !direct; k++)
+                int el;
+                run = fold_lanes(run, L.data(), strip, P, el);
+                for (int k = 0; k < lanes; k++)
                     copy_share(k, plane + ((int64_t)strip * lanes + 1) * w,
-                               (int64_t)(el + 1) * w,
+                               (int64_t)(el < 0 ? lanes : el + 1) * w,
                                StageSrc{stage + (strip & 1) * sb});
-                if (ex) {
+                if (el >= 0) {
                     exit_row = strip * lanes + el + 1;
                     break;
                 }
@@ -586,6 +653,173 @@ extern "C" void run_ext_wide(int direct, const uint8_t* q, const uint8_t* r,
         maxi[p] = run.i;
         maxj[p] = run.j;
     }
+}
+
+// ext_block_kernel's block on each problem, `warps` emulated warps under a
+// schedule: each turn one warp takes one step of its 32 lanes (as in
+// run_ext_wide) in its run of free steps, or, when the run is done, does
+// what BlockWarp::next says (start a run with a step; fold a strip; wait,
+// changing nothing; stop), as the kernel's loop does.  Schedule 0:
+// lockstep, the warps in turn; 1: warp warps / 2 held back, taking a turn
+// only when no other warp can move (every other one waits or has
+// stopped), so that it lags as far as the waits allow; 2: a warp drawn at
+// random (seeded) each turn.  Shared memory (sync state, lane units, row)
+// starts as garbage but for what the kernel sets; the plane, score, maxi
+// and maxj too.  Returns 1 if every warp still running waits for another
+// (a deadlock), else 0.
+extern "C" int run_ext_block(int warps, int schedule, uint32_t seed,
+                             const uint8_t* q, const uint8_t* r,
+                             const int32_t* qlens, const int32_t* rlens,
+                             int64_t n, int64_t ql, int64_t rl, int32_t bw2,
+                             const int32_t* kw, int8_t* bt, int32_t* score,
+                             int32_t* maxi, int32_t* maxj) {
+    using namespace ytsw;
+    Scoring s;
+    s.go = kw[0];
+    s.ge = kw[1];
+    s.rc = kw[2];
+    s.ms = kw[3];
+    s.max_gap = kw[4];
+    s.max_intron = kw[5];
+    const int32_t w = 2 * bw2 + 1;
+    const int lanes = kWideLanes;
+    const int nt = warps * lanes;
+    std::vector<uint32_t> mem(ext_block_bytes(w, warps) / 4, 0x5A5A5A5Au);
+    uint8_t* smem = (uint8_t*)mem.data();
+    BlockSync* sh = (BlockSync*)smem;
+    uint8_t* units = smem + kBlockSyncBytes;
+    Band3* row = (Band3*)(units + (int64_t)nt * 16);
+    uint64_t rng = seed * 2654435761ull + 1;
+    for (int64_t p = 0; p < n; p++) {
+        WideProblem P;
+        P.init(p, q, ql, r, rl, qlens, rlens, bw2, s, kw[6]);
+        P.period = block_period(w, warps);
+        uint8_t* plane = (uint8_t*)bt + p * (ql + 1) * w;
+        for (int32_t c = 0; c <= w; c++) row[c] = wide_row0(c, bw2, w, s);
+        for (int k = 0; k < kBlockMaxWarps; k++) sh->prog[k] = 0;
+        sh->folded = 0;
+        sh->exit_strip = kNoExit;
+        sh->exit_row = 0;
+        sh->run_v = DP_WORST;
+        sh->run_i = sh->run_j = 0;
+        for (int t = nt - 1; t >= 0; t--)
+            copy_share(t, plane, w, FillSrc{0, w, bw2}, nt);
+        if (P.last >= 1) {
+            std::vector<BlockWarp> B(warps);
+            std::vector<std::vector<WideLane>> L(warps,
+                                                 std::vector<WideLane>(lanes));
+            std::vector<int> stopped(warps, 0);
+            std::vector<std::vector<BlockRow>> R(
+                warps, std::vector<BlockRow>(lanes, BlockRow{}));
+            for (int v = 0; v < warps; v++) {
+                B[v].init(v, warps, P);
+                for (int k = 0; k < lanes; k++) {
+                    L[v][k].init(k);
+                    L[v][k].i += v * lanes;
+                }
+            }
+            int running = warps, turn = 0, idle = 0;
+            const int held = warps / 2;
+            std::vector<Band3> out(lanes);
+            // One turn of warp v: one step of its run of free steps, or
+            // when the run is done what next() gives (a step starts a new
+            // run).  Returns what it did.
+            std::vector<int32_t> left(warps, 0);
+            auto act = [&](int v) {
+                const int a = left[v] > 0 ? (int)kBlockStep
+                                          : B[v].next(sh, P);
+                if (a == kBlockStep && left[v] == 0)
+                    left[v] = B[v].free_steps(P);
+                if (a == kBlockStop) {
+                    stopped[v] = 1;
+                    running--;
+                } else if (a == kBlockFold) {
+                    int el;
+                    const WideBest prev = B[v].s31 == 0
+                        ? WideBest{DP_WORST, 0, 0}
+                        : WideBest{sh->run_v, sh->run_i, sh->run_j};
+                    const WideBest run = fold_lanes(prev, L[v].data(),
+                                                    B[v].s31, P, el);
+                    sh->run_v = run.v;
+                    sh->run_i = run.i;
+                    sh->run_j = run.j;
+                    if (el >= 0) {
+                        sh->exit_row = B[v].s31 * lanes + el + 1;
+                        sh->exit_strip = B[v].s31;
+                    }
+                    sh->folded = B[v].s31 + 1;
+                    B[v].fold = false;
+                    if (el >= 0) {
+                        stopped[v] = 1;
+                        running--;
+                    }
+                } else if (a == kBlockStep) {
+                    std::vector<WideLane>& W = L[v];
+                    left[v]--;
+                    W[0].take_row(row, P);
+                    for (int k = 0; k < lanes; k++) {
+                        int32_t b;
+                        const int32_t qc =
+                            W[k].j == 0 ? P.query_code(W[k].i) : 0;
+                        out[k] = W[k].cell_step(
+                            P, qc, P.ref_code(W[k].i, W[k].j), b);
+                        if (W[k].j == 0)
+                            R[v][k] = block_row(plane, ql, w, W[k].i);
+                        block_store(R[v][k], w, W[k].j, b,
+                                    units + ((int64_t)v * lanes + k) * 16);
+                    }
+                    const int32_t j31 = W[lanes - 1].j;
+                    if (j31 >= 0 && j31 < w) {
+                        row[j31] = out[lanes - 1];
+                        if (B[v].publishes(P))
+                            sh->prog[v] = B[v].progress();
+                    }
+                    for (int k = lanes - 1; k >= 0; k--)
+                        W[k].advance(out[k > 0 ? k - 1 : 0], P, nt);
+                    B[v].advance(P);
+                }
+                return a;
+            };
+            while (running > 0) {
+                int v;
+                if (schedule == 0) {
+                    v = turn++ % warps;
+                } else if (schedule == 1) {
+                    // The other warps in turn, one pass; the held warp
+                    // only after a pass in which none moved.
+                    bool moved = false;
+                    for (int u = 0; u < warps; u++) {
+                        if (u == held || stopped[u]) continue;
+                        const int a = act(u);
+                        moved |= a == kBlockStep || a == kBlockFold ||
+                                 a == kBlockStop;
+                    }
+                    if (moved || stopped[held]) {
+                        idle = moved ? 0 : idle + 1;
+                        if (idle > 2) return 1;
+                        continue;
+                    }
+                    v = held;
+                } else {
+                    rng = rng * 6364136223846793005ull +
+                          1442695040888963407ull;
+                    v = (int)((rng >> 33) % (uint64_t)warps);
+                }
+                if (stopped[v]) continue;
+                const int a = act(v);
+                idle = a == kBlockWait ? idle + 1 : 0;
+                if (idle > 64 * warps + 1000) return 1;
+            }
+        }
+        const int64_t x0 = ((int64_t)sh->exit_row + 1) * w;
+        for (int t = 0; t < nt; t++)
+            copy_share(t, plane + x0, (ql + 1) * w - x0, FillSrc{x0, w, bw2},
+                       nt);
+        score[p] = sh->run_v;
+        maxi[p] = sh->run_i;
+        maxj[p] = sh->run_j;
+    }
+    return 0;
 }
 
 // The chain DP by teams of T threads with K nodes a thread (K * T >= n;
@@ -738,7 +972,9 @@ def lib(tmp_path_factory):
     out.run_ext.restype = ct.c_int
     out.run_ext.argtypes = [ct.c_int] + ext_args
     out.run_ext_wide.restype = None
-    out.run_ext_wide.argtypes = [ct.c_int] + ext_args
+    out.run_ext_wide.argtypes = ext_args
+    out.run_ext_block.restype = ct.c_int
+    out.run_ext_block.argtypes = [ct.c_int, ct.c_int, ct.c_uint32] + ext_args
     out.run_anch.restype = ct.c_int
     out.run_anch.argtypes = ([ct.c_int] * 4 + [ct.c_void_p] * 6 +
                              [ct.c_int64] * 3 + [ct.c_int32] +
@@ -765,15 +1001,17 @@ def lib(tmp_path_factory):
                                     [ct.c_int32, ct.c_int32, ct.c_int64,
                                      ct.c_int64] +
                                     [ct.c_void_p] * 6)
-    out.run_merge.restype = None
+    out.run_merge.restype = ct.c_int
     out.run_merge.argtypes = ([ct.c_void_p] * 2 + [ct.c_int32] +
-                              [ct.c_int64] * 2 + [ct.c_void_p] * 2)
+                              [ct.c_int64] * 2 + [ct.c_void_p] * 4)
     out.wide_warp_bytes.restype = ct.c_int64
     out.wide_warp_bytes.argtypes = [ct.c_int64]
     out.wide_smem_max.restype = ct.c_int64
     out.wide_smem_max.argtypes = []
-    out.ext_direct_warp_bytes.restype = ct.c_int64
-    out.ext_direct_warp_bytes.argtypes = [ct.c_int64]
+    out.ext_block_bytes.restype = ct.c_int64
+    out.ext_block_bytes.argtypes = [ct.c_int64]
+    out.ext_block_warps.restype = ct.c_int
+    out.ext_block_warps.argtypes = []
     return out
 
 
@@ -790,12 +1028,12 @@ def _inputs(bw, err, short, seed, indel):
 
 def _run(lib, variant, bw, kw, q, qlens, r, rlens):
     """The register body (variant 1, or 2 with every row predicated) on
-    zeroed planes, or the wide body ("wide", and "direct" with no strip
-    stages) on planes and outputs prefilled with garbage: it must write
-    every byte."""
+    zeroed planes, or the wide body ("wide") or the block body (("block",
+    warps, schedule, seed)) on planes and outputs prefilled with garbage:
+    they must write every byte."""
     n, ql = q.shape
     w = 4 * bw + 1
-    wide = variant in ("wide", "direct")
+    wide = variant == "wide" or isinstance(variant, tuple)
     fill = UNWRITTEN_BT if wide else 0
     out = {"bt": np.full((n, ql + 1, w), fill, np.int8)}
     for key in ("score", "maxi", "maxj"):
@@ -806,11 +1044,19 @@ def _run(lib, variant, bw, kw, q, qlens, r, rlens):
     args = ([a.ctypes.data for a in arrays] +
             [n, ql, r.shape[1], 2 * bw, params.ctypes.data] +
             [out[k].ctypes.data for k in ("bt", "score", "maxi", "maxj")])
-    if wide:
-        lib.run_ext_wide(int(variant == "direct"), *args)
+    if variant == "wide":
+        lib.run_ext_wide(*args)
+    elif wide:
+        assert lib.run_ext_block(*variant[1:], *args) == 0, "deadlock"
     else:
         assert lib.run_ext(variant, *args) == 0
     return out
+
+
+def _equal_outputs(got, want, label):
+    for key in ("score", "maxi", "maxj", "bt"):
+        np.testing.assert_array_equal(got[key], want[key].numpy(),
+                                      err_msg="%s %s" % (label, key))
 
 
 def _check(lib, variants, bw, case, seed):
@@ -822,10 +1068,7 @@ def _check(lib, variants, bw, case, seed):
         *(torch.from_numpy(a) for a in (q, qlens, r, rlens)), **kw)
     for variant in variants:
         got = _run(lib, variant, bw, kw, q, qlens, r, rlens)
-        for key in ("score", "maxi", "maxj", "bt"):
-            np.testing.assert_array_equal(
-                got[key], want[key].numpy(),
-                err_msg="variant %s %s" % (variant, key))
+        _equal_outputs(got, want, "variant %s" % (variant,))
     return qlens, want
 
 
@@ -840,21 +1083,80 @@ def test_register_body_matches_plain(lib, w, case):
         assert (want["maxi"].numpy() < qlens).mean() > 0.5
 
 
+# The block body's schedules: lockstep, one warp held back, random.
+BLOCK_SCHEDULES = ((0, 0), (1, 0), (2, 11))
+
+
 @pytest.mark.parametrize("case", WIDE_CASES, ids=WIDE_CASE_IDS)
 @pytest.mark.parametrize("w", WIDE_WIDTHS)
 def test_wide_body_matches_plain(lib, w, case):
     """The wide kernel's lane step, fold and copies over an emulated warp,
-    staged and direct: every byte of the plane (garbage before), score,
-    maxi and maxj equal the plain version's."""
+    and the block kernel's warps under each schedule: every byte of the
+    plane (garbage before), score, maxi and maxj equal the plain
+    version's."""
     bw = (w - 1) // 4
-    qlens, want = _check(lib, ("wide", "direct"), bw, case,
-                         seed=w * 100 + case[1])
+    k = lib.ext_block_warps()
+    qlens, want = _check(lib, ["wide"] + [("block", k) + sch
+                                         for sch in BLOCK_SCHEDULES], bw,
+                         case, seed=w * 100 + case[1])
     if case[1] < 10:
         assert (want["maxi"].numpy() < qlens).mean() > 0.5
     if case[7] and case[1] > 25 and w > 1:
         # Some best cells lie past half the band's reach from its centre.
         off = np.abs(want["maxj"].numpy() - 2 * bw)
         assert off.max() > bw
+
+
+# (band_width, QL, divergence rows, problems): exits in the first strip
+# (rows 1-32), in a middle strip while the warps of later strips run ahead,
+# and on the last row; at W 1, 21 and 65 over ten strips (every warp, and
+# warp 0 again), at W 2,833 (-BW 708, the first width past the wide
+# kernel's) over three, and at W 12,909 (-BW 3,227, past the first
+# version's 12,905) over two.
+BLOCK_XDROP = [(0, 300, (5, 140, 300), 6), (5, 300, (5, 140, 300), 6),
+               (16, 300, (5, 140, 300), 6), (708, 72, (5, 40, 72), 4),
+               (3227, 33, (5, 33), 4)]
+
+
+@pytest.fixture(scope="module")
+def block_cases():
+    """Each BLOCK_XDROP case's inputs and plain outputs, made once."""
+    out = {}
+    for bw, ql, div, n in BLOCK_XDROP:
+        arrs = xdrop_extension_inputs(bw + ql, n, ql, bw, div)
+        arrs = [a.astype(np.int32) if a.dtype == np.int64 else a
+                for a in arrs]
+        kw = dict(KW, band_width=bw, x_cutoff=25)
+        with torch.inference_mode():
+            want = sw_cuda.extension_forward_reference(
+                *(torch.from_numpy(a) for a in arrs), **kw)
+        out[bw] = (arrs, kw, want)
+    return out
+
+
+@pytest.mark.parametrize("schedule,seed", BLOCK_SCHEDULES,
+                         ids=["lockstep", "held_back", "random"])
+@pytest.mark.parametrize("warps", [2, "kernel"])
+@pytest.mark.parametrize("bw", [c[0] for c in BLOCK_XDROP],
+                         ids=["W%d" % (4 * c[0] + 1) for c in BLOCK_XDROP])
+def test_block_body_matches_plain(lib, block_cases, bw, warps, schedule,
+                                  seed):
+    """ext_block_kernel's warps (2, and the kernel's count) under each
+    schedule, on problems whose X-drop exit falls in the first strip, in
+    a middle strip or on the last row: every byte of the plane (garbage
+    before, shared memory garbage too), score, maxi and maxj equal the
+    plain version's, with no deadlock."""
+    (q, qlens, r, rlens), kw, want = block_cases[bw]
+    k = lib.ext_block_warps() if warps == "kernel" else warps
+    got = _run(lib, ("block", k, schedule, seed), bw, kw, q, qlens, r, rlens)
+    _equal_outputs(got, want, "block")
+    # The best rows (the exits come a few rows later): in the first strip,
+    # in a middle one, and on the last row.
+    ql = q.shape[1]
+    strips = (want["maxi"].numpy() - 1) // 32
+    assert strips.min() == 0 and want["maxi"].numpy().max() == ql
+    if ql > 64:
+        assert ((strips > 0) & (strips < (ql - 1) // 32)).any()
 
 
 def test_ptxas_report_reads_registers_and_spills():
@@ -1318,17 +1620,25 @@ def test_expand_shard_bodies_match_plain(lib, case, n_model):
     np.testing.assert_array_equal(totals, whole["total"].numpy())
 
 
-# (shards M, rows b, capacity C)
+# (shards M, rows b, capacity C): one pass (M 1, 2), two (3, 4), three
+# (8); C from 1 to 16,384, so tiles of 2,048 outputs split pairs of runs
+# at every pass from C 1,024 on.
 MERGE_SHAPES = [(1, 5, 1), (2, 9, 2), (2, 17, 64), (3, 9, 32), (4, 7, 128),
-                (2, 3, 1024)]
+                (2, 3, 1024), (2, 4, 2048), (2, 3, 16384), (4, 4, 1024),
+                (4, 3, 4096), (8, 4, 16), (8, 3, 256), (8, 3, 1),
+                (8, 3, 2048)]
 
 
 @pytest.mark.parametrize("m,b,cap", MERGE_SHAPES)
 def test_merge_body_matches_plain(lib, m, b, cap):
-    """merge_element over every element of every row (outputs prefilled
-    with garbage): equal to merge_sorted_runs_reference, torch.sort of the
-    gathered keys, on runs with diag >= 2^31, 0xFFFFFFFF beside the
-    sentinel, equal keys across runs, full runs and empty ones."""
+    """yt_merge_runs' passes and merge_pass_kernel's blocks (the split
+    warps' probes, loads, per-thread merges and stores; shared slots,
+    outputs and the passes' second buffer prefilled with garbage): equal
+    to merge_sorted_runs_reference, torch.sort of the gathered keys, on
+    runs with diag >= 2^31, 0xFFFFFFFF beside the sentinel, equal keys
+    across runs, full runs, a row of nothing but pads, and a row whose
+    runs repeat one valid key (diag 0xFFFFFFFF) over more than half of
+    their slots, so that tile edges fall inside a run of equal keys."""
     rng = np.random.default_rng(m * 1000 + cap)
     pool = np.concatenate([rng.integers(0, 1 << 32, 30, dtype=np.uint64),
                            [0, 1, (1 << 31) - 1, 1 << 31, 0xFFFFFFFF]])
@@ -1336,15 +1646,20 @@ def test_merge_body_matches_plain(lib, m, b, cap):
     qo = np.full((m, b, cap), 0x7FFFFFFF, np.int32)
     for k in range(m):
         for r in range(b):
+            if r == 2:
+                v = int(rng.integers(cap // 2, cap + 1))
+                diag[k, r, :v], qo[k, r, :v] = 0xFFFFFFFF, 5
+                continue
             v = (cap, 0)[r] if r < 2 else int(rng.integers(0, cap + 1))
             d = rng.choice(pool, v).astype(np.uint32)
             q = rng.integers(0, 8, v).astype(np.int32)
             o = np.lexsort((q, d.astype(np.int64)))
             diag[k, r, :v], qo[k, r, :v] = d[o], q[o]
-    out_d = np.full((b, m * cap), UNWRITTEN, np.uint32)
-    out_q = np.full((b, m * cap), UNWRITTEN, np.int32)
-    lib.run_merge(diag.ctypes.data, qo.ctypes.data, m, b, cap,
-                  out_d.ctypes.data, out_q.ctypes.data)
+    out_d, tmp_d = np.full((2, b, m * cap), UNWRITTEN, np.uint32)
+    out_q, tmp_q = np.full((2, b, m * cap), UNWRITTEN, np.int32)
+    assert lib.run_merge(diag.ctypes.data, qo.ctypes.data, m, b, cap,
+                         tmp_d.ctypes.data, tmp_q.ctypes.data,
+                         out_d.ctypes.data, out_q.ctypes.data) == 0
     want_d, want_q = seeds.merge_sorted_runs_reference(_t(diag), _t(qo))
     np.testing.assert_array_equal(out_d, want_d.numpy().view(np.uint32))
     np.testing.assert_array_equal(out_q, want_q.numpy())
@@ -1352,15 +1667,15 @@ def test_merge_body_matches_plain(lib, m, b, cap):
 
 def test_wide_warp_bytes_copy_matches_c(lib):
     """ops/sw_cuda's copy of the wide routes' shared-memory limit is the C
-    one at every plane width 33..4,200 (and the direct extension's up to
-    13,000), so full_wide_fits and ext_wide_fits say what the C entries
-    take."""
+    one at every plane width 33..4,200, and the block extension's at every
+    width 1..15,000 (its warps too), so full_wide_fits, ext_variant and
+    ext_wide_fits say what the C entries take."""
     assert sw_cuda.WIDE_SMEM_MAX == lib.wide_smem_max()
+    assert sw_cuda.EXT_BLOCK_WARPS == lib.ext_block_warps()
     for w in range(33, 4201):
         assert sw_cuda.wide_warp_bytes(w) == lib.wide_warp_bytes(w), w
-    for w in range(1, 13001):
-        assert sw_cuda.ext_direct_warp_bytes(w) == (
-            lib.ext_direct_warp_bytes(w)), w
+    for w in range(1, 15001):
+        assert sw_cuda.ext_block_bytes(w) == lib.ext_block_bytes(w), w
 
 
 def _chain_inputs(case):

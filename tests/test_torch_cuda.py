@@ -1,8 +1,9 @@
 """The port's CUDA kernels and engine on the card (marker `cuda`).
 
 Every test here needs an NVIDIA GPU and skips without one.  The kernels
-(both extension kernels, at each block size of the register one, the wide
-one also at W = 1, 37 and 65 with indel inputs; both
+(the extension kernels, at each block size of the register one, the wide
+one also at W = 1, 37 and 65 with indel inputs, the block one past -BW
+707 up to its widest band, -BW 3,566; both
 anchored kernels, on warps of every width class and wider ones, whose
 problems take the wide route, at live widths 33 to 600, on planes up to
 1,025 columns and on the medium-indel gap fills) are held
@@ -20,8 +21,9 @@ and on hash rows whose 16-window runs cross row ends, at two alignments
 (tests/test_torch_seeds.py holds the plain versions to the JAX
 package); the expansion also on each shard of 2 and 4 of the index
 (parallel/mesh.ShardedIndex), and the merge of the shards' rows
-(merge_sorted_runs) on them and on random sorted runs up to the 1 kb
-batch's [2, 32,768, 1,024].  The chain DP kernel is held to its plain
+(merge_sorted_runs) on them and on random sorted runs of 1 to 8 shards up
+to the 1 kb batch's [2, 32,768, 1,024] and [4, 32,768, 1,024].  The
+chain DP kernel is held to its plain
 version on the ranges of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
 ranges, at every team shape (N = 20 to 4,096 nodes) and on ranges whose
 candidate DAG is one path through every node.  The lockstep
@@ -137,12 +139,12 @@ def test_wide_extension_kernel_matches_plain(dev, bw, xc, mg, mi, err,
 
 
 @pytest.mark.parametrize("indel", [False, True], ids=["subst", "indel"])
-@pytest.mark.parametrize("bw", [708, 3226])
-def test_direct_extension_kernel_matches_plain(dev, bw, indel):
+@pytest.mark.parametrize("bw", [708, 3566])
+def test_block_extension_kernel_matches_plain(dev, bw, indel):
     """Past W 2,829 the wide kernel's strip stages do not fit a block's
-    shared memory and its direct variant (lanes store their rows straight
-    into the plane) serves, up to -BW 3,226 (W 12,905); every byte of the
-    plane equals the plain version's.  QL 40 is two strips; the plain
+    shared memory and the block kernel (a strip a warp) serves, up to
+    -BW 3,566 (W 14,265, past the first version's 12,905); every byte of
+    the plane equals the plain version's.  QL 40 is two strips; the plain
     version (a PyTorch op a cell column) runs on the CPU, where its small
     ops cost less than a launch each."""
     if indel:
@@ -152,7 +154,7 @@ def test_direct_extension_kernel_matches_plain(dev, bw, indel):
     kw = dict(KW, band_width=bw, x_cutoff=25)
     sw_cuda.reset_launches()
     got = sw_cuda.extension_forward(*_up(dev, *arrs), **kw)
-    assert sw_cuda.launches()["extension_forward_wide"] == 1
+    assert sw_cuda.launches()["extension_forward_block"] == 1
     want = sw_cuda.extension_forward_reference(
         *(torch.from_numpy(a) for a in arrs), **kw)
     _equal({k: v.cpu() for k, v in got.items()}, want)
@@ -298,13 +300,15 @@ def test_wrappers_count_launches_and_check_inputs(dev):
                 dict(variant="reg", band_width=9)):
         with pytest.raises(ValueError):
             sw_cuda.extension_forward(q, qlens, r, rlens, **dict(kw, **bad))
-    # W 12,909: even the direct warp's shared memory exceeds a block's;
-    # the C entry refuses the launch.
-    with pytest.raises(RuntimeError):
-        sw_cuda.extension_forward(q, qlens, r, rlens, variant="wide",
-                                  **dict(kw, band_width=3227))
+    # W 2,833 with the wide kernel, and W 14,269 with the block kernel:
+    # their shared memory exceeds a block's; the C entries refuse them.
+    for variant, bw in (("wide", 708), ("block", 3567)):
+        with pytest.raises(RuntimeError):
+            sw_cuda.extension_forward(q, qlens, r, rlens, variant=variant,
+                                      **dict(kw, band_width=bw))
     assert sw_cuda.launches()["extension_forward"] == 1
     assert sw_cuda.launches()["extension_forward_wide"] == 0
+    assert sw_cuda.launches()["extension_forward_block"] == 0
 
 
 @pytest.mark.parametrize("qg,rg,rpad,rev_share", [
@@ -532,12 +536,14 @@ def test_expand_sort_shard_kernel_matches_plain(dev, case, n_model):
 
 @pytest.mark.parametrize("m,b,cap", [(2, 32768, 1024), (2, 300, 8192),
                                      (3, 1000, 64), (4, 17, 2048),
-                                     (1, 5, 16)])
+                                     (1, 5, 16), (4, 32768, 1024),
+                                     (4, 374, 8192), (8, 50, 2048)])
 def test_merge_kernel_matches_plain(dev, m, b, cap):
     """The merge kernel on random sorted runs (diag >= 2^31, 0xFFFFFFFF
     beside the sentinel, equal keys across runs, full and empty runs) at
-    the 1 kb batch's tier-1 shape and a tier-2 one: equal to
-    torch.sort of the gathered keys."""
+    the 1 kb batch's tier-1 shape and a tier-2 one, with 2, 4 and 8
+    shards (one, two and three passes): equal to torch.sort of the
+    gathered keys."""
     gen = torch.Generator(device=dev).manual_seed(m * 7 + cap)
     valid = torch.randint(0, cap + 1, (m, b, 1), generator=gen, device=dev)
     valid[:, 0] = cap
@@ -770,17 +776,19 @@ def test_staged_cuda_too_wide_gap_buckets_take_the_twin(dev, testgen):
     assert sw_cuda.launches()["anchored_forward_banded"] > 0
 
 
-def test_staged_cuda_bw_708_takes_the_direct_kernel(dev, testgen):
+@pytest.mark.parametrize("bw", [708, 3300])
+def test_staged_cuda_bw_708_takes_the_block_kernel(dev, testgen, bw):
     """readsA's first reads at -BW 708 (W 2,833, past the staged wide
-    kernel): every extension bucket goes to the direct wide kernel, none
-    to a twin; SAM bytes equal the native engine's."""
+    kernel) and -BW 3,300 (W 13,201, past the first version's 12,905):
+    every extension bucket goes to the block kernel, none to a twin; SAM
+    bytes equal the native engine's."""
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.staged import StagedAligner
     genome, index = testgen
     aa = host.AlignmentArgs()
     aa.xfile_name = INDEX
     aa.ofile_name = "out.sam"
-    aa.band_width = 708
+    aa.band_width = bw
     aa.post_process(True)
     aa.word_len = index.word_len
     data = _reads("readsA_100bp.fasta")
@@ -794,7 +802,8 @@ def test_staged_cuda_bw_708_takes_the_direct_kernel(dev, testgen):
     assert text == ref[0]
     assert (sm, nr) == (ref[2], ref[3])
     assert st.stats["ext_problems"] > 0
-    assert sw_cuda.launches()["extension_forward_wide"] > 0
+    assert sw_cuda.launches()["extension_forward_block"] > 0
+    assert sw_cuda.launches()["extension_forward_wide"] == 0
 
 
 def test_sharded_seeder_on_card_matches_native(dev, testgen):

@@ -187,7 +187,10 @@ def test_wrappers_take_any_n_and_reject_other_devices():
 def test_extension_kernel_choice_by_band_width():
     """The card's extension kernel is chosen by shape before the launch:
     the register kernel for -BW 1 to 8 (W = 5 .. 33), the wide kernel for
-    -BW 0 and -BW 9 and wider."""
+    -BW 0 and -BW 9 to 707 (its warp fits a block's shared memory), the
+    block kernel past it."""
     assert [sw_cuda.ext_variant(bw) for bw in range(0, 11)] == (
         ["wide"] + ["reg"] * 8 + ["wide"] * 2)
+    assert [sw_cuda.ext_variant(bw) for bw in (707, 708, 3566)] == [
+        "wide", "block", "block"]
     assert sw_cuda.REG_WIDTHS == tuple(4 * bw + 1 for bw in range(1, 9))

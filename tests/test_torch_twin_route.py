@@ -8,9 +8,10 @@ block's shared memory is refused by the C entry (csrc/wavefront.cuh
 kWideSmemMax).  The engine decides by shape, before any launch, which
 buckets those are (ops/sw_cuda.full_wide_fits) and sends them to
 ops/sw_batch.py's twin on the same device, as the reference sends its
-gap_fallback class to its XLA twin.  The wide extension kernel drops its
-strip stages past W 2,829 (the direct variant), so every band up to
--BW 3,226 takes it (ops/sw_cuda.ext_wide_fits).  On the CPU the dispatch
+gap_fallback class to its XLA twin.  Past W 2,829, where the wide
+extension kernel's strip stages no longer fit, the block extension kernel
+takes the band, so every band up to -BW 3,566 stays on a kernel
+(ops/sw_cuda.ext_wide_fits).  On the CPU the dispatch
 runs as on the card, with the kernel entries replaced by recorders that
 fail on a plane the C entry would refuse:
 
@@ -24,8 +25,8 @@ fail on a plane the C entry would refuse:
     every extension bucket to extension_forward and writes the native
     engine's SAM.
 
-The copies of wide_warp_bytes and ext_direct_warp_bytes that the
-predicates use are held to the C functions in tests/test_torch_csrc.py.
+The copies of wide_warp_bytes and ext_block_bytes that the predicates
+use are held to the C functions in tests/test_torch_csrc.py.
 """
 import gzip
 import os
@@ -66,13 +67,13 @@ def _aa(host, index, **over):
 
 def test_anch_wide_fits_edges():
     """Full-width planes of up to 32 columns stay in registers; wider ones
-    fit up to 2,832 columns (RL 2,831); extension bands up to -BW 3,226
-    (the direct kernel past -BW 707)."""
+    fit up to 2,832 columns (RL 2,831); extension bands up to -BW 3,566
+    (the block kernel past -BW 707, whose row of W + 1 cells must fit)."""
     fits = sw_cuda.full_wide_fits
     assert fits(31) and fits(2831)
     assert not fits(2832) and not fits(4096)
-    assert sw_cuda.ext_wide_fits(3226) and not sw_cuda.ext_wide_fits(3227)
-    assert all(sw_cuda.ext_wide_fits(bw) for bw in range(0, 3227))
+    assert sw_cuda.ext_wide_fits(3566) and not sw_cuda.ext_wide_fits(3567)
+    assert all(sw_cuda.ext_wide_fits(bw) for bw in range(0, 3567))
     assert sw_cuda.wide_warp_bytes(4 * 707 + 1) <= sw_cuda.WIDE_SMEM_MAX < (
         sw_cuda.wide_warp_bytes(4 * 708 + 1))
 
@@ -133,7 +134,7 @@ def test_reference_and_port_align_at_bw_708(scratch, monkeypatch):
     """The extension's width check: the JAX package's batch-xla engine
     aligns at -BW 708 as its native engine does (with its extensions on
     the device), and so does the port, through extension_forward (the
-    direct wide kernel on the card), with the native engine's SAM."""
+    block extension kernel on the card), with the native engine's SAM."""
     from yaha_tpu.models.staged import StagedAligner as JaxStaged
     from yaha_tpu.io import native_loader as jloader
     from yaha_tpu.native import host as jhost

@@ -328,6 +328,28 @@ def extension_inputs(seed, n, ql, bw, err=0.15):
     return q, qlens, r, rlens
 
 
+def xdrop_extension_inputs(seed, n, ql, bw, diverge, err=0.05):
+    """Queries of QL bases and references (RL = QL + 4*bw) that agree, at
+    `err` substitutions, up to row diverge[k % len(diverge)] of problem k
+    and are random past it, so that its X-drop exit comes a few rows
+    later; a row at or past QL keeps them alike to the end, where the last
+    row ends the problem."""
+    rng = np.random.default_rng(seed)
+    bw2 = 2 * bw
+    rl = ql + 2 * bw2
+    q = rng.integers(0, 4, (n, ql)).astype(np.uint8)
+    qlens = np.full(n, ql, np.int64)
+    r = rng.integers(0, 4, (n, rl)).astype(np.uint8)
+    for k in range(n):
+        d = min(int(diverge[k % len(diverge)]), ql)
+        src = q[k, :d].copy()
+        m = rng.random(d) < err
+        src[m] = rng.integers(0, 4, int(m.sum()))
+        r[k, :d] = src
+    rlens = np.minimum(qlens + bw2, rl).astype(np.int64)
+    return q, qlens, r, rlens
+
+
 def indel_extension_inputs(seed, n, ql, bw, err=0.05):
     """Queries and references (RL = QL + 4*bw) that share a prefix, then
     differ by a deletion or an insertion of 1..2*bw bases (one base at

@@ -82,18 +82,28 @@
 // range mask of yaha_tpu/parallel/mesh.py:157-169).  The whole index is
 // hash_lo = 0, per = 4^wl, which keeps every clean window as before.
 //
-// merge_runs_kernel replaces the all_gather over `model` and the sort of
+// merge_pass_kernel replaces the all_gather over `model` and the sort of
 // the gathered buffers (yaha_tpu/parallel/mesh.py:204-213): the M shards'
-// [b, C] rows, each sorted, become one sorted [b, M C] row.  A block a
-// row; each element's slot is its index plus, for every other shard, the
-// number of that shard's keys that sort before it (a binary search of
-// log2(C) + 1 probes; ties go to the lower shard), so every element costs
-// the same and nothing is sorted again.  What bounds it on an H100 is bytes
-// (the shards' rows in, the merged rows out); the probes read the row's
-// other runs, which stay in L1.
+// [b, C] rows, each sorted, become one sorted [b, M C] row, ties to the
+// lower shard.  What bounds it on an H100 is bytes: every key in once and
+// out once.  It is a tiled merge path: a pass merges pairs of adjacent
+// runs (one pass at M <= 2, else ceil(log2 M), a launch each), a
+// block a tile of T = 2,048 outputs of a pair.  Two warps find where the
+// tile starts and ends in the two runs (the merge path's cross-diagonal,
+// by ballots over 32 probes a round: two dependent rounds at C = 1,024),
+// the block loads the two spans into shared memory with 16-byte loads of
+// each stream (8-byte keys in slots padded so that strided threads spread
+// over the banks), each thread finds its 8 outputs' start by a binary
+// search in shared memory and merges them in registers, and the tile is
+// written back as 16-byte stores of each stream.  At tier 1 (M 2, C
+// 1,024) a tile is a whole row and the splits cost nothing.  The first
+// design gave each element a thread that binary-searched the other runs
+// in device memory: 11 dependent load pairs a key at C = 1,024, a quarter
+// of the card's memory rate.
 //
 // The per-run and per-window bodies (seed_hash_run, seed_hash_window,
-// window_run, slot_window, slot_key, merge_element) and the sort's
+// window_run, slot_window, slot_key; the merge's splits, loads, stores and
+// merge_thread) and the sort's
 // compare-exchange math (bitonic_keeps_min, bitonic_low, reg_steps,
 // smem_step, keep, sort_span)
 // are __host__ __device__, so the CPU tests build them with g++ and, with
@@ -351,14 +361,27 @@ YT_HD void smem_step(uint64_t* keys, int64_t q, int64_t j, int64_t k) {
     }
 }
 
-// The merge of a row's M sorted runs of cap keys each (one a model shard,
-// keys diag << 32 | qo as in the expansion) into one sorted row of M cap
-// keys: element i of run m goes to slot i plus, for every other run, the
-// number of its keys that sort before it (those <= the key in a run before
-// m, those < the key in a run after it, so that equal keys keep the order
-// of their runs).  Each count is a binary search of log2(cap) + 1 probes
-// (cap a power of two), the same for every element.  diag and qo are
-// [M, b, cap]; the row's keys of run m start at (m b + row) cap.
+// The merge of the M model shards' sorted runs of a row (keys diag << 32 |
+// qo as in the expansion) into one sorted row of n = M C keys, by passes
+// that merge pairs of adjacent runs: runs of C keys into runs of 2 C, then
+// 4 C, up to one run of n (ceil(log2 M) passes, and one at M = 1).  Pair k
+// of a pass merges run 2k (A) with run 2k + 1 (B: shorter, or empty, past
+// the row's end), A's key first where two are equal, so equal keys keep
+// the order of their shards.  The first pass reads the [M, b, C] input
+// (run j of row r at (j b + r) C), the others a [b, n] row-major buffer
+// (run j of row r at r n + j L, L the pass's run length); each writes a
+// [b, n] buffer, the last one the output.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeKeys = 8;   // outputs a thread merges (E)
+constexpr int64_t kMergeTile = (int64_t)kMergeThreads * kMergeKeys;  // T
+// A tile's keys in shared memory, a slot of padding after every 16, so
+// that a half-warp's 8-byte accesses 4 or 8 keys apart (the quads, the
+// threads' outputs) fall in 16 different bank pairs.  Positions in a tile
+// are int32.
+constexpr int32_t kMergeSlots = (int32_t)(kMergeTile + kMergeTile / 16);
+
+YT_HD int32_t merge_slot(int32_t x) { return x + (x >> 4); }
+
 YT_HD uint64_t run_key(const uint32_t* diag, const int32_t* qo, int64_t at) {
 #if defined(__CUDA_ARCH__)
     return ((uint64_t)__ldg(diag + at) << 32) | (uint32_t)__ldg(qo + at);
@@ -367,37 +390,215 @@ YT_HD uint64_t run_key(const uint32_t* diag, const int32_t* qo, int64_t at) {
 #endif
 }
 
-// Keys of the sorted run at `at` (cap of them) below `key`, or at most
-// `key` when `upper`.
-YT_HD int64_t run_rank(const uint32_t* diag, const int32_t* qo, int64_t at,
-                       int64_t cap, uint64_t key, bool upper) {
-    int64_t c = 0;
-    for (int64_t step = cap >> 1; step > 0; step >>= 1) {
-        const uint64_t k = run_key(diag, qo, at + c + step - 1);
-        if (upper ? k <= key : k < key) c += step;
-    }
-    const uint64_t k = run_key(diag, qo, at + c);
-    return c + ((upper ? k <= key : k < key) ? 1 : 0);
+// Keys at .. at + 3 (diag and qo 16-byte aligned at `at`): two 16-byte
+// loads.
+YT_HD void run_keys4(const uint32_t* diag, const int32_t* qo, int64_t at,
+                     uint64_t (&k)[4]) {
+#if defined(__CUDA_ARCH__)
+    const uint4 d = __ldg((const uint4*)(diag + at));
+    const int4 q = __ldg((const int4*)(qo + at));
+    k[0] = ((uint64_t)d.x << 32) | (uint32_t)q.x;
+    k[1] = ((uint64_t)d.y << 32) | (uint32_t)q.y;
+    k[2] = ((uint64_t)d.z << 32) | (uint32_t)q.z;
+    k[3] = ((uint64_t)d.w << 32) | (uint32_t)q.w;
+#else
+    for (int e = 0; e < 4; e++) k[e] = run_key(diag, qo, at + e);
+#endif
 }
 
-// Element e (run e / cap, index e % cap) of row `row`: its slot in the
-// merged row [row, M cap] of out_diag / out_qo, where it is written.
-YT_HD void merge_element(const uint32_t* diag, const int32_t* qo, int32_t m,
-                         int64_t b, int64_t cap, int64_t row, int64_t e,
-                         uint32_t* out_diag, int32_t* out_qo) {
-    const int32_t mine = (int32_t)(e / cap);
-    const int64_t i = e - (int64_t)mine * cap;
-    const uint64_t key = run_key(diag, qo, ((int64_t)mine * b + row) * cap +
-                                               i);
-    int64_t slot = i;
-    for (int32_t o = 0; o < m; o++) {
-        if (o == mine) continue;
-        slot += run_rank(diag, qo, ((int64_t)o * b + row) * cap, cap, key,
-                         o < mine);
+// One pass: its input and output, the keys of a row and the run length.
+struct MergePass {
+    const uint32_t* diag;
+    const int32_t* qo;
+    int64_t row_stride, run_stride;  // input run j of row r at r rs + j js
+    int64_t n, len;
+    int64_t pairs, tiles;            // pairs of runs a row; tiles a pair
+    uint32_t* out_diag;              // [b, n]
+    int32_t* out_qo;
+};
+
+YT_HD int merge_passes(int64_t m) {
+    int np = 1;
+    while (((int64_t)1 << np) < m) np++;
+    return np;
+}
+
+// Pass p of np over [m, b, cap] runs: it reads the input (p = 0) or pass p
+// - 1's output, and writes the output when np - 1 - p is even, else tmp
+// (so that the last pass writes the output).
+YT_HD MergePass merge_pass(int p, int np, const uint32_t* diag,
+                           const int32_t* qo, int64_t m, int64_t b,
+                           int64_t cap, uint32_t* tmp_d, int32_t* tmp_q,
+                           uint32_t* out_d, int32_t* out_q) {
+    MergePass P;
+    P.n = m * cap;
+    P.len = cap << p;
+    const bool to_out = ((np - 1 - p) & 1) == 0;
+    if (p == 0) {
+        P.diag = diag;
+        P.qo = qo;
+        P.row_stride = cap;
+        P.run_stride = b * cap;
+    } else {
+        P.diag = to_out ? tmp_d : out_d;
+        P.qo = to_out ? tmp_q : out_q;
+        P.row_stride = P.n;
+        P.run_stride = P.len;
     }
-    const int64_t at = row * (int64_t)m * cap + slot;
-    out_diag[at] = (uint32_t)(key >> 32);
-    out_qo[at] = (int32_t)(uint32_t)key;
+    P.out_diag = to_out ? out_d : tmp_d;
+    P.out_qo = to_out ? out_q : tmp_q;
+    P.pairs = ((P.n + P.len - 1) / P.len + 1) / 2;
+    const int64_t span = 2 * P.len < P.n ? 2 * P.len : P.n;
+    P.tiles = (span + kMergeTile - 1) / kMergeTile;
+    return P;
+}
+
+// Block `blk` of a pass: output tile `tile` of pair `pair` of row `row`,
+// the pair's outputs [d0, d1) of la + lb; A and B start at a_at and b_at
+// in the input, the pair's outputs at out_at.
+struct MergeTile {
+    int64_t a_at, b_at, out_at;
+    int64_t la, lb, d0, d1;
+
+    // False for a tile past its pair's outputs.
+    YT_HD bool init(const MergePass& P, int64_t blk) {
+        const int64_t tile = blk % P.tiles;
+        const int64_t pair = blk / P.tiles % P.pairs;
+        const int64_t row = blk / P.tiles / P.pairs;
+        const int64_t x = 2 * pair * P.len;
+        la = P.n - x < P.len ? P.n - x : P.len;
+        lb = P.n - x - la < P.len ? P.n - x - la : P.len;
+        a_at = row * P.row_stride + 2 * pair * P.run_stride;
+        b_at = a_at + P.run_stride;
+        out_at = row * P.n + x;
+        d0 = tile * kMergeTile;
+        d1 = d0 + kMergeTile < la + lb ? d0 + kMergeTile : la + lb;
+        return d0 < la + lb;
+    }
+};
+
+// The merge path's split of a pair's first d outputs: the number of A's
+// keys among them, the least i in [max(0, d - lb), min(d, la)] with not
+// A[i] <= B[d - 1 - i] (min(d, la) if there is none).  A warp finds it in
+// rounds: lane l probes i = lo + (l + 1) s - 1, s = ceil((hi - lo) / 32)
+// (false at i >= hi); the probes that hold are the first c lanes', and
+// the split lies in [lo + c s, min(hi, lo + (c + 1) s - 1)].  Two rounds
+// at 1,024 keys a run, three at 32,768.
+YT_HD int64_t split_lo(int64_t d, int64_t lb) { return d > lb ? d - lb : 0; }
+YT_HD int64_t split_hi(int64_t d, int64_t la) { return d < la ? d : la; }
+
+YT_HD bool split_probe(const MergePass& P, const MergeTile& T, int64_t d,
+                       int64_t lo, int64_t hi, int lane) {
+    const int64_t s = (hi - lo + 31) / 32;
+    const int64_t i = lo + (lane + 1) * s - 1;
+    return i < hi && run_key(P.diag, P.qo, T.a_at + i) <=
+                         run_key(P.diag, P.qo, T.b_at + (d - 1 - i));
+}
+
+YT_HD void split_narrow(int64_t& lo, int64_t& hi, int c) {
+    const int64_t s = (hi - lo + 31) / 32;
+    const int64_t nhi = lo + (c + 1) * s - 1;
+    lo = lo + c * s < hi ? lo + c * s : hi;
+    if (nhi < hi) hi = nhi;
+}
+
+// Where a span of cnt keys from `at` on has its quads: the keys before
+// the first 4-aligned one (all of them when the two streams are not
+// 16-byte aligned there) and the quads after them.
+YT_HD int32_t span_head(const void* d, const void* q, int64_t at,
+                        int32_t cnt) {
+    const int32_t head = (int32_t)((4 - (at & 3)) & 3);
+    const uintptr_t a = (uintptr_t)((const uint32_t*)d + (at + head)) |
+                        (uintptr_t)((const uint32_t*)q + (at + head));
+    return (a & 15) || head > cnt ? cnt : head;
+}
+
+// Thread `tid` of `nt`'s share of loading keys [at, at + cnt) of the
+// input into slots merge_slot(o + x): 16-byte loads of the quads, single
+// keys before and after them.
+YT_HD void load_keys(int tid, int nt, const MergePass& P, int64_t at,
+                     int32_t cnt, uint64_t* keys, int32_t o) {
+    const int32_t head = span_head(P.diag, P.qo, at, cnt);
+    const int32_t quads = (cnt - head) >> 2;
+    const int32_t tail = head + 4 * quads;
+    for (int32_t x = tid; x < head; x += nt)
+        keys[merge_slot(o + x)] = run_key(P.diag, P.qo, at + x);
+    for (int32_t x = tail + tid; x < cnt; x += nt)
+        keys[merge_slot(o + x)] = run_key(P.diag, P.qo, at + x);
+    for (int32_t c = tid; c < quads; c += nt) {
+        uint64_t k[4];
+        run_keys4(P.diag, P.qo, at + head + 4 * c, k);
+        for (int e = 0; e < 4; e++)
+            keys[merge_slot(o + head + 4 * c + e)] = k[e];
+    }
+}
+
+// The same for storing keys 0 .. cnt - 1 of the slots to the output from
+// `at` on, as the two int32 streams.
+YT_HD void store_keys(int tid, int nt, const uint64_t* keys, int32_t cnt,
+                      const MergePass& P, int64_t at) {
+    const int32_t head = span_head(P.out_diag, P.out_qo, at, cnt);
+    const int32_t quads = (cnt - head) >> 2;
+    for (int32_t x = tid; x < cnt - 4 * quads; x += nt) {
+        const int32_t y = x < head ? x : x + 4 * quads;
+        const uint64_t k = keys[merge_slot(y)];
+        P.out_diag[at + y] = (uint32_t)(k >> 32);
+        P.out_qo[at + y] = (int32_t)(uint32_t)k;
+    }
+    for (int32_t c = tid; c < quads; c += nt) {
+        uint32_t d[4], q[4];
+        for (int e = 0; e < 4; e++) {
+            const uint64_t k = keys[merge_slot(head + 4 * c + e)];
+            d[e] = (uint32_t)(k >> 32);
+            q[e] = (uint32_t)k;
+        }
+        const int64_t y = at + head + 4 * c;
+#if defined(__CUDA_ARCH__)
+        *(uint4*)(P.out_diag + y) = make_uint4(d[0], d[1], d[2], d[3]);
+        *(uint4*)(P.out_qo + y) = make_uint4(q[0], q[1], q[2], q[3]);
+#else
+        for (int e = 0; e < 4; e++) {
+            P.out_diag[y + e] = d[e];
+            P.out_qo[y + e] = (int32_t)q[e];
+        }
+#endif
+    }
+}
+
+// Thread t's outputs of a tile whose A span (na keys) and B span (nb) sit
+// in slots 0 .. na - 1 and na .. na + nb - 1: outputs t E .. t E + E - 1
+// (those below na + nb), found by a binary search of the merge path in
+// shared memory and merged in registers, A first on equal keys: the next
+// key of each span stays in a register, and only the span that gave a key
+// loads its next.
+YT_HD void merge_thread(int t, const uint64_t* keys, int32_t na, int32_t nb,
+                        uint64_t (&v)[kMergeKeys]) {
+    const int32_t d = t * kMergeKeys;
+    int32_t lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+    while (lo < hi) {
+        const int32_t mid = (lo + hi) >> 1;
+        if (keys[merge_slot(mid)] <= keys[merge_slot(na + d - 1 - mid)])
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    int32_t ia = lo, ib = d - lo;
+    uint64_t ka = ia < na ? keys[merge_slot(ia)] : 0;
+    uint64_t kb = ib < nb ? keys[merge_slot(na + ib)] : 0;
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+#endif
+    for (int e = 0; e < kMergeKeys; e++) {
+        const bool take_a = ib >= nb || (ia < na && ka <= kb);
+        v[e] = take_a ? ka : kb;
+        if (take_a) {
+            ia++;
+            ka = ia < na ? keys[merge_slot(ia)] : 0;
+        } else {
+            ib++;
+            kb = ib < nb ? keys[merge_slot(na + ib)] : 0;
+        }
+    }
 }
 
 // Keys the sort of a row with `valid` keys runs over: pow2(valid), and
@@ -425,7 +626,8 @@ constexpr int kHashThreads = 256;
 constexpr int kSeedWarps = kSeedThreads / 32;
 // Largest capacity: C keys of 8 bytes in one block's shared memory.
 constexpr int64_t kMaxCap = 16384;
-constexpr int kMergeThreads = 256;
+using ytsw::kMergeKeys;
+using ytsw::kMergeThreads;
 
 template <int WL>
 __global__ void __launch_bounds__(kHashThreads)
@@ -647,14 +849,47 @@ int launch_expand(const int32_t* hashes, const uint8_t* clean, int64_t b,
     return (int)cudaGetLastError();
 }
 
-// A block a row; its threads take the row's M cap elements in stride.
+// A block a tile of kMergeTile outputs of a pair of runs of a row: warps
+// 0 and 1 find where the tile starts and ends in A and B, every thread
+// loads its share of the two spans into shared memory, merges its E
+// outputs in registers, and the tile goes out through shared memory again.
 __global__ void __launch_bounds__(kMergeThreads)
-merge_runs_kernel(const uint32_t* diag, const int32_t* qo, int32_t m,
-                  int64_t b, int64_t cap, uint32_t* out_diag,
-                  int32_t* out_qo) {
-    const int64_t row = blockIdx.x;
-    for (int64_t e = threadIdx.x; e < (int64_t)m * cap; e += kMergeThreads)
-        ytsw::merge_element(diag, qo, m, b, cap, row, e, out_diag, out_qo);
+merge_pass_kernel(ytsw::MergePass P) {
+    __shared__ uint64_t keys[ytsw::kMergeSlots];
+    __shared__ int64_t split[2];
+    ytsw::MergeTile T;
+    if (!T.init(P, blockIdx.x)) return;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (warp < 2) {
+        const int64_t d = warp ? T.d1 : T.d0;
+        int64_t lo = ytsw::split_lo(d, T.lb), hi = ytsw::split_hi(d, T.la);
+        while (lo < hi) {
+            const unsigned c = __ballot_sync(
+                0xffffffffu, ytsw::split_probe(P, T, d, lo, hi, lane));
+            ytsw::split_narrow(lo, hi, __popc(c));
+        }
+        if (lane == 0) split[warp] = lo;
+    }
+    __syncthreads();
+    const int64_t a0 = split[0];
+    const int32_t na = (int32_t)(split[1] - a0);
+    const int32_t n = (int32_t)(T.d1 - T.d0);
+    ytsw::load_keys(tid, kMergeThreads, P, T.a_at + a0, na, keys, 0);
+    ytsw::load_keys(tid, kMergeThreads, P, T.b_at + (T.d0 - a0), n - na,
+                    keys, na);
+    __syncthreads();
+    uint64_t v[kMergeKeys];
+    ytsw::merge_thread(tid, keys, na, n - na, v);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kMergeKeys; e++) {
+        const int32_t x = tid * kMergeKeys + e;
+        if (x < n) keys[ytsw::merge_slot(x)] = v[e];
+    }
+    __syncthreads();
+    ytsw::store_keys(tid, kMergeThreads, keys, n, P, T.out_at + T.d0);
 }
 
 }  // namespace
@@ -706,17 +941,29 @@ int yt_expand_sort(const int32_t* hashes, const uint8_t* clean, int64_t b,
                          allwrapped, (cudaStream_t)stream);
 }
 
-// diag / qo [m, b, cap], each row of each run sorted -> out [b, m cap].
+// diag / qo [m, b, cap], each row of each run sorted -> out [b, m cap]:
+// ceil(log2 m) passes (one at m = 1), a launch each; tmp ([b, m cap] a
+// stream) takes the passes between, and may be null for m <= 2.
 int yt_merge_runs(const uint32_t* diag, const int32_t* qo, int32_t m,
-                  int64_t b, int64_t cap, uint32_t* out_diag,
-                  int32_t* out_qo, void* stream) {
-    if (m < 1 || cap < 1 || (cap & (cap - 1)) || b > 0x7FFFFFFF)
+                  int64_t b, int64_t cap, uint32_t* tmp_d, int32_t* tmp_q,
+                  uint32_t* out_d, int32_t* out_q, void* stream) {
+    if (m < 1 || cap < 1 || (cap & (cap - 1)) || b < 0 ||
+        (m > 2 && (!tmp_d || !tmp_q)))
         return (int)cudaErrorInvalidValue;
-    if (b > 0)
-        merge_runs_kernel<<<(unsigned)b, kMergeThreads, 0,
-                            (cudaStream_t)stream>>>(diag, qo, m, b, cap,
-                                                    out_diag, out_qo);
-    return (int)cudaGetLastError();
+    const int np = ytsw::merge_passes(m);
+    for (int p = 0; p < np; p++) {
+        const ytsw::MergePass P = ytsw::merge_pass(p, np, diag, qo, m, b, cap,
+                                                   tmp_d, tmp_q, out_d,
+                                                   out_q);
+        const int64_t grid = b * P.pairs * P.tiles;
+        if (grid > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+        if (grid > 0)
+            merge_pass_kernel<<<(unsigned)grid, kMergeThreads, 0,
+                                (cudaStream_t)stream>>>(P);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -101,19 +101,19 @@ struct StageSrc {
     }
 };
 
-// Lane `lane`'s share of writing len bytes from src to dst: the 16-byte
-// aligned chunks, 16 bytes a store, lane-strided; the bytes before the
-// first chunk and after the last, one a lane.
+// Thread `lane` of `nt`'s share of writing len bytes from src to dst: the
+// 16-byte aligned chunks, 16 bytes a store, thread-strided; the bytes
+// before the first chunk and after the last, one a thread.
 template <class Src>
-YT_HD void copy_share(int lane, uint8_t* dst, int64_t len, const Src& src) {
+YT_HD void copy_share(int lane, uint8_t* dst, int64_t len, const Src& src,
+                      int nt = kWideLanes) {
     int64_t head = (int64_t)((16 - ((uintptr_t)dst & 15)) & 15);
     if (head > len) head = len;
     const int64_t chunks = (len - head) >> 4;
     const int64_t tail = head + 16 * chunks;
-    for (int64_t o = lane; o < head; o += kWideLanes) dst[o] = src.byte(o);
-    for (int64_t o = tail + lane; o < len; o += kWideLanes)
-        dst[o] = src.byte(o);
-    for (int64_t c = lane; c < chunks; c += kWideLanes) {
+    for (int64_t o = lane; o < head; o += nt) dst[o] = src.byte(o);
+    for (int64_t o = tail + lane; o < len; o += nt) dst[o] = src.byte(o);
+    for (int64_t c = lane; c < chunks; c += nt) {
         uint32_t w[4];
         src.words(head + 16 * c, w);
         store16(dst + head + 16 * c, w);

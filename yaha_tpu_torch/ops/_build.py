@@ -132,6 +132,9 @@ def load():
     lib.yt_ext_forward_wide.restype = ct.c_int
     lib.yt_ext_forward_wide.argtypes = (
         [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 5)
+    lib.yt_ext_forward_block.restype = ct.c_int
+    lib.yt_ext_forward_block.argtypes = (
+        [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 5)
     lib.yt_ext_forward_reg.restype = ct.c_int
     lib.yt_ext_forward_reg.argtypes = (
         [_vp] * 4 + [_i64] * 3 + [_i32] * 8 + [_vp] * 4 + [_i32, _vp])
@@ -156,7 +159,7 @@ def load():
         [_vp, _vp, _i64, _i64, _vp, _vp, _i32, _i32, _i64, _i64] +
         [_vp] * 7)
     lib.yt_merge_runs.restype = ct.c_int
-    lib.yt_merge_runs.argtypes = [_vp, _vp, _i32, _i64, _i64, _vp, _vp, _vp]
+    lib.yt_merge_runs.argtypes = [_vp, _vp, _i32, _i64, _i64] + [_vp] * 5
     lib.yt_chain_dp_cuda.restype = ct.c_int
     lib.yt_chain_dp_cuda.argtypes = [_vp] * 5 + [_i64] * 2 + [_i32] * 5 + \
         [_vp] * 5

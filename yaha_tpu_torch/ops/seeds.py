@@ -8,7 +8,7 @@ Counterpart of yaha_tpu/ops/seeds_jax.py:
   expand_sort_hits   expand_sort_hits_device   csrc/seed_kernels.cu
                                                expand_sort_kernel
   merge_sorted_runs  the all_gather over `model` csrc/seed_kernels.cu
-                     and sort of                merge_runs_kernel
+                     and sort of                merge_pass_kernel
                      parallel/mesh.py:204-213
   seed_counts, strand_hit_totals, fragment_boundaries
                      the functions of the same name: plain PyTorch ops, no
@@ -256,11 +256,16 @@ def merge_sorted_runs(diag, qo):
         raise ValueError("%s: diag %s, qo %s" % (
             name, tuple(diag.shape), tuple(qo.shape)))
     out_d, out_q = torch.empty((2, b, m * c), dtype=I32, device=dev)
+    # Past two shards the passes between the first and the last go
+    # through a second [B, M C] pair of streams.
+    tmp = torch.empty((2, b, m * c), dtype=I32, device=dev) if m > 2 else None
     if b:
         from . import _build
         sw_cuda._launched(name, _build.load().yt_merge_runs(
-            diag.data_ptr(), qo.data_ptr(), m, b, c, out_d.data_ptr(),
-            out_q.data_ptr(), sw_cuda._stream(dev)))
+            diag.data_ptr(), qo.data_ptr(), m, b, c,
+            *((None, None) if tmp is None else (tmp[0].data_ptr(),
+                                                tmp[1].data_ptr())),
+            out_d.data_ptr(), out_q.data_ptr(), sw_cuda._stream(dev)))
     return out_d, out_q
 
 

@@ -19,7 +19,8 @@ dtype, shape and contiguity, allocates the outputs, and launches its
 hand-written kernel on the current stream, raising if the launch fails:
 csrc/ext_kernels.cu (band state in registers, a thread a problem) for
 extensions at -BW 1 to 8, csrc/ext_wide_kernels.cu (a warp a problem on a
-row wavefront) for the other band widths, csrc/anch_kernels.cu for both
+row wavefront) for the other band widths up to -BW 707 and a block of
+warps a problem, a strip a warp, past it, csrc/anch_kernels.cu for both
 anchored entries (band state in registers, a width class per warp of 32
 problems; a warp a problem on a row wavefront for the warps with a lane
 wider than 32 columns).
@@ -61,10 +62,12 @@ I32 = torch.int32
 # Kernel launches per wrapper since the last reset_launches(), for the
 # kernels of this module and of gather_dp, decode, seeds and chain: a run
 # can show which kernels its main path went through.  The extension has
-# two kernels, counted apart: "extension_forward" (band state in
-# registers, csrc/ext_kernels.cu) and "extension_forward_wide" (a warp a
-# problem, csrc/ext_wide_kernels.cu).
+# three kernels, counted apart: "extension_forward" (band state in
+# registers, csrc/ext_kernels.cu), "extension_forward_wide" (a warp a
+# problem, csrc/ext_wide_kernels.cu ext_wide_kernel) and
+# "extension_forward_block" (a block of warps a problem, ext_block_kernel).
 _launches = {"extension_forward": 0, "extension_forward_wide": 0,
+             "extension_forward_block": 0,
              "anchored_forward_banded": 0, "anchored_forward": 0,
              "gather_problems": 0, "rle_walk": 0, "seed_hashes": 0,
              "expand_sort_hits": 0, "merge_sorted_runs": 0, "chain_dp": 0}
@@ -84,6 +87,10 @@ ANCH_REG_COLS = 32
 # wide routes refuse a plane whose warp does not fit.
 WIDE_SMEM_MAX = 232448
 WIDE_LANES = 32
+# The block extension's warps a block, and its shared memory besides the
+# row: copies of kBlockWarps and ext_block_bytes (csrc/ext_wide_kernels.cu),
+# held equal by tests/test_torch_csrc.py.
+EXT_BLOCK_WARPS = 8
 _launch_lock = threading.Lock()
 
 
@@ -97,11 +104,11 @@ def wide_warp_bytes(w):
     return row + 2 * stage + 2 * codes
 
 
-def ext_direct_warp_bytes(w):
-    """Shared memory of the wide extension's direct warp (no strip stages;
-    csrc/ext_wide_kernels.cu ext_direct_warp_bytes): the row and two
-    strips' codes."""
-    return 16 * (w + 1) + 2 * ((2 * WIDE_LANES + w + 15) // 16 * 16)
+def ext_block_bytes(w):
+    """Shared memory of the block extension for plane rows of w bytes
+    (csrc/ext_wide_kernels.cu ext_block_bytes): 64 bytes of sync state, a
+    16-byte unit a lane, the row of w + 1 16-byte cells."""
+    return 64 + EXT_BLOCK_WARPS * WIDE_LANES * 16 + 16 * (w + 1)
 
 
 def full_wide_fits(rl):
@@ -115,10 +122,11 @@ def full_wide_fits(rl):
 
 def ext_wide_fits(band_width):
     """Whether extension_forward takes a band on the card: the register
-    kernel's widths, else the wide kernel's warp, staged or (past W 2,829)
-    direct, fits a block's shared memory: up to W 12,905, -BW 3,226."""
+    kernel's widths, else the wide kernel's warp (up to W 2,829) or past
+    it the block kernel's row fits a block's shared memory: up to W
+    14,265, -BW 3,566."""
     w = 4 * band_width + 1
-    return w in REG_WIDTHS or ext_direct_warp_bytes(w) <= WIDE_SMEM_MAX
+    return w in REG_WIDTHS or ext_block_bytes(w) <= WIDE_SMEM_MAX
 
 
 def reset_launches():
@@ -418,8 +426,13 @@ def _p(t):
 def ext_variant(band_width):
     """The extension kernel for a band width, chosen by shape before the
     launch: "reg" (band state in registers) for W in REG_WIDTHS, "wide"
-    (a warp a problem) for the other widths."""
-    return "reg" if 4 * band_width + 1 in REG_WIDTHS else "wide"
+    (a warp a problem) for the other widths whose warp fits a block's
+    shared memory (W up to 2,829, -BW 707), "block" (a block of warps a
+    problem) past them."""
+    w = 4 * band_width + 1
+    if w in REG_WIDTHS:
+        return "reg"
+    return "wide" if wide_warp_bytes(w) <= WIDE_SMEM_MAX else "block"
 
 
 def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
@@ -432,10 +445,12 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     qlens/rlens: [N].  Returns score/maxi/maxj [N] int32 and the packed
     backtrack plane bt [N, QL+1, 4*band_width+1] int8.  On the card,
     `variant` (default ext_variant(band_width)) picks the kernel: "reg"
-    for W in REG_WIDTHS, with `block` threads a block, or "wide" (a warp
-    a block) for any W whose warp fits a block's shared memory (staged up
-    to W 2,829, -BW 707, direct up to W 12,905, -BW 3,226: ext_wide_fits;
-    the C entry refuses a wider band); both return the same arrays.
+    for W in REG_WIDTHS, with `block` threads a block; "wide" (a warp a
+    block) for any W whose warp fits a block's shared memory (up to W
+    2,829, -BW 707); "block" (a block of EXT_BLOCK_WARPS warps a problem)
+    for any W whose row fits (up to W 14,265, -BW 3,566: ext_wide_fits).
+    Each C entry refuses a band too wide for its kernel.  All return the
+    same arrays.
     """
     kw = dict(band_width=band_width, go=go, ge=ge, rc=rc, ms=ms,
               max_gap=max_gap, max_intron=max_intron, x_cutoff=x_cutoff)
@@ -448,12 +463,12 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
     w = 2 * bw2 + 1
     variant = variant or ext_variant(band_width)
     if not ((variant == "reg" and w in REG_WIDTHS and block in REG_BLOCKS)
-            or (variant == "wide" and w >= 1)):
+            or (variant in ("wide", "block") and w >= 1)):
         raise ValueError("%s: no %s kernel for W=%d, block=%d"
                          % (name, variant, w, block))
     dev = q.device
     # The register kernel leaves the rows after a problem's exit row
-    # unwritten; the wide kernel writes every byte.
+    # unwritten; the wide and block kernels write every byte.
     alloc = torch.zeros if variant == "reg" else torch.empty
     bt = alloc((n, ql + 1, w), dtype=torch.int8, device=dev)
     score, maxi, maxj = torch.empty((3, n), dtype=I32, device=dev)
@@ -466,8 +481,11 @@ def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
         if variant == "reg":
             _launched(name, lib.yt_ext_forward_reg(*args, block,
                                                    _stream(dev)))
-        else:
+        elif variant == "wide":
             _launched(name + "_wide", lib.yt_ext_forward_wide(
+                *args, _stream(dev)))
+        else:
+            _launched(name + "_block", lib.yt_ext_forward_block(
                 *args, _stream(dev)))
     return {"score": score, "maxi": maxi, "maxj": maxj, "bt": bt}
 

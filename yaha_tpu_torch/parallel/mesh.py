@@ -20,7 +20,7 @@ Here the grid is a [data, model] table of torch.devices and the program a
 loop over it: for every entry, ops/seeds.expand_sort_hits on that device
 with the shard's range (csrc/seed_kernels.cu expand_sort_kernel, range
 masked), then, on each data group's first device, ops/seeds.
-merge_sorted_runs (merge_runs_kernel) in place of the all_gather and the
+merge_sorted_runs (merge_pass_kernel) in place of the all_gather and the
 sort; a device-to-device copy is what the collective among one process's
 own devices comes to, and none is made where the devices are the same.
 Entries may repeat a device, as the reference's tests run their meshes on

@@ -157,6 +157,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch with the host seed scan and on the golden readsA with --seed
      device --model-shards 2, each merged SAM equal, apart from @PG, to
      one process's run of the same flags.
+ 10. the entry points and tools (yaha_tpu_torch/entry.py, tools/):
+     entry()'s score, maxi and maxj equal to entry("cpu")'s;
+     dryrun_multichip(4) at 16 Mbp (the L15 arm off; then alone where
+     ~/hgdata holds an hg-scale index): the staged engine with the
+     sharded seeder on a (2 x 2) grid of the card byte-identical to the
+     single-device runs, no host-scan fallback, phantom rows, a capacity
+     retry; device_replay on phase 3's 1 kb batch: its DP launch sequence
+     as a CUDA graph, the replayed walk items equal to the captured ones,
+     its device seconds beside the chunk's device_s and the kernels'
+     torch.profiler time; decode_profile on the main path's largest
+     extension and full gap buckets (every walk team, sorted and unsorted,
+     equal); seedscan_scaling on the cached L15 index (1, 2, 4, 8 host
+     threads, the device seeder beside them); fuzz_parity over 24 seeds,
+     every arm's SAM equal to the native engine's (a seed whose native
+     run takes over 20 s is skipped, at most a quarter of them).
 
 Each phase's seconds are printed.
 
@@ -280,6 +295,15 @@ QUEUE_CYCLES = 20_000_000  # ~10 ms of card clock ahead of a timed window
 SCALE_GRIDS = ((1, 2), (2, 2))
 LONG_GAP_MAX_GAP = 3600
 CLI_TIMEOUT = 300
+# Phase 10, the entry points and tools: the dryrun's genome (cut from the
+# reference's 100 Mbp to bound its set-up), the hg-scale index its L15
+# arm wants, the seed-scan tool's reads, and the fuzz's seeds.
+DRYRUN_MBP = 16
+HG_DIR = os.path.expanduser("~/hgdata")
+SEEDSCAN_READS = 4000
+FUZZ_SEEDS = 24
+FUZZ_SEED0 = 1000
+FUZZ_REF_TIMEOUT = 20
 
 
 def sync(torch, dev):
@@ -475,14 +499,6 @@ def _rand_problems(rng, n, ql, rl, similar):
     return q, r
 
 
-def walk_items(torch, rle, n_ops, cap):
-    """The item slots a walk kernel writes, [0, min(n_ops, cap)) (cap for
-    n_ops = -1), and 0 past them as in the plain version."""
-    stored = torch.where(n_ops < 0, cap, n_ops)
-    keep = torch.arange(cap, device=rle.device)[None, :] < stored[:, None]
-    return torch.where(keep, rle, 0)
-
-
 def compare(torch, errs, phase, name, tag, kernel_out, plain_out):
     """Raise unless every output of the kernel equals the plain version's;
     record the max abs error per kernel in `errs`."""
@@ -648,6 +664,7 @@ def phase_kernels(torch, sw, errs, dev):
     from yaha_tpu_torch.utils import codec
     from yaha_tpu_torch.ops import decode, gather_dp, seeds
     from yaha_tpu_torch.parallel.mesh import rebase_so
+    from yaha_tpu_torch.tools.decode_profile import items_below
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_dp_cases import indel_extension_inputs
     rng = np.random.default_rng(SEED)
@@ -678,7 +695,7 @@ def phase_kernels(torch, sw, errs, dev):
                 sync(torch, dev)
                 compare(torch, errs, "phase2", "rle_walk",
                         "%s team=%d cap=%d" % (tag, team, cap),
-                        {"rle": walk_items(torch, *got, cap),
+                        {"rle": items_below(*got, cap),
                          "n_ops": got[1]},
                         {"rle": want[0], "n_ops": want[1]})
 
@@ -1269,6 +1286,7 @@ def _walk_turns(torch, decode, dev, sets, wkw, tag):
     """The walk at each team size timed in turns on the same inputs;
     returns {team: [ms, ms]} and each team size's output on sets[1], whose
     counts and items must agree."""
+    from yaha_tpu_torch.tools.decode_profile import items_below
     times = {}
     for team in WALK_TURNS:
         fn = (lambda t: lambda *a: decode.rle_walk(*a, team=t, **wkw))(team)
@@ -1283,21 +1301,11 @@ def _walk_turns(torch, decode, dev, sets, wkw, tag):
     first = outs[decode.WALK_TEAM]
     for team, got in outs.items():
         if not (torch.equal(got[1], first[1]) and torch.equal(
-                walk_items(torch, *got, wkw["cap"]),
-                walk_items(torch, *first, wkw["cap"]))):
+                items_below(*got, wkw["cap"]),
+                items_below(*first, wkw["cap"]))):
             raise AssertionError("phase5 walk %s: teams of %d and %d lanes "
                                  "differ" % (tag, team, decode.WALK_TEAM))
     return times, outs
-
-
-def _walk_work(torch, rle, n_ops, cap, inputs):
-    """(bytes, steps) a walk needs: one plane byte per visited cell (a
-    cell per unit of run length, plus the cell that ends each walk), 4
-    bytes per item it stores, its per-problem inputs and n_ops."""
-    items = walk_items(torch, rle, n_ops, cap)
-    steps = int((items & ((1 << 28) - 1)).sum()) + int((n_ops > 0).sum())
-    stored = int(torch.where(n_ops < 0, cap, n_ops).sum())
-    return steps + 4 * stored + _nbytes(*inputs) + _nbytes(n_ops), steps
 
 
 def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
@@ -1312,6 +1320,7 @@ def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
     counted from the extension's plane), its walk's steps, its gather's
     bytes."""
     from yaha_tpu_torch.ops import decode, gather_dp
+    from yaha_tpu_torch.tools.decode_profile import walk_work, items_below
     gap_kw, ext_kw = st.gap_kw, st.ext_kw
     rng = np.random.default_rng(SEED)
 
@@ -1439,7 +1448,7 @@ def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
     times10, outs10 = _walk_turns(torch, decode, dev, sets, wkw,
                                   "10kb bucket=%s N=%d" % (
                                       list(key10[1:]), sets[0][0].shape[0]))
-    wb10, steps10 = _walk_work(torch, *outs10[decode.WALK_TEAM], cap10,
+    wb10, steps10 = walk_work(*outs10[decode.WALK_TEAM], cap10,
                                sets[1][1:])
     b10, by10 = _bound(wb10, steps10 * WALK_STEP_OPS)
     log("phase5 walk 10kb: bound %.6f ms (%s: %d bytes, %d steps), %s" % (
@@ -1501,7 +1510,7 @@ def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
     # The walk on the largest extension bucket's planes, from its best
     # cells, at the engine's cap: every team size in turns, then the plain
     # version once.  The bound counts the walk's own work
-    # (_walk_work), not the [N, cap] item buffer.
+    # (walk_work), not the [N, cap] item buffer.
     cap = 1 << (2 * ext_key[1] + w + 1).bit_length()
     walk_in = [ext_out["bt"], ext_out["maxi"], ext_out["maxj"],
                ext_out["score"] > 0]
@@ -1514,10 +1523,10 @@ def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
                               "1kb bucket=%s N=%d" % (list(ext_key[1:]), n))
     plain_ms, want = _time_once(
         torch, dev, lambda *a: decode.rle_walk_reference(*a, **wkw), sets[1])
-    wbytes, steps = _walk_work(torch, *want, cap, sets[1][1:])
+    wbytes, steps = walk_work(*want, cap, sets[1][1:])
     got = outs[decode.WALK_TEAM]
     finish("rle_walk", ext_key, n, float(np.mean(times[decode.WALK_TEAM])),
-           plain_ms, {"rle": walk_items(torch, *got, cap), "n_ops": got[1]},
+           plain_ms, {"rle": items_below(*got, cap), "n_ops": got[1]},
            {"rle": want[0], "n_ops": want[1]}, wbytes, steps * WALK_STEP_OPS)
     bound, _ = _bound(wbytes, steps * WALK_STEP_OPS)
     log("phase5 walk 1kb: %d steps, %d items; bound %.6f ms; the [N, cap] "
@@ -2787,6 +2796,136 @@ def phase_multihost(reads, idx, tg_idx):
                               one_s, two_s, parts))
 
 
+def phase_tools(torch, sw, StagedAligner, genome, index, aa, pr, idx,
+                walk_buckets, threads, dev):
+    """Phase 10, the port's entry points and tools (yaha_tpu_torch/entry.py
+    and yaha_tpu_torch/tools/) on the card, each with its counts set to 0
+    just before it and read just after: entry() equal to entry("cpu");
+    dryrun_multichip(4) at DRYRUN_MBP with its L15 arm off, then the L15
+    arm alone where ~/hgdata holds an hg-scale index; device_replay
+    on phase 3's 1 kb batch (replayed walk items equal to the captured
+    ones); decode_profile on the main path's largest extension and full
+    gap buckets (every team equal); seedscan_scaling on the cached L15
+    index in a process of its own (its profile counters need YT_PROFILE
+    before the first scan); fuzz_parity over FUZZ_SEEDS seeds, no
+    difference and no crash (a seed whose native reference takes over
+    FUZZ_REF_TIMEOUT s is skipped, at most a quarter of them).  Returns
+    {tool: report}."""
+    from yaha_tpu_torch import entry as ent
+    from yaha_tpu_torch.tools import decode_profile, device_replay
+    from yaha_tpu_torch.tools import fuzz_parity
+    reports = {}
+    sw.reset_launches()
+    step, ex = ent.entry()
+    got = [t.cpu() for t in step(*ex)]
+    sync(torch, dev)
+    launches = sw.launches()
+    want = ent.entry("cpu")[0](*ex)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)) or \
+            launches["extension_forward"] != 1:
+        raise AssertionError("phase10 entry: the card's score/maxi/maxj "
+                             "differ from the CPU's, or launches %s"
+                             % launches)
+    log("phase10 entry: score/maxi/maxj == entry(\"cpu\") on %d problems; "
+        "launches %s" % (len(ex[0]), json.dumps(
+            {k: v for k, v in launches.items() if v})))
+    old = {k: os.environ.get(k) for k in ("YT_DRYRUN_MBP", "YT_DRYRUN_L15")}
+    os.environ.update(YT_DRYRUN_MBP=str(DRYRUN_MBP), YT_DRYRUN_L15="0")
+    try:
+        sw.reset_launches()
+        t0 = time.time()
+        rep = ent.dryrun_multichip(4)
+        launches = sw.launches()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name in ("expand_sort_hits", "merge_sorted_runs", "seed_hashes"):
+        if not launches[name]:
+            raise AssertionError("phase10 dryrun: %s never launched" % name)
+    rep["launches"] = {k: v for k, v in launches.items() if v}
+    rep["seconds"] = time.time() - t0
+    reports["dryrun_multichip"] = rep
+    log("phase10 dryrun_multichip(4) at %d Mbp: byte identical, %d "
+        "fallback rows, %d phantom rows, %d capacity retries; launches %s; "
+        "%.1f s" % (DRYRUN_MBP, rep["host_seed_fallbacks"],
+                    rep["phantom_rows"], rep["capacity_retries"],
+                    json.dumps(rep["launches"]), rep["seconds"]))
+    if os.path.isdir(HG_DIR):
+        l15 = ent._dryrun_l15(4)
+        reports["dryrun_l15"] = l15
+        if not l15.get("ok"):
+            raise AssertionError("phase10 dryrun L15: %s" % l15)
+        log("phase10 dryrun L15: " + json.dumps(l15))
+    else:
+        log("phase10 dryrun L15: %s not present, arm not run" % HG_DIR)
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads)
+    rep = device_replay.measure_chunk_device(st, pr, 0, pr.n)
+    del st
+    reports["device_replay"] = rep
+    log("phase10 device_replay 1kb: mode %s, replay device s "
+        "min/med/max %s, device_s %.4f, profiler kernel s %.4f (the "
+        "replayed kernels %.4f), %d kernel launches, walks equal" % (
+            rep["mode"], ["%.6f" % x for x in
+                          rep["replay_device_s_min_med_max"]],
+            rep["device_s"], rep["profiler_kernel_s"],
+            rep["profiler_replayed_kernels_s"], rep["kernel_launches"]))
+    (q, qlens, r, rlens), (gq, gql, gr, grl, glb, grb) = walk_buckets
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    planes = {"band": decode_profile.band_planes(
+        q, i32(qlens), r, i32(rlens), **decode_profile.EXT_KW),
+        "full": decode_profile.full_planes(
+        gq, i32(gql), gr, i32(grl), i32(glb), i32(grb),
+        **decode_profile.GAP_KW)}
+    rep = decode_profile.profile(planes)
+    del planes
+    reports["decode_profile"] = rep
+    for layout, row in rep.items():
+        log("phase10 decode_profile %s %s: bound %.6f ms (%s, %d walk "
+            "bytes of %d plane bytes); med ms %s; teams equal" % (
+                layout, row["shape"], row["bound_ms"], row["bound_by"],
+                row["walk_bytes"], row["plane_bytes"], json.dumps(
+                    {k[:-3]: round(v["med"], 6) for k, v in row.items()
+                     if k.endswith("_ms") and isinstance(v, dict)})))
+    out = run([sys.executable, "-m", "yaha_tpu_torch.tools.seedscan_scaling",
+               "-x", idx, "--reads", str(SEEDSCAN_READS), "--device",
+               "cuda"], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+              timeout=600)
+    rep = json.loads(out.strip().splitlines()[-1])
+    reports["seedscan_scaling"] = rep
+    for row in rep["rows"]:
+        log("phase10 seedscan_scaling: %s" % json.dumps(row))
+    log("phase10 seedscan_scaling device seeder: %s; %s" % (
+        json.dumps(rep["device_seeder"]), json.dumps(rep["assets"])))
+    sw.reset_launches()
+    results, fails = fuzz_parity.run(FUZZ_SEEDS, FUZZ_SEED0, "cuda",
+                                     log=log, ref_timeout=FUZZ_REF_TIMEOUT)
+    launches = sw.launches()
+    reached = {}
+    for res in results:
+        for arm, v in res["arms"].items():
+            reached[arm] = reached.get(arm, 0) + (v == "ok")
+    skipped = [r["seed"] for r in results if "skipped" in r]
+    reports["fuzz_parity"] = {"seeds": FUZZ_SEEDS, "failures": fails,
+                              "skipped": skipped, "ok_by_arm": reached,
+                              "launches": launches}
+    if fails:
+        raise AssertionError("phase10 fuzz_parity: seeds %s failed" % fails)
+    if len(skipped) > FUZZ_SEEDS // 4:
+        raise AssertionError("phase10 fuzz_parity: %d of %d seeds skipped "
+                             "(reference timeouts)" % (len(skipped),
+                                                      FUZZ_SEEDS))
+    log("phase10 fuzz_parity: %d seeds from %d, no difference, no crash; "
+        "skipped (the native reference past %d s) %s; ok runs by arm %s; "
+        "kernel launches %s" % (
+            FUZZ_SEEDS, FUZZ_SEED0, FUZZ_REF_TIMEOUT, skipped,
+            json.dumps(reached),
+            json.dumps({k: v for k, v in launches.items() if v})))
+    return reports
+
+
 def _device_time(torch, prof, wall):
     """(busy ms, idle share of `wall`, ms by kind, ms of the 8 costliest
     names) from the card's events of one torch.profiler run."""
@@ -3007,6 +3146,9 @@ def main():
     phase_done("phase5 seconds")
     phase_seed_kernels(torch, seeds, seeder, kernels, errs, dev)
     phase_done("phase6 kernels seconds")
+    # Phase 10's walk profile takes the main path's own planes.
+    walk_buckets = (_largest(st, "extension_forward", 1024)[1],
+                    _largest(st, "anchored_forward")[1])
     phase_gap_histogram(sw, [("1kb", st), ("1kb BW%d" % WIDE_BW, st_wide),
                              ("1kb BW%d" % WIDER_BW, st_wider),
                              ("10kb", st10), ("105kb", st105),
@@ -3040,6 +3182,10 @@ def main():
     del sharded
     phase_multihost(reads, idx, tg_idx)
     phase_done("phase9 seconds")
+    phase_tools(torch, sw, StagedAligner, genome, index, aa, pr, idx,
+                walk_buckets, threads, dev)
+    del walk_buckets
+    phase_done("phase10 seconds")
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

@@ -48,6 +48,10 @@ def test_scan_covers_the_port():
     assert "yaha_tpu_torch/ops/seeds.py" in PORT_FILES
     assert "yaha_tpu_torch/parallel/mesh.py" in PORT_FILES
     assert "yaha_tpu_torch/parallel/distributed.py" in PORT_FILES
+    assert "yaha_tpu_torch/entry.py" in PORT_FILES
+    tools = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "yaha_tpu_torch", "tools", "*.py")))
+    assert len(tools) == 5 and set(tools) <= set(PORT_FILES)
     assert len(PORT_FILES) > 15
 
 

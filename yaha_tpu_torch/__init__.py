@@ -14,6 +14,10 @@
                     device problem assembly and backtrack walk
   ops/_build.py     nvcc build of csrc/ at first use
   csrc/             hand-written CUDA kernels (sm_90a)
+  entry.py          the driver entry points: entry() and
+                    dryrun_multichip() (python -m yaha_tpu_torch.entry)
+  tools/            device replay, walk profile, seed-scan scaling,
+                    differential fuzz (python -m yaha_tpu_torch.tools.X)
 
 Imports torch and never jax, and nothing of the JAX package.
 """

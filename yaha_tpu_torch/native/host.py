@@ -16,7 +16,8 @@ native), compression and the index build, the signatures of the staged
 yt_batch_* entries (yaha_tpu/models/staged.py _sig), and the batched host
 DPs: extension_forward and anchored_forward (the eo/idc planes of
 ops/sw_batch.py, run by StagedAligner(backend="native")) and chain_dp
-(the fragment-chain DP that ops/chain.py is held to).
+(the fragment-chain DP that ops/chain.py is held to), and the seed
+scan's profile counters (profile_counters, under YT_PROFILE=1).
 """
 from __future__ import annotations
 
@@ -163,6 +164,33 @@ def _load():
             _declare(lib)
             _lib = lib
         return _lib
+
+
+# The seed scan's CPU seconds and counts, summed over the native threads
+# (yaha_host.cpp yt_prof_*): scan (hash, SO and ROA steps), the hit sort
+# and the fragment-to-clump stage.  They accumulate only when YT_PROFILE is
+# set (not "0") in the environment before the process's first scan: the
+# library reads it once.
+PROFILE_SECONDS = ("yt_prof_scan", "yt_prof_scan_a", "yt_prof_scan_b",
+                   "yt_prof_scan_c", "yt_prof_sort", "yt_prof_f2c")
+PROFILE_COUNTS = ("yt_prof_hits", "yt_prof_frags")
+
+
+def profile_counters():
+    """{name: value} of PROFILE_SECONDS (float) and PROFILE_COUNTS (int)."""
+    lib = _load()
+    out = {s: ct.c_double.in_dll(lib, s).value for s in PROFILE_SECONDS}
+    out.update({s: ct.c_int64.in_dll(lib, s).value for s in PROFILE_COUNTS})
+    return out
+
+
+def reset_profile_counters():
+    """Set every profile counter to 0."""
+    lib = _load()
+    for s in PROFILE_SECONDS:
+        ct.c_double.in_dll(lib, s).value = 0.0
+    for s in PROFILE_COUNTS:
+        ct.c_int64.in_dll(lib, s).value = 0
 
 
 def available() -> bool:

@@ -170,8 +170,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      extension and full gap buckets (every walk team, sorted and unsorted,
      equal); seedscan_scaling on the cached L15 index (1, 2, 4, 8 host
      threads, the device seeder beside them); fuzz_parity over 24 seeds,
-     every arm's SAM equal to the native engine's (a seed whose native
-     run takes over 20 s is skipped, at most a quarter of them).
+     every arm's SAM equal to the native engine's, the oracle arm
+     (--engine oracle) among them (a seed whose native run takes over 20
+     s is skipped, at most a quarter of them).
+ 11. the oracle engine and the index builder, which launch no kernel and
+     whose rows the kernels line does not gain: the CLI with --engine
+     oracle on the 21 golden runs of tests/test_sam_parity.py (a process
+     each, all at once), each output byte-equal to its golden; the oracle
+     on the first 512 reads of phase 3's batch against the L15 index, SAM
+     equal to the native engine's; index/build.build_index on the card
+     writing the four golden indexes byte for byte, and at 64 Mbp L15
+     (phase 3's genome) SO and ROA equal to the native builder's, with
+     both builders' seconds, the device passes' seconds (CUDA events) and
+     the card's peak allocation.
 
 Each phase's seconds are printed.
 
@@ -304,6 +315,16 @@ SEEDSCAN_READS = 4000
 FUZZ_SEEDS = 24
 FUZZ_SEED0 = 1000
 FUZZ_REF_TIMEOUT = 20
+# Phase 11, the oracle engine and the index builder: reads of the 1 kb
+# batch the oracle is held to the native engine on, the golden indexes
+# (file, -L, -S, -H) the builder must write byte for byte, and the big
+# genome's index parameters (the CLI's defaults).
+ORACLE_READS = 512
+GOLDEN_INDEXES = (("testgen.X09_01_65525S", 9, 1, 65525),
+                  ("testgen.X10_03_65525S", 10, 3, 65525),
+                  ("testgen.X11_01_65525S", 11, 1, 65525),
+                  ("testgen.X11_01_00020S", 11, 1, 20))
+BIG_INDEX = (15, 1, 65525)
 
 
 def sync(torch, dev):
@@ -2913,6 +2934,9 @@ def phase_tools(torch, sw, StagedAligner, genome, index, aa, pr, idx,
                               "launches": launches}
     if fails:
         raise AssertionError("phase10 fuzz_parity: seeds %s failed" % fails)
+    if not reached.get("oracle"):
+        raise AssertionError("phase10 fuzz_parity: the oracle arm ran on no "
+                             "seed")
     if len(skipped) > FUZZ_SEEDS // 4:
         raise AssertionError("phase10 fuzz_parity: %d of %d seeds skipped "
                              "(reference timeouts)" % (len(skipped),
@@ -2924,6 +2948,135 @@ def phase_tools(torch, sw, StagedAligner, genome, index, aa, pr, idx,
             json.dumps(reached),
             json.dumps({k: v for k, v in launches.items() if v})))
     return reports
+
+
+def phase_oracle_builder(torch, reads, nib, idx, threads, dev):
+    """Phase 11, the oracle engine (--engine oracle, core/) and the index
+    builder (index/build.py).  The CLI with --engine oracle, one process a
+    case, on the 21 golden runs of tests/test_sam_parity.py (copied in
+    tests/torch_dp_cases.GOLDEN_CASES), each output byte-equal to its
+    golden, @PG line included (the same relative file names); the oracle
+    and the native engine on the first ORACLE_READS reads of phase 3's
+    batch against the L15 index `idx`, SAM equal apart from @PG; the
+    builder on the card writing the four golden indexes byte for byte;
+    and at 64 Mbp L15 (the genome `nib` of phase 3), the builder on the
+    card against the native builder, SO and ROA equal array for array,
+    with each one's seconds, the builder's device seconds (CUDA events
+    over its two passes) and the card's peak allocation.  Returns the
+    report."""
+    import concurrent.futures as cf
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import GOLDEN_CASES
+    from yaha_tpu_torch.index import build
+    from yaha_tpu_torch.io import nib2
+    from yaha_tpu_torch.native import host as native_host
+    gold = os.path.join(REPO, "tests", "golden")
+    data = os.path.join(REPO, "tests", "data")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    report = {}
+
+    def body(p):
+        with open(p, "rb") as f:
+            return [ln for ln in f.read().split(b"\n")
+                    if not ln.startswith(b"@PG")]
+
+    def read(p):
+        opener = gzip.open if p.endswith(".gz") else open
+        with opener(p, "rb") as f:
+            return f.read()
+
+    def run_cli(d, args):
+        t0 = time.time()
+        run([sys.executable, "-m", "yaha_tpu_torch.cli"] + args, cwd=d,
+            env=env, timeout=CLI_TIMEOUT)
+        return time.time() - t0
+
+    with tempfile.TemporaryDirectory(dir=CACHE) as d:
+        for f in os.listdir(data):
+            os.symlink(os.path.join(data, f), os.path.join(d, f))
+        os.symlink(os.path.join(gold, "testgen.nib2"),
+                   os.path.join(d, "testgen.nib2"))
+        for name in ("testgen.X11_01_65525S", "testgen.X11_01_00020S"):
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(read(os.path.join(gold, name + ".gz")))
+        t0 = time.time()
+        with cf.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+            secs = list(ex.map(lambda c: run_cli(d, [
+                "-x", c[2], "-q", c[1], "--engine", "oracle"] + c[3] +
+                [c[0]]), GOLDEN_CASES))
+        for case in GOLDEN_CASES:
+            if read(os.path.join(d, case[0])) != read(
+                    os.path.join(gold, case[0])):
+                raise AssertionError("phase11 oracle: %s differs from "
+                                     "tests/golden/%s" % (
+                                         " ".join(case[3]), case[0]))
+        report["golden_s"] = time.time() - t0
+        log("phase11 oracle: %d golden runs byte-equal (@PG included), "
+            "%.1f s on %d processes (each %.2f-%.2f s)" % (
+                len(GOLDEN_CASES), report["golden_s"], os.cpu_count() or 1,
+                min(secs), max(secs)))
+        fa = os.path.join(d, "batch%d.fasta" % ORACLE_READS)
+        with open(fa, "wb") as f:
+            f.write(b"".join(reads[:ORACLE_READS]))
+        for engine in ("oracle", "native"):
+            report[engine + "_s"] = run_cli(d, [
+                "-x", idx, "-q", fa, "--engine", engine, "-osh",
+                engine + ".sam"])
+        got, want = (body(os.path.join(d, e + ".sam"))
+                     for e in ("oracle", "native"))
+        if got != want or len(want) <= ORACLE_READS:
+            raise AssertionError("phase11 oracle: the %d reads' SAM differs "
+                                 "from the native engine's (%d, %d lines)"
+                                 % (ORACLE_READS, len(got), len(want)))
+        log("phase11 oracle on %d reads of the 1 kb batch (L15): SAM == "
+            "native engine's (%d lines); oracle %.1f s (%.1f ms a read), "
+            "native %.1f s" % (
+                ORACLE_READS, len(want), report["oracle_s"],
+                1e3 * report["oracle_s"] / ORACLE_READS,
+                report["native_s"]))
+    tg = nib2.load(read(os.path.join(gold, "testgen.nib2")))
+    for name, wl, sd, mh in GOLDEN_INDEXES:
+        t0 = time.time()
+        so, roa, tm = build.build_index(tg, wl, sd, mh, device=dev)
+        got = np.array([0xFFFFFFFF, wl, mh, tm], np.uint32).tobytes() + \
+            so.tobytes() + roa.tobytes()
+        if got != read(os.path.join(gold, name + ".gz")):
+            raise AssertionError("phase11 builder: %s differs from its "
+                                 "golden" % name)
+        log("phase11 builder on the card: %s byte-equal to its golden "
+            "(%.2f s)" % (name, time.time() - t0))
+    del tg
+    genome = nib2.load(read(nib))
+    wl, sd, mh = BIG_INDEX
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    t0 = time.time()
+    so, roa, tm = build.build_index(genome, wl, sd, mh, device=dev,
+                                    stats=stats)
+    report["torch_s"] = time.time() - t0
+    report["torch_steps_s"] = stats
+    report["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    t0 = time.time()
+    nso, nroa, ntm = native_host.build_index(genome, wl, sd, mh,
+                                             n_threads=max(threads, 4))
+    report["native_build_s"] = time.time() - t0
+    if tm != ntm or not np.array_equal(so, nso) or \
+            not np.array_equal(roa, nroa):
+        raise AssertionError("phase11 builder: the L%d index of the %d bp "
+                             "genome differs from the native builder's"
+                             % (wl, int(genome.lengths.sum())))
+    log("phase11 builder at %d bp L%d S%d H%d: SO and ROA == native "
+        "build_index (%d hits); torch on the card %.2f s (host scan %.2f "
+        "s, device passes %.3f s by CUDA events, third pass %.2f s, fetch "
+        "%.2f s), peak %.2f GB allocated; native (%d threads) %.2f s" % (
+            int(genome.lengths.sum()), wl, sd, mh, tm, report["torch_s"],
+            stats["scan_s"], stats["device_s"], stats["sample_s"],
+            stats["fetch_s"], report["peak_bytes"] / 1e9,
+            max(threads, 4), report["native_build_s"]))
+    del so, roa, nso, nroa, genome
+    torch.cuda.empty_cache()
+    return report
 
 
 def _device_time(torch, prof, wall):
@@ -3186,6 +3339,9 @@ def main():
                 walk_buckets, threads, dev)
     del walk_buckets
     phase_done("phase10 seconds")
+    # The oracle engine and the index builder, which launch no kernel.
+    phase_oracle_builder(torch, reads, nib, idx, threads, dev)
+    phase_done("phase11 seconds")
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

@@ -33,7 +33,10 @@ native C++ engine, SAM bytes equal, in its default configuration (device
 assembly + device walk) and in the A/B one, with the device seeder, and
 with the "torch" backend, on the long-gap reads at -G 3,600 (their RL
 4,096 gap buckets on the lockstep twin) and with the seeder on (1 x 2) and
-(2 x 2) grids of the card.  Neither jax nor tests/conftest.py is
+(2 x 2) grids of the card.  The index builder's passes on the card
+(index/build.py) are held to its run on the CPU, array for array, on
+tests/torch_dp_cases.index_genome's genomes, and write the golden
+down-sampled index byte for byte.  Neither jax nor tests/conftest.py is
 needed, so on a machine with a card run them from the repository root
 with
 
@@ -50,7 +53,8 @@ import torch
 
 from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             CHAIN_TIE_KW, EXT_SWEEP,
-                            EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES, KW,
+                            EXT_SWEEP_IDS, HASH_SHAPE_IDS, HASH_SHAPES,
+                            INDEX_CASE_IDS, INDEX_CASES, KW,
                             KW_WRAP, SEED_CASES, WIDE_SWEEP, WIDE_SWEEP_IDS,
                             anchored_edge_inputs,
                             anchored_inputs,
@@ -58,7 +62,8 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             chain_case, chain_edge_case, chain_path_case,
                             chain_tie_case,
                             extension_inputs,
-                            gather_aligned_coords, gather_case,
+                            gather_aligned_coords,
+                            index_genome, gather_case,
                             gather_clamp_coords, gather_coords, hash_rows,
                             indel_extension_inputs, indel_reads,
                             long_gap_reads, long_run_inputs,
@@ -884,3 +889,33 @@ def test_staged_torch_backend_on_card(dev, testgen, qfile, over):
     launched = {k: v for k, v in sw_cuda.launches().items() if v}
     assert list(launched) == ["gather_problems"]
     assert st.stats["plane_d2h_bytes"] > 0
+
+
+@pytest.mark.parametrize("wl,sd,mh", INDEX_CASES, ids=INDEX_CASE_IDS)
+def test_index_build_on_card_matches_cpu(dev, wl, sd, mh):
+    """index/build.build_index's passes on the card = on the CPU, in one
+    chunk and in chunks of 333 windows (the third pass down-samples the
+    repeats' k-mers wherever max_hits < 65,525)."""
+    from yaha_tpu_torch.index import build
+    for seed in (0, 1):
+        g = index_genome(seed)
+        for chunk in (64 << 20, 333):
+            got = build.build_index(g, wl, sd, mh, chunk=chunk, device=dev)
+            want = build.build_index(g, wl, sd, mh, chunk=chunk,
+                                     device="cpu")
+            assert got[2] == want[2]
+            for a, b in zip(got[:2], want[:2]):
+                assert a.dtype == b.dtype == np.uint32
+                assert np.array_equal(a, b)
+
+
+def test_index_build_on_card_matches_golden(dev):
+    from yaha_tpu_torch.index import build
+    from yaha_tpu_torch.io import nib2
+    with open(os.path.join(GOLD, "testgen.nib2"), "rb") as f:
+        g = nib2.load(f.read())
+    so, roa, tm = build.build_index(g, 11, 1, 20, device=dev)
+    got = np.array([0xFFFFFFFF, 11, 20, tm], np.uint32).tobytes() + \
+        so.tobytes() + roa.tobytes()
+    with gzip.open(os.path.join(GOLD, "testgen.X11_01_00020S.gz")) as f:
+        assert got == f.read()

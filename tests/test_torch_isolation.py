@@ -49,6 +49,12 @@ def test_scan_covers_the_port():
     assert "yaha_tpu_torch/parallel/mesh.py" in PORT_FILES
     assert "yaha_tpu_torch/parallel/distributed.py" in PORT_FILES
     assert "yaha_tpu_torch/entry.py" in PORT_FILES
+    core = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "yaha_tpu_torch", "core", "*.py")))
+    assert len(core) == 10 and set(core) <= set(PORT_FILES)
+    for path in ("index/build.py", "utils/rng.py", "io/fasta.py",
+                 "io/index_io.py", "io/sam.py", "ops/dp_common.py"):
+        assert "yaha_tpu_torch/" + path in PORT_FILES
     tools = sorted(os.path.relpath(p, REPO) for p in glob.glob(
         os.path.join(REPO, "yaha_tpu_torch", "tools", "*.py")))
     assert len(tools) == 5 and set(tools) <= set(PORT_FILES)

@@ -335,6 +335,15 @@ def test_cli_native_engine_refuses_device_seed(scratch):
     assert b"staged engine" in r.stderr
 
 
+def test_cli_oracle_engine_refuses_device_seed(scratch):
+    r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
+                           "--engine", "oracle", "--seed", "device", "-osh",
+                           "oracle_seed.sam"])
+    assert r.returncode != 0
+    assert b"staged engine" in r.stderr and b"--engine oracle" in r.stderr
+    assert not os.path.exists(os.path.join(scratch, "oracle_seed.sam"))
+
+
 def _run_cli(scratch, args):
     """The port's CLI in a fresh interpreter; after the run it asserts
     that neither jax nor any module of the JAX package was imported, and
@@ -364,6 +373,20 @@ def test_cli_imports_no_jax(scratch):
                            "--device", "cpu", "-osh", "nojax.sam"])
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     assert _strip_pg(os.path.join(scratch, "nojax.sam")) == _strip_pg(
+        os.path.join(GOLD, "F_edge.sam"))
+    libs = [os.path.realpath(p) for p in r.stdout.decode().split()]
+    assert libs == [os.path.realpath(os.path.join(
+        REPO, "yaha_tpu_torch", "_build", "libyaha_host.so"))]
+
+
+def test_cli_oracle_imports_no_jax(scratch):
+    """--engine oracle (core/ and the port's io/ copies) imports neither
+    jax nor the JAX package, and its DPs and front end run in the port's
+    own native library."""
+    r = _run_cli(scratch, ["-x", INDEX, "-q", "readsF_edge.fasta",
+                           "--engine", "oracle", "-osh", "nojax_oracle.sam"])
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    assert _strip_pg(os.path.join(scratch, "nojax_oracle.sam")) == _strip_pg(
         os.path.join(GOLD, "F_edge.sam"))
     libs = [os.path.realpath(p) for p in r.stdout.decode().split()]
     assert libs == [os.path.realpath(os.path.join(

@@ -17,9 +17,10 @@ tools/, on the CPU.
   * fuzz_parity: one seed draws the same genome, reads and flags as
     tools/fuzz_parity.py's generators (loaded by path: it imports nothing
     of yaha_tpu), and three seeds of short reads pass with --device cpu,
-    batch-cuda and batch-torch against --engine native (seeds whose reads
-    are all under 1 kb, since the CPU runs the kernels' plain versions;
-    batch-torch on the reads of at most fuzz_parity.TWIN_MAX_READ bases).
+    batch-cuda, batch-torch and oracle against --engine native (seeds
+    whose reads are all under 1 kb, since the CPU runs the kernels' plain
+    versions; batch-torch on the reads of at most
+    fuzz_parity.TWIN_MAX_READ bases).
 """
 import gzip
 import importlib.util
@@ -257,8 +258,10 @@ def test_fuzz_generators_draw_the_reference_bytes(seed, tmp_path):
 
 @pytest.mark.parametrize("seed", [55, 119, 259])
 def test_fuzz_seed_passes_on_cpu(seed):
-    res = fuzz_parity.run_one(seed, "cpu", ("batch-cuda", "batch-torch"))
-    assert res["arms"] == {"batch-cuda": "ok", "batch-torch": "ok"}, res
+    res = fuzz_parity.run_one(seed, "cpu", ("batch-cuda", "batch-torch",
+                                            "oracle"))
+    assert res["arms"] == {"batch-cuda": "ok", "batch-torch": "ok",
+                           "oracle": "ok"}, res
     assert "dir" not in res and "not_run" not in res
     kept, total = res["twin_reads"]
     assert 0 < kept <= total

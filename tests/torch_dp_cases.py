@@ -5,7 +5,9 @@ on these DP problems, tests/test_torch_gather.py the problem assembly on
 these genomes and coordinates, and tests/test_torch_staged.py the engine
 to the native one on these reads; tests/test_torch_cuda.py holds the CUDA
 kernels and the engine to the same references on the card, and
-chip_smoke.py draws its indel extension inputs from here.  This module
+chip_smoke.py draws its indel extension inputs from here;
+tests/test_torch_index_build.py holds the index builder to the JAX
+package's and the native one on the genomes of index_genome.  This module
 imports neither jax nor torch nor anything of the JAX package (its codec
 tables are the port's copy), so the card tests and chip_smoke.py run
 where jax is not installed.
@@ -939,3 +941,92 @@ def chain_edge_case():
     valid[2, 3:] = False
     out.append(("gap_edges", (sqo, sqo + length - 1, diag, length, valid)))
     return out
+
+
+# The index builders' genomes: (word_len, skip_dist, max_hits) with a
+# max_hits low enough that the repeats' k-mers are down-sampled.
+INDEX_CASES = [(8, 1, 6), (9, 2, 4), (10, 3, 3), (11, 1, 2), (11, 3, 65525)]
+INDEX_CASE_IDS = ["L8S1H6", "L9S2H4", "L10S3H3", "L11S1H2", "L11S3"]
+
+
+def index_genome(seed, n_seqs=4):
+    """A yaha_tpu_torch.io.genome.Genome laid out as io/nib2.load lays one
+    out: sequences of 2 to 9 kb, each padded with X (14) to a multiple of 8
+    bases, and the 8,192 zero codes past the end.  Each holds runs of N (4) of 1-40
+    bases, single IUPAC codes, a run of 2-5 bad codes at its start or end,
+    and copies of a 40-base repeat, so that k-mers pass a small max_hits
+    on every sequence."""
+    from yaha_tpu_torch.io.genome import Genome
+    rng = np.random.default_rng(seed)
+    rep = rng.integers(0, 4, 40).astype(np.uint8)
+    seqs = []
+    for k in range(n_seqs):
+        s = rng.integers(0, 4, int(rng.integers(2000, 9000))).astype(
+            np.uint8)
+        for _ in range(int(rng.integers(2, 7))):
+            p = int(rng.integers(0, len(s) - 40))
+            s[p:p + 40] = rep
+        for _ in range(int(rng.integers(1, 5))):
+            p = int(rng.integers(0, len(s) - 40))
+            s[p:p + int(rng.integers(1, 41))] = 4
+        bad = rng.random(len(s)) < 0.003
+        s[bad] = rng.integers(5, 16, int(bad.sum()))
+        end = int(rng.integers(2, 6))
+        if k % 2:
+            s[:end] = 4
+        else:
+            s[-end:] = 4
+        seqs.append(s)
+    starts, lens, parts, off = [], [], [], 0
+    for s in seqs:
+        starts.append(off)
+        lens.append(len(s))
+        pad = -len(s) % 8
+        parts += [s, np.full(pad, 14, np.uint8)]
+        off += len(s) + pad
+    parts.append(np.zeros(8192, np.uint8))
+    return Genome(names=["c%d" % k for k in range(n_seqs)],
+                  starting_offsets=np.array(starts, np.int64),
+                  lengths=np.array(lens, np.int64),
+                  codes=np.concatenate(parts))
+
+
+# tests/test_sam_parity.py's 21 golden runs (output, reads, index, flags),
+# copied so that chip_smoke.py runs them where jax (which that module's
+# conftest imports) is not installed; tests/test_torch_oracle.py holds the
+# copy to the original.
+GOLDEN_CASES = [
+    ("A_default.sam", "readsA_100bp.fasta", "testgen.X11_01_65525S", ["-osh"]),
+    ("A_soft.sam", "readsA_100bp.fasta", "testgen.X11_01_65525S", ["-oss"]),
+    ("A_fbs.sam", "readsA_100bp.fasta", "testgen.X11_01_65525S",
+     ["-FBS", "Y", "-osh"]),
+    ("A_all.sam", "readsA_100bp.fasta", "testgen.X11_01_65525S",
+     ["-OQC", "N", "-osh"]),
+    ("A_edit.sam", "readsA_100bp.fasta", "testgen.X11_01_65525S",
+     ["-AGS", "N", "-osh"]),
+    ("A_blast8.out", "readsA_100bp.fasta", "testgen.X11_01_65525S", ["-o8"]),
+    ("A_h20.sam", "readsA_100bp.fasta", "testgen.X11_01_00020S",
+     ["-H", "20", "-osh"]),
+    ("B_default.sam", "readsB_500bp.fasta", "testgen.X11_01_65525S", ["-osh"]),
+    ("B_fbs.sam", "readsB_500bp.fasta", "testgen.X11_01_65525S",
+     ["-FBS", "Y", "-osh"]),
+    ("C_default.sam", "readsC_1kb.fasta", "testgen.X11_01_65525S", ["-osh"]),
+    ("C_params.sam", "readsC_1kb.fasta", "testgen.X11_01_65525S",
+     ["-BW", "3", "-G", "20", "-M", "15", "-X", "15", "-osh"]),
+    ("D_default.sam", "readsD_sv.fasta", "testgen.X11_01_65525S", ["-osh"]),
+    ("D_fbs.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
+     ["-FBS", "Y", "-osh"]),
+    ("D_all.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
+     ["-OQC", "N", "-osh"]),
+    ("E_fastq.sam", "readsE_150bp.fastq", "testgen.X11_01_65525S", ["-osh"]),
+    ("F_edge.sam", "readsF_edge.fasta", "testgen.X11_01_65525S", ["-osh"]),
+    ("B_scoring.sam", "readsB_500bp.fasta", "testgen.X11_01_65525S",
+     ["-GOC", "6", "-GEC", "1", "-RC", "4", "-MS", "2", "-osh"]),
+    ("D_bp.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
+     ["-BP", "10", "-MGDP", "9", "-MNO", "10", "-osh"]),
+    ("D_strict.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
+     ["-P", "0.95", "-M", "40", "-osh"]),
+    ("C_blast8.out", "readsC_1kb.fasta", "testgen.X11_01_65525S", ["-o8"]),
+    ("D_fbs_loose.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
+     ["-FBS", "Y", "-PRL", "0.5", "-PSS", "0.5", "-osh"]),
+]

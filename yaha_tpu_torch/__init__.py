@@ -1,11 +1,14 @@
-"""yaha_tpu_torch — the PyTorch/CUDA port of yaha_tpu's staged device engine.
+"""yaha_tpu_torch — the PyTorch/CUDA port of yaha_tpu.
 
   cli.py            python -m yaha_tpu_torch.cli (--engine batch-cuda,
-                    index, compress, uncompress)
+                    batch-torch, native, oracle; index, compress,
+                    uncompress)
   host.py           the host layers in one place (config, loaders,
                     native pipeline)
   config.py, io/, utils/
                     the port's copies of the JAX package's host modules
+  core/             --engine oracle: the reference-exact Python aligner
+  index/build.py    the Python index builder, its passes as torch ops
   native/           the native C++ pipeline (copied sources; g++ build at
                     first use) and its ctypes bindings
   models/staged.py  StagedAligner: native host phases + DP on the card

@@ -23,6 +23,9 @@ Counterpart of yaha_tpu/cli.py, with the reference's four operations
                         native apply.
   --engine native       the per-read native C++ pipeline
                         (native/host.align_batch_native); no device.
+  --engine oracle       the reference-exact Python aligner (core/), its
+                        DPs, chain DP and seed-to-clump front end in the
+                        native library; no device.
   --device cuda|cpu     where the staged engines' DP runs (default cuda);
                         cpu runs the kernels' plain PyTorch versions (and
                         batch-torch's ops on the CPU).  With cuda and no
@@ -52,8 +55,8 @@ Counterpart of yaha_tpu/cli.py, with the reference's four operations
                         host 0's HOST:PORT)
   --prewarm             accepted and does nothing: nothing is cached
 
---engine native ignores --model-shards and the three host flags, as the
-reference's does.
+--engine native and --engine oracle ignore --model-shards and the three
+host flags, as the reference's do.
 
 The host work runs in the port's own native library (native/host.py).
 """
@@ -66,7 +69,7 @@ import sys
 
 from .config import AlignmentArgs
 
-ENGINES = ("batch-cuda", "batch-torch", "native")
+ENGINES = ("batch-cuda", "batch-torch", "native", "oracle")
 DEVICES = ("cuda", "cpu")
 
 _INT_FLAGS = {
@@ -101,7 +104,8 @@ Compress / uncompress a genome:
 Align queries:
   python -m yaha_tpu_torch.cli -x <indexFile> -q <queryFile (fa|fastq)>
            [-osh|-oss|-o8 <outFile>] [reference options]
-           [--engine batch-cuda|batch-torch|native] [--device cuda|cpu]
+           [--engine batch-cuda|batch-torch|native|oracle]
+           [--device cuda|cpu]
            [--seed host|device] [--trace DIR] [--batch-size N]
            [--max-query-length N] [--max-region-frags N] [--resume]
            [--model-shards N] [--coordinator HOST:PORT --num-hosts N
@@ -110,7 +114,8 @@ Align queries:
 their backtrack planes on the device; YT_STAGED_DEVRES=0 /
 YT_STAGED_RLE=0 select the host-fetch / plane-transfer A/B
 configurations.  batch-torch runs the DPs as PyTorch ops on the device;
-native runs the per-read C++ pipeline with no device.  --seed device
+native runs the per-read C++ pipeline with no device, and oracle the
+reference-exact Python aligner with no device.  --seed device
 runs a staged engine's seed scan on the device as well.  --trace DIR
 writes a torch.profiler trace of the align loop into DIR.
 --model-shards N shards the index by hash range over N columns of a
@@ -119,8 +124,8 @@ device; N a power of two): n local devices give max(1, n // N) data rows, n > N 
 multiple of N, and with fewer devices than N the shards share them.
 --coordinator/--num-hosts/--host-id run the staged engines over N
 processes, host ids 0 to N - 1: each aligns its range of the reads into a part file, and host
-0 merges the parts after a barrier (gloo).  --engine native ignores these
-four flags."""
+0 merges the parts after a barrier (gloo).  --engine native and --engine
+oracle ignore these four flags."""
 
 
 def _fail(msg):
@@ -206,8 +211,7 @@ def parse_args(argv):
             aa.ofile_name = val
         elif a == "--engine":
             if val not in ENGINES:
-                _fail("--engine must be one of: %s (the other engines are "
-                      "in python -m yaha_tpu.cli)" % ", ".join(ENGINES))
+                _fail("--engine must be one of: %s" % ", ".join(ENGINES))
             aa.engine = val
         elif a == "--device":
             if val not in DEVICES:
@@ -613,13 +617,25 @@ def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
           file=sys.stderr)
 
 
+def _take_index_params(aa, index):
+    """The run's word length is the index's; a -H above the index's
+    maxHits is lowered to it, with the reference's warning."""
+    aa.word_len = index.word_len
+    if index.max_hits < aa.max_hits:
+        print("WARNING: Index file made with maxHits of %d, while %d "
+              "specified for this query run.\nMimimum of two (%d) will be "
+              "used." % (index.max_hits, aa.max_hits, index.max_hits),
+              file=sys.stderr)
+        aa.max_hits = index.max_hits
+
+
 def _do_query(aa, device):
     engine = getattr(aa, "engine", "batch-cuda")
     seed = getattr(aa, "seed", "host")
-    if engine == "native":
+    if engine in ("native", "oracle"):
         if seed == "device":
             _fail("--seed device runs in a staged engine (batch-cuda or "
-                  "batch-torch), not in --engine native.")
+                  "batch-torch), not in --engine %s." % engine)
     else:
         import torch
         if device == "cuda" and not torch.cuda.is_available():
@@ -628,17 +644,14 @@ def _do_query(aa, device):
                   torch.__version__)
     if getattr(aa, "prewarm", False):
         return
+    if engine == "oracle":
+        _run_oracle(aa)
+        return
     from .io import native_loader
     from .utils.timing import device_trace
     genome = native_loader.load_genome(aa.gfile_name)
     index = native_loader.load_index(aa.xfile_name)
-    aa.word_len = index.word_len
-    if index.max_hits < aa.max_hits:
-        print("WARNING: Index file made with maxHits of %d, while %d "
-              "specified for this query run.\nMimimum of two (%d) will be "
-              "used." % (index.max_hits, aa.max_hits, index.max_hits),
-              file=sys.stderr)
-        aa.max_hits = index.max_hits
+    _take_index_params(aa, index)
     if engine == "native":
         from .native import host
 
@@ -698,6 +711,23 @@ def _do_query(aa, device):
                            write_header=num_hosts == 1)
     if num_hosts > 1:
         _multihost_merge(aa, genome, merged_ofile)
+
+
+def _run_oracle(aa):
+    """--engine oracle: the genome and index loaded into numpy (io/nib2,
+    io/index_io), the query file streamed in record-aligned chunks through
+    core/pipeline.run_query_chunks."""
+    from .core import pipeline
+    from .io import index_io
+    genome = _load_nib2(aa.gfile_name)
+    index = index_io.load_index(aa.xfile_name)
+    _take_index_params(aa, index)
+    chunks = _iter_query_chunks(aa.qfile_name)
+    if aa.ofile_name in ("stdout", "-"):
+        pipeline.run_query_chunks(aa, genome, index, chunks, sys.stdout)
+    else:
+        with open(aa.ofile_name, "w") as out:
+            pipeline.run_query_chunks(aa, genome, index, chunks, out)
 
 
 def local_mesh(device, n_model, n_local=None):

@@ -1,16 +1,27 @@
-"""Index file writer, byte-exact with the reference format.
+"""Index file (de)serialization, byte-exact with the reference format.
 
-The port's copy of write_index from yaha_tpu/io/index_io.py (queries map
-the file with io/native_loader.py).  Layout (Index.c:161-194): header
-[version=-1, wordLen, maxHits, totalMatches] as 4 u32, then the SO array
-(4^wordLen + 1 u32, with sentinel), then the ROA (totalMatches u32
-reference offsets).
+The port's copy of yaha_tpu/io/index_io.py (the staged and native engines
+map the file with io/native_loader.py; the oracle engine loads it here).
+Layout (Index.c:161-194): header [version=-1, wordLen, maxHits,
+totalMatches] as 4 u32, then the SO array (4^wordLen + 1 u32, with
+sentinel), then the ROA (totalMatches u32 reference offsets).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 INDEX_FILE_VERSION = 0xFFFFFFFF  # (UINT)-1
+
+
+@dataclasses.dataclass
+class Index:
+    word_len: int
+    max_hits: int
+    total_matches: int
+    starting_offs: np.ndarray  # uint32, 4^wordLen + 1
+    roa: np.ndarray            # uint32, totalMatches
 
 
 def write_index(path: str, word_len: int, max_hits: int,
@@ -24,9 +35,24 @@ def write_index(path: str, word_len: int, max_hits: int,
         f.write(np.ascontiguousarray(roa, dtype=np.uint32).tobytes())
 
 
+def load_index(path: str) -> Index:
+    """mmap-style load (Query.c:594-626 equivalent)."""
+    data = np.memmap(path, dtype=np.uint32, mode="r")
+    version, word_len, max_hits, total_matches = (int(x) for x in data[:4])
+    if version != INDEX_FILE_VERSION:
+        raise ValueError("Index file version is out of date.\n"
+                         "Please remake index file and try again.")
+    ht_size = 1 << (2 * word_len)
+    so = data[4:4 + ht_size + 1]
+    roa = data[4 + ht_size + 1:]
+    return Index(word_len=word_len, max_hits=max_hits,
+                 total_matches=total_matches,
+                 starting_offs=so, roa=roa)
+
+
 def print_count_statistics(starting_offs, word_len, file=None):
     """Index statistics under -v (outputCountStatistics analog,
-    Index.c:337-407; yaha_tpu/index/build.py): total hits, zero-hit
+    Index.c:337-407): total hits, zero-hit
     k-mers, and count percentiles over k-mers and hits."""
     import sys
     file = file or sys.stderr

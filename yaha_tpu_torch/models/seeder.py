@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.frags import phantom_hits
 from ..ops import gather_dp, seeds
 
 M32 = 0xFFFFFFFF
@@ -57,29 +58,6 @@ class _IndexView:
                                                    shape=(ht + 1,))
         self.roa = np.ctypeslib.as_array(
             index.roa_ptr, shape=(max(int(index.roa_len), 1),))
-
-
-def phantom_hits(offsets, so_offsets, counts, roa, wrapped_idx):
-    """The reference phantom-hit quirk (QueryMatch.c:57-69; the port's copy
-    of yaha_tpu/core/frags.phantom_hits): for each window k in
-    `wrapped_idx` (its whole ROA run has ro < qo), the heap pre-seed loop
-    reads PAST the run into the next k-mer's ROA entries, pushing each as a
-    hit for this window, until one with ro >= qo (inclusive).  Returns
-    (extra_qo, extra_ro) lists."""
-    roa_len = len(roa)
-    extra_qo = []
-    extra_ro = []
-    for k in wrapped_idx:
-        off = int(offsets[k])
-        j = int(so_offsets[k] + counts[k])
-        while j < roa_len:
-            v = int(roa[j])
-            extra_qo.append(off)
-            extra_ro.append(v)
-            if v >= off:
-                break
-            j += 1
-    return extra_qo, extra_ro
 
 
 class DeviceSeeder:

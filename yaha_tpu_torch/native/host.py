@@ -15,9 +15,12 @@ the loader, the query parser, the per-read native engine
 native), compression and the index build, the signatures of the staged
 yt_batch_* entries (yaha_tpu/models/staged.py _sig), and the batched host
 DPs: extension_forward and anchored_forward (the eo/idc planes of
-ops/sw_batch.py, run by StagedAligner(backend="native")) and chain_dp
-(the fragment-chain DP that ops/chain.py is held to), and the seed
-scan's profile counters (profile_counters, under YT_PROFILE=1).
+ops/sw_batch.py, run by StagedAligner(backend="native"), and the DPs the
+oracle engine delegates, core/sw.py) and chain_dp (the fragment-chain DP
+that ops/chain.py is held to, and the oracle's), the oracle's fused front
+end (seed_to_clumps, frags_to_clumps, and the --max-region-frags valve's
+take_skipped_regions), and the seed scan's profile counters
+(profile_counters, under YT_PROFILE=1).
 """
 from __future__ import annotations
 
@@ -152,6 +155,19 @@ def _declare(lib):
     lib.yt_chain_dp.restype = ct.c_int64
     lib.yt_chain_dp.argtypes = [ct.c_int64] + [_i64p] * 4 + \
         [ct.c_int64] * 5 + [_i64p] * 4
+    # The oracle engine's fused front end (yaha_host.cpp).
+    lib.yt_set_max_region_frags.argtypes = [ct.c_int64]
+    lib.yt_set_max_region_frags.restype = None
+    lib.yt_take_skipped_regions.argtypes = []
+    lib.yt_take_skipped_regions.restype = ct.c_int64
+    lib.yt_frags_to_clumps.argtypes = [_i64p] * 3 + [ct.c_int64] * 11 + \
+        [_i64p] * 5 + [ct.c_int64] * 2
+    lib.yt_frags_to_clumps.restype = ct.c_int64
+    lib.yt_seed_to_clumps.argtypes = [
+        _u8p, ct.c_int64, ct.c_int64, _u32p, _u32p, ct.c_int64,
+        ct.c_int64] + [ct.c_int64] * 8 + [_i64p] * 5 + \
+        [ct.c_int64] * 2 + [_i64p]
+    lib.yt_seed_to_clumps.restype = ct.c_int64
 
 
 def _load():
@@ -343,6 +359,10 @@ def _ptr(a, t):
     return a.ctypes.data_as(ct.POINTER(t))
 
 
+def _i64_ptr(a):
+    return a.ctypes.data_as(_i64p)
+
+
 def extension_forward(q, qlens, r, rlens, *, band_width, go, ge, rc, ms,
                       max_gap, max_intron, x_cutoff):
     """Batched extension forward on the host (yt_extension_forward); the
@@ -415,3 +435,94 @@ def chain_dp(sqo, eqo, diag, length, *, max_gap, max_desert, m_score,
                            max_gap, max_desert, m_score, go_cost, ge_cost,
                            *(a.ctypes.data_as(_i64p) for a in outs))
     return (int(best),) + tuple(outs)
+
+
+# ---- the oracle engine's fused front end (core/chain.py) ----
+
+def _set_region_cap(lib, aa):
+    """Propagate --max-region-frags (0 = off) to the C region loop's
+    thread-local cap; oversized regions are then skipped and counted
+    (drained by take_skipped_regions)."""
+    lib.yt_set_max_region_frags(int(getattr(aa, "max_region_frags", 0)))
+
+
+def take_skipped_regions():
+    """Number of regions skipped by the --max-region-frags valve since
+    the last call (this thread)."""
+    return int(_load().yt_take_skipped_regions())
+
+
+def frags_to_clumps(sqo, eqo, sro, query_len, aa):
+    """C-speed fragment->clump stage (processFragmentsGapped,
+    QueryMatch.c:224-303 + GraphPath.cpp:272-292 + AlignHelpers.c:48-193)
+    for one strand.  Returns (clump_offs, out_sqo, out_eqo, out_sro,
+    matched) with clumps in emission order, or None on capacity overflow
+    (caller falls back to the Python path).
+    """
+    lib = _load()
+    n = len(sqo)
+    sqo = np.ascontiguousarray(sqo, np.int64)
+    eqo = np.ascontiguousarray(eqo, np.int64)
+    sro = np.ascontiguousarray(sro, np.int64)
+    cap_frags = 16 * n + 1024
+    cap_clumps = 4 * n + 64
+    out_sqo = np.empty(cap_frags, np.int64)
+    out_eqo = np.empty(cap_frags, np.int64)
+    out_sro = np.empty(cap_frags, np.int64)
+    clump_offs = np.empty(cap_clumps + 1, np.int64)
+    matched = np.empty(cap_clumps, np.int64)
+    p = _i64_ptr
+    _set_region_cap(lib, aa)
+    nc = lib.yt_frags_to_clumps(
+        p(sqo), p(eqo), p(sro), n, query_len,
+        aa.max_gap, aa.max_desert, aa.min_match, aa.min_non_overlap,
+        aa.m_score, aa.go_cost, aa.ge_cost, aa.band_width, aa.word_len,
+        p(out_sqo), p(out_eqo), p(out_sro), p(clump_offs), p(matched),
+        cap_frags, cap_clumps)
+    if nc < 0:
+        return None
+    used = int(clump_offs[nc])
+    return (clump_offs[:nc + 1], out_sqo[:used], out_eqo[:used],
+            out_sro[:used], matched[:nc])
+
+
+def seed_to_clumps(codes, index, aa, *, cap_frags=65536, cap_clumps=8192):
+    """Fused seed->fragments->clumps for one strand (yt_seed_to_clumps)
+    against an io/index_io.Index (its uint32 SO and ROA, zero-copy).
+
+    Returns (clump_offs, out_sqo, out_eqo, out_sro, matched, total_hits)
+    or None when capacity is exceeded (caller falls back to the Python
+    stage pipeline).  Capacity grows x8 up to ~4M emitted fragments before
+    giving up: highly repetitive long reads (tandem repeats near the 32kb
+    cap) legitimately emit huge clump sets, and the unbounded Python
+    fallback is ~100x slower there.
+    """
+    lib = _load()
+    codes = np.ascontiguousarray(codes, np.uint8)
+    so, roa = index.starting_offs, index.roa
+    total = ct.c_int64(0)
+    p = _i64_ptr
+    _set_region_cap(lib, aa)
+    while True:
+        out_sqo = np.empty(cap_frags, np.int64)
+        out_eqo = np.empty(cap_frags, np.int64)
+        out_sro = np.empty(cap_frags, np.int64)
+        clump_offs = np.empty(cap_clumps + 1, np.int64)
+        matched = np.empty(cap_clumps, np.int64)
+        nc = lib.yt_seed_to_clumps(
+            codes.ctypes.data_as(_u8p), len(codes), index.word_len,
+            so.ctypes.data_as(_u32p), roa.ctypes.data_as(_u32p), len(roa),
+            aa.max_hits,
+            aa.max_gap, aa.max_desert, aa.min_match, aa.min_non_overlap,
+            aa.m_score, aa.go_cost, aa.ge_cost, aa.band_width,
+            p(out_sqo), p(out_eqo), p(out_sro), p(clump_offs),
+            p(matched), cap_frags, cap_clumps, ct.byref(total))
+        if nc >= 0:
+            break
+        if cap_frags >= (1 << 22):
+            return None
+        cap_frags *= 8
+        cap_clumps *= 8
+    used = int(clump_offs[nc])
+    return (clump_offs[:nc + 1], out_sqo[:used], out_eqo[:used],
+            out_sro[:used], matched[:nc], int(total.value))

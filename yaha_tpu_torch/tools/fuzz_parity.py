@@ -30,6 +30,9 @@ output is held to it too.  The arms under test, each on --device (default cuda):
                        TWIN_MAX_READ bases and at -BW up to 707 (a column
                        step a PyTorch op: a 20 kb read would take minutes),
                        against the native engine on the same reads
+  oracle               --engine oracle, the reference-exact Python aligner
+                       (core/; the reference tool's oracle arm); it has no
+                       device, and --device is ignored
 
 Every output is compared with the reference's, @PG lines ignored.  A
 failing seed's directory is kept; its seed, flags and the first line
@@ -76,6 +79,7 @@ ARMS = {
     "batch-cuda-shards": ["--engine", "batch-cuda", "--model-shards", "2"],
     "batch-cuda-b64": ["--engine", "batch-cuda", "--batch-size", "64"],
     "batch-torch": ["--engine", "batch-torch"],
+    "oracle": ["--engine", "oracle"],
 }
 
 

@@ -24,6 +24,16 @@ FOUR_BIT_COMP_CODES = np.array(
     [2, 3, 0, 1, 4, 12, 7, 6, 9, 8, 15, 11, 5, 13, 14, 10], dtype=np.uint8)
 
 
+def map8to4(chars: np.ndarray) -> np.ndarray:
+    """Vectorized char->code (Math.inl:37-40)."""
+    return FOUR_BIT_CODES[np.asarray(chars, dtype=np.uint8)]
+
+
+def complement4to4(codes: np.ndarray) -> np.ndarray:
+    """Vectorized complement (Math.inl:55-59)."""
+    return FOUR_BIT_COMP_CODES[np.asarray(codes, dtype=np.uint8)]
+
+
 def unmap4to8(codes: np.ndarray) -> np.ndarray:
     """Vectorized code->char (Math.inl:84-88)."""
     return FOUR_BIT_CHARS[np.asarray(codes, dtype=np.uint8)]

@@ -2827,8 +2827,8 @@ def phase_tools(torch, sw, StagedAligner, genome, index, aa, pr, idx,
     on phase 3's 1 kb batch (replayed walk items equal to the captured
     ones); decode_profile on the main path's largest extension and full
     gap buckets (every team equal); seedscan_scaling on the cached L15
-    index in a process of its own (its profile counters need YT_PROFILE
-    before the first scan); fuzz_parity over FUZZ_SEEDS seeds, no
+    index in a process of its own (phase 1's stage sums by thread count);
+    fuzz_parity over FUZZ_SEEDS seeds, no
     difference and no crash (a seed whose native reference takes over
     FUZZ_REF_TIMEOUT s is skipped, at most a quarter of them).  Returns
     {tool: report}."""

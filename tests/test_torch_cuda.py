@@ -116,6 +116,38 @@ def test_extension_kernel_matches_plain(dev, kw, variant, block):
            sw_cuda.extension_forward_reference(*args, **ekw))
 
 
+def test_span_brackets_its_kernel_on_the_trace(dev, tmp_path):
+    """A recorder span around a kernel launch followed by
+    torch.cuda.synchronize() brackets that kernel in the --trace file to
+    within 0.5 ms: the spans are placed on the profiler's clock by the
+    recorder's anchor (utils/timing.device_trace)."""
+    import json
+    from yaha_tpu_torch.utils.timing import device_trace, span
+    args = _up(dev, *extension_inputs(11, 16384, 200, 2))
+    ekw = dict(KW, band_width=2, x_cutoff=25)
+    sw_cuda.extension_forward(*args, **ekw)      # built and warm
+    torch.cuda.synchronize()
+    with device_trace(str(tmp_path), dev):
+        with span("probe"):
+            sw_cuda.extension_forward(*args, **ekw)
+            torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    probe = next(e for e in events
+                 if e.get("cat") == "yaha" and e["name"] == "probe")
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "ext_" in e["name"]]
+    assert kernels
+    for k in kernels:
+        assert k["ts"] >= probe["ts"] - 500.0
+        assert k["ts"] + k["dur"] <= probe["ts"] + probe["dur"] + 500.0
+    print("span bracket: probe [%.1f, %.1f] us, kernels %s" % (
+        probe["ts"], probe["ts"] + probe["dur"],
+        [(round(k["ts"], 1), round(k["ts"] + k["dur"], 1))
+         for k in kernels]))
+
+
 @pytest.mark.parametrize("variant", ["reg", "wide"])
 @pytest.mark.parametrize("bw,xc,mg,mi,err", EXT_SWEEP, ids=EXT_SWEEP_IDS)
 def test_extension_kernel_matches_plain_sweep(dev, bw, xc, mg, mi, err,

@@ -285,6 +285,29 @@ def test_seed_chunk_matches_jax_seeder(scratch, env, qfile, over):
         assert (got[3] == -1).sum() == s["fallback_rows"]
 
 
+def test_seed_chunk_splice_span(scratch, env):
+    """With phantom and retried rows, the hit rows' splice is a
+    seeder.splice span under seeder.seed, counting the bytes it returns,
+    and seed_device_s stops where it starts."""
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.utils.timing import RECORDER
+    _, index = env
+    aa, pr = _setup(scratch, index, *CONFIGS[0])
+    seeder = DeviceSeeder(aa, index, device="cpu")
+    RECORDER.enable()
+    try:
+        diag, qo, _, _ = seeder.seed_chunk(pr, 0, pr.n)
+    finally:
+        RECORDER.disable()
+    spans = RECORDER.spans()
+    (seed,) = [s for s in spans if s[1] == "seeder.seed"]
+    (splice,) = [s for s in spans if s[1] == "seeder.splice"]
+    assert splice[3] == seed[0] and seed[5] <= splice[5] <= splice[6] <= \
+        seed[6]
+    assert splice[7]["bytes"] == diag.nbytes + qo.nbytes > 0
+    assert 0 < seeder.stats["seed_device_s"] <= (splice[5] - seed[5]) * 1e-9
+
+
 def test_seed_chunk_concurrent_calls(scratch, env):
     """seed_chunk runs from the CLI's prefetch threads: 24 calls on 12
     threads (more than the cores here) with a short switch interval return

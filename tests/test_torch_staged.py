@@ -311,20 +311,71 @@ def test_cli_engines_match_golden(scratch, monkeypatch, gold, qfile, flags):
 
 def test_cli_trace(scratch, monkeypatch):
     """--trace DIR leaves a Chrome trace of the align loop (the DP's
-    PyTorch ops among its events) and the SAM is the golden one."""
+    PyTorch ops among its events, and the recorder's spans: an `align`
+    span a batch with its batch id, the phases under it with the same id)
+    and the SAM is the golden one."""
     import json
     from yaha_tpu_torch import cli
     monkeypatch.chdir(scratch)
     rc = cli.main(["-x", INDEX, "-q", "readsF_edge.fasta", "--device",
-                   "cpu", "--trace", "trace_F", "-osh", "traced_F.sam"])
+                   "cpu", "--batch-size", "2", "--trace", "trace_F", "-osh",
+                   "traced_F.sam"])
     assert rc == 0
     assert _strip_pg(os.path.join(scratch, "traced_F.sam")) == _strip_pg(
         os.path.join(GOLD, "F_edge.sam"))
     files = os.listdir(os.path.join(scratch, "trace_F"))
     assert len(files) == 1 and files[0].startswith("yaha_trace_")
     with open(os.path.join(scratch, "trace_F", files[0])) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
     assert "aten::where" in names
+    spans = [e for e in events if e.get("cat") == "yaha"]
+    aligns = [e for e in spans if e["name"] == "align"]
+    assert len(aligns) >= 2
+    assert sorted(e["args"]["batch"] for e in aligns) == list(
+        range(len(aligns)))
+    by_id = {e["args"]["id"]: e for e in spans}
+    for e in spans:
+        if e["name"].startswith("staged."):
+            up = by_id[e["args"]["parent"]]
+            assert up["name"] == "align" and up["tid"] == e["tid"]
+            assert e["args"]["batch"] == up["args"]["batch"]
+            assert up["ts"] <= e["ts"] and \
+                e["ts"] + e["dur"] <= up["ts"] + up["dur"] + 1e-3
+    assert {"stream.read", "stream.parse", "stream.wait", "stream.emit",
+            "staged.phase1", "staged.gap", "staged.ext",
+            "setup.corpus_upload"} <= names
+
+
+def test_cli_trace_device_seed(scratch, monkeypatch):
+    """With --seed device, --trace DIR also holds the set-up's uploads
+    (setup.seeder_upload, setup.corpus_upload, before the first `align`)
+    and the seed phase's spans under each batch's `align`."""
+    import json
+    from yaha_tpu_torch import cli
+    monkeypatch.chdir(scratch)
+    rc = cli.main(["-x", INDEX, "-q", "readsF_edge.fasta", "--device",
+                   "cpu", "--seed", "device", "--batch-size", "2",
+                   "--trace", "trace_F_seed", "-osh", "traced_F_seed.sam"])
+    assert rc == 0
+    assert _strip_pg(os.path.join(scratch, "traced_F_seed.sam")) == \
+        _strip_pg(os.path.join(GOLD, "F_edge.sam"))
+    (name,) = os.listdir(os.path.join(scratch, "trace_F_seed"))
+    with open(os.path.join(scratch, "trace_F_seed", name)) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "yaha"]
+    by = {}
+    for e in spans:
+        by.setdefault(e["name"], []).append(e)
+    first = min(e["ts"] for e in by["align"])
+    for setup in ("setup.seeder_upload", "setup.corpus_upload"):
+        (e,) = by[setup]
+        assert e["args"]["parent"] == 0 and "batch" not in e["args"]
+        assert e["args"]["h2d"] > 0 and e["ts"] + e["dur"] <= first
+    ids = {e["args"]["id"]: e for e in spans}
+    for e in by["seeder.seed"]:
+        assert ids[e["args"]["parent"]]["name"] == "align"
+    assert by["seeder.fetch"]
 
 
 def test_cli_native_engine_refuses_device_seed(scratch):

@@ -1,0 +1,14 @@
+"""staged.p1_scan_ms_per_kread (ms): StagedAligner.stats' p1_scan_s over
+the window per 1,000 reads: phase 1's thread-seconds, summed over its
+native threads, of the host seed scan (rolling hash, SO lookups, ROA
+gathers; with the device seeder, only the rows it sends back to the host
+scan). The program adds them only while its recorder is on (the traced
+window); nothing where it has no such sum or recorded no spans."""
+from yaha_bench import spans
+
+
+def read(ctx):
+    v = ctx["stats"].get("p1_scan_s")
+    if v is None or ctx["reads"] <= 0 or spans.program_spans(ctx) is None:
+        return None
+    return v * 1e6 / ctx["reads"]

@@ -355,13 +355,17 @@ def _find_chunk_cut(data, fastq):
 
 def _iter_query_chunks(path, block_size=64 << 20):
     """Stream (chunk_bytes, fastq) pieces that start at record boundaries;
-    memory is bounded by block_size + one record."""
+    memory is bounded by block_size + one record.  Each block read is a
+    `stream.read` span."""
+    from .utils.timing import span
     with open(path, "rb") as f:
-        first = f.read(1)
-        fastq = first == b"@"
-        carry = first + f.read(block_size)
+        with span("stream.read"):
+            first = f.read(1)
+            fastq = first == b"@"
+            carry = first + f.read(block_size)
         while True:
-            nxt = f.read(block_size)
+            with span("stream.read"):
+                nxt = f.read(block_size)
             if not nxt:
                 if carry:
                     yield carry, fastq
@@ -382,7 +386,12 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
     dist, want_stats) -> (text, stats, seed_matches, records)`; output is
     emitted per batch by a writer thread, with the --resume cursor.  With
     YT_STAGED_PREFETCH on (default), batch k+1's host phases overlap
-    batch k, traced (--trace) or not.  `dp_stats` is a staged engine's
+    batch k, traced (--trace) or not.  The loop's spans (utils/timing):
+    stream.read and stream.parse, stream.wait on a batch's result and
+    stream.put into the writer's queue on the calling thread, stream.emit
+    on the writer, and each batch's root span `align` (its sequence
+    number as the batch id, its reads) on the thread that aligns it.
+    `dp_stats` is a staged engine's
     launch/byte accounting (None for the native engine) and `seed_stats`
     the device seeder's (or None), reported under -v.  `read_range`
     restricts the run to the file's reads [lo, hi) (a host's share of a
@@ -392,11 +401,12 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
     import ctypes as ct
     import queue
     import threading
+    import time
     from collections import deque
 
     from .io import sam
     from .native import host
-    from .utils.timing import StageTimers
+    from .utils.timing import span
 
     with open(aa.qfile_name, "rb") as f:
         aa.fastq = f.read(1) == b"@"
@@ -414,7 +424,9 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
                 tf.truncate(cursor_bytes)
         mode = "a"
         print("Resuming at read %d." % start_read, file=sys.stderr)
-    timers = StageTimers()
+    t_loop = time.perf_counter_ns()
+    # The -v report's stage seconds (the writer adds "emit").
+    totals = {"parse": 0.0, "emit": 0.0}
     out = (sys.stdout.buffer if aa.ofile_name in ("stdout", "-")
            else open(aa.ofile_name, mode + "b"))
     emit_q = queue.Queue(maxsize=2)
@@ -428,12 +440,14 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
                 return
             text, n_done = item
             try:
-                with timers.stage("emit"):
+                with span("stream.emit", bytes=len(text)) as sp:
+                    t0 = sp.start()
                     out.write(text)
                     out.flush()
                     if n_done is not None and out is not sys.stdout.buffer:
                         with open(cursor_path, "w") as f:
                             f.write("%d %d" % (n_done, out.tell()))
+                    totals["emit"] += sp.stop(t0)
             except Exception as e:          # pragma: no cover
                 emit_err.append(e)
                 while True:
@@ -459,9 +473,12 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
         for chunk, fastq in _iter_query_chunks(aa.qfile_name):
             if rhi is not None and done >= rhi:
                 return   # this host's read range is done
-            with timers.stage("parse"):
+            with span("stream.parse", bytes=len(chunk)) as sp:
+                t0 = sp.start()
                 pr = host.parse_queries_native(
                     chunk, fastq, aa.max_query_length, aa.word_len)
+                totals["parse"] += sp.stop(t0)
+                sp.add(reads=pr.n)
             base = done
             done += pr.n
             for lo in range(0, pr.n, batch_size):
@@ -480,13 +497,18 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
                 # run (Query.c:306).
                 return
 
-    def _align_one(pr, lo, hi):
+    def _align_one(seq, pr, lo, hi):
         dist = (ct.c_int64 * 11)() if dist_acc is not None else None
-        text, stats, sm, nr = align_fn(pr, lo, hi, dist=dist,
-                                       want_stats=qs_file is not None)
+        with span("align", batch=seq, reads=hi - lo):
+            text, stats, sm, nr = align_fn(pr, lo, hi, dist=dist,
+                                           want_stats=qs_file is not None)
         return text, stats, sm, nr, dist
 
-    def _consume(res, n_done):
+    def _wait(fut, seq):
+        with span("stream.wait", batch=seq):
+            return fut.result()
+
+    def _consume(res, n_done, seq):
         nonlocal n, seed_total, rec_total
         text, stats, sm, nr, dist = res
         seed_total += sm
@@ -503,7 +525,8 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
         if emit_err:
             raise emit_err[0]
         n = n_done
-        emit_q.put((text, n))
+        with span("stream.put", batch=seq):
+            emit_q.put((text, n))
 
     prefetch = os.environ.get("YT_STAGED_PREFETCH", "1") != "0"
     try:
@@ -517,33 +540,29 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
             ex = cf.ThreadPoolExecutor(max_workers=2)
             try:
                 pending = deque()
-                for pr, lo, hi, n_done in _batches():
+                for seq, (pr, lo, hi, n_done) in enumerate(_batches()):
                     pending.append(
-                        (ex.submit(_align_one, pr, lo, hi), n_done))
+                        (ex.submit(_align_one, seq, pr, lo, hi), n_done,
+                         seq))
                     if len(pending) > 1:
-                        fut, nd = pending.popleft()
-                        with timers.stage("align batch"):
-                            res = fut.result()
-                        _consume(res, nd)
+                        fut, nd, sq = pending.popleft()
+                        _consume(_wait(fut, sq), nd, sq)
                 while pending:
-                    fut, nd = pending.popleft()
-                    with timers.stage("align batch"):
-                        res = fut.result()
-                    _consume(res, nd)
+                    fut, nd, sq = pending.popleft()
+                    _consume(_wait(fut, sq), nd, sq)
             finally:
                 ex.shutdown(wait=True)
         else:
-            for pr, lo, hi, n_done in _batches():
-                with timers.stage("align batch"):
-                    res = _align_one(pr, lo, hi)
-                _consume(res, n_done)
+            for seq, (pr, lo, hi, n_done) in enumerate(_batches()):
+                _consume(_align_one(seq, pr, lo, hi), n_done, seq)
         emit_q.put(None)
         writer.join()
         if emit_err:
             raise emit_err[0]
         if aa.verbose:
-            _report(timers, n - eff_start, seed_total, rec_total,
-                    dp_stats, dist_acc, seed_stats)
+            _report(totals, (time.perf_counter_ns() - t_loop) * 1e-9,
+                    n - eff_start, seed_total, rec_total, dp_stats,
+                    dist_acc, seed_stats)
     finally:
         if writer.is_alive():
             try:
@@ -560,26 +579,33 @@ def _run_native_engine(aa, genome, align_fn, dp_stats, seed_stats=None,
                 os.unlink(cursor_path)
 
 
-def _report(timers, emitted, seed_total, rec_total, dp_stats, dist_acc,
-            seed_stats=None):
+def _report(totals, loop_s, emitted, seed_total, rec_total, dp_stats,
+            dist_acc, seed_stats=None):
     """The -v run summary (the STATS compile-switch analog,
-    Query.c:519-536), with the device DP's launch/byte budget and the
-    device seeder's."""
-    timers.print_report()
-    total_s = sum(timers.totals.values())
+    Query.c:519-536): the parse and the writer's emit (a thread of its
+    own, overlapping the rest) against the loop's wall, the throughput
+    over that wall, the device DP's launch/byte budget and dispatch time
+    (the part blocked on the card's results apart), and the device
+    seeder's."""
+    for name, secs in totals.items():
+        pct = 100.0 * secs / loop_s if loop_s > 0 else 0.0
+        print("%-42s %8.3fs (%5.1f%%)" % (name + " took:", secs, pct),
+              file=sys.stderr)
+    print("%-42s %8.3fs" % ("total:", loop_s), file=sys.stderr)
     print("Processed %d reads: %d seed matches, %d alignments printed."
           % (emitted, seed_total, rec_total), file=sys.stderr)
-    if total_s > 0 and emitted > 0:
-        print("Throughput: %.0f reads/s." % (emitted / total_s),
+    if loop_s > 0 and emitted > 0:
+        print("Throughput: %.0f reads/s." % (emitted / loop_s),
               file=sys.stderr)
     if dp_stats is not None:
         print("Device DP: %d launches, %d gap + %d ext problems, %.1f MB "
-              "h2d, %.1f MB d2h, %.2fs device+transfer; %d gap problems "
-              "too wide for the kernels, on the lockstep twin."
+              "h2d, %.1f MB d2h; %.2fs in the dispatch, %.2fs of it "
+              "blocked on the card's results; %d gap problems too wide "
+              "for the kernels, on the lockstep twin."
               % (dp_stats["dp_launches"], dp_stats["gap_problems"],
                  dp_stats["ext_problems"], dp_stats["h2d_bytes"] / 1e6,
                  dp_stats["d2h_bytes"] / 1e6, dp_stats["device_s"],
-                 dp_stats["gap_twin"]),
+                 dp_stats["dispatch_wait_s"], dp_stats["gap_twin"]),
               file=sys.stderr)
     if seed_stats is not None:
         print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %.1f MB "
@@ -684,27 +710,29 @@ def _do_query(aa, device):
         merged_ofile = aa.ofile_name
         aa.ofile_name = dist.part_file_name(merged_ofile)
         aa.resume = False
-    seeder = None
-    if seed == "device" or mshards > 1:
-        from .models.seeder import DeviceSeeder
-        if mesh is not None:
-            device = mesh.grid[0][0]
-            seeder = DeviceSeeder(aa, index, mesh=mesh)
-        else:
-            seeder = DeviceSeeder(aa, index, device=device)
-    aligner = StagedAligner(aa, genome, index, device=device,
-                            n_threads=aa.num_threads, seeder=seeder,
-                            backend="torch" if engine == "batch-torch"
-                            else "cuda")
-
-    def _align(pr, lo, hi, dist=None, want_stats=False):
-        if want_stats:
-            text, sm, nr, stats = aligner.align_chunk(
-                pr, lo, hi, dist=dist, want_stats=True)
-            return text, stats, sm, nr
-        text, sm, nr = aligner.align_chunk(pr, lo, hi, dist=dist)
-        return text, None, sm, nr
+    # The trace holds the set-up too: the seeder's and the corpus's
+    # uploads (setup.* spans).
     with device_trace(getattr(aa, "trace_dir", None), device):
+        seeder = None
+        if seed == "device" or mshards > 1:
+            from .models.seeder import DeviceSeeder
+            if mesh is not None:
+                device = mesh.grid[0][0]
+                seeder = DeviceSeeder(aa, index, mesh=mesh)
+            else:
+                seeder = DeviceSeeder(aa, index, device=device)
+        aligner = StagedAligner(aa, genome, index, device=device,
+                                n_threads=aa.num_threads, seeder=seeder,
+                                backend="torch" if engine == "batch-torch"
+                                else "cuda")
+
+        def _align(pr, lo, hi, dist=None, want_stats=False):
+            if want_stats:
+                text, sm, nr, stats = aligner.align_chunk(
+                    pr, lo, hi, dist=dist, want_stats=True)
+                return text, stats, sm, nr
+            text, sm, nr = aligner.align_chunk(pr, lo, hi, dist=dist)
+            return text, None, sm, nr
         _run_native_engine(aa, genome, _align, aligner.stats,
                            seeder.stats if seeder else None,
                            read_range=read_range,

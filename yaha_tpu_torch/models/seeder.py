@@ -28,20 +28,24 @@ The reference's behaviour at its edges is kept:
 
 Hits leave the device as one masked_select per plane of the rows served,
 in row order, plus one small transfer of total / overflow / allwrapped per
-tier.  The JAX seeder's pow2 batch padding, its pow2-padded ragged fetch
+tier.  Spans (utils/timing): seeder.seed, a chunk's seed phase, with a
+seeder.fetch under it for each blocking fetch (the tiers' totals, the hit
+rows, the phantom rows' flags and codes) and a seeder.splice, the hit
+rows' splice after seed_device_s stops; setup.seeder_upload, the
+tables' upload.  The JAX seeder's pow2 batch padding, its pow2-padded ragged fetch
 with the sort / unsort round trip and its ROA < 2^31 refusal have no
 counterpart here.
 """
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
 
 from ..core.frags import phantom_hits
 from ..ops import gather_dp, seeds
+from ..utils.timing import RECORDER, span
 
 M32 = 0xFFFFFFFF
 
@@ -99,25 +103,27 @@ class DeviceSeeder:
         # the stats' read-modify-writes take the lock.
         self._stats_lock = threading.Lock()
         self.tables = gather_dp.code_tables(self.device)
-        t0 = time.time()
         self.sidx = None
-        if mesh is not None:
-            from ..parallel.mesh import ShardedIndex
-            # Phantom rows read the host views (iview), not the shards'
-            # host copies, which go once they are placed.
-            self.sidx = ShardedIndex(self.iview,
-                                     mesh.shape["model"]).place(mesh)
-            nbytes = self.sidx.placed_nbytes()
-        else:
-            self.so_dev, self.roa_dev = (
-                torch.from_numpy(a.view(np.int32)).to(self.device)
-                for a in (self.iview.starting_offs, self.iview.roa))
-            nbytes = self.iview.starting_offs.nbytes + self.iview.roa.nbytes
-        for d in set(devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        self._acc(index_upload_s=time.time() - t0,
-                  index_upload_bytes=nbytes)
+        with span("setup.seeder_upload") as sp:
+            t0 = sp.start()
+            if mesh is not None:
+                from ..parallel.mesh import ShardedIndex
+                # Phantom rows read the host views (iview), not the
+                # shards' host copies, which go once they are placed.
+                self.sidx = ShardedIndex(self.iview,
+                                         mesh.shape["model"]).place(mesh)
+                nbytes = self.sidx.placed_nbytes()
+            else:
+                self.so_dev, self.roa_dev = (
+                    torch.from_numpy(a.view(np.int32)).to(self.device)
+                    for a in (self.iview.starting_offs, self.iview.roa))
+                nbytes = (self.iview.starting_offs.nbytes +
+                          self.iview.roa.nbytes)
+            for d in set(devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            self._acc(index_upload_s=sp.stop(t0), index_upload_bytes=nbytes)
+            sp.add(h2d=nbytes)
 
     def _acc(self, **kv):
         with self._stats_lock:
@@ -127,10 +133,14 @@ class DeviceSeeder:
     def _up(self, a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         self._acc(seed_h2d_bytes=t.numel() * t.element_size())
+        RECORDER.count(h2d=t.numel() * t.element_size())
         return t.to(self.device)
 
     def _down(self, t):
-        a = t.cpu().numpy()
+        """A blocking fetch: the seeder.fetch span."""
+        with span("seeder.fetch") as sp:
+            a = t.cpu().numpy()
+            sp.add(d2h=a.nbytes)
         self._acc(seed_d2h_bytes=a.nbytes)
         return a
 
@@ -197,8 +207,14 @@ class DeviceSeeder:
         ParsedReads: (diag uint32, qo int32, offs int64[2n+1], totals
         int64[2n]) for yt_batch_begin; totals[r] = -1 sends row r to the
         host scan.  rows2: the chunk's [2n, lpad] strand rows on the
-        device (StagedAligner._chunk_rows), or None to build them here."""
-        t0 = time.time()
+        device (StagedAligner._chunk_rows), or None to build them here.
+        stats["seed_device_s"] is its wall up to the hit rows' splice; the
+        span seeder.seed is the whole call, seeder.splice under it."""
+        with span("seeder.seed", reads=hi - lo) as sp:
+            t0 = sp.start()
+            return self._seed_rows(pr, lo, hi, rows2, sp, t0)
+
+    def _seed_rows(self, pr, lo, hi, rows2, sp, t0):
         dev = self.device
         offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
         lens = np.diff(offs[lo:hi + 1])
@@ -260,7 +276,7 @@ class DeviceSeeder:
                                                 q1[offs1[r]:offs1[r + 1]])
                 own[r] = self._inject_row(c, int(lengths[r]), f, d, q)
         if not own:
-            self._acc(seed_device_s=time.time() - t0)
+            self._acc(seed_device_s=sp.lap(t0))
             return d1, q1, offs1, totals
         # Splice the rows of `own` between the spans of tier-1 rows.
         row_len = take.copy()
@@ -276,5 +292,8 @@ class DeviceSeeder:
         parts_q.append(q1[offs1[prev]:])
         offs = np.zeros(rows + 1, np.int64)
         np.cumsum(row_len, out=offs[1:])
-        self._acc(seed_device_s=time.time() - t0)
-        return np.concatenate(parts_d), np.concatenate(parts_q), offs, totals
+        self._acc(seed_device_s=sp.lap(t0))
+        with span("seeder.splice") as sq:
+            d, q = np.concatenate(parts_d), np.concatenate(parts_q)
+            sq.add(bytes=d.nbytes + q.nbytes)
+        return d, q, offs, totals

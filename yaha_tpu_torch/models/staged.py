@@ -56,13 +56,21 @@ takes the host scan).
 Small problems (<= 24 rows) run inline on the native small-DP fast paths
 during the host phases by default (YT_STAGED_INLINE=0 sends every problem
 to the DP kernels).
+
+Spans (utils/timing; under the CLI loop's `align` span of the batch):
+staged.upload (the chunk's read bytes), the seeder's seeder.seed,
+staged.phase1 (yt_batch_begin, with phase 1's native stage sums and
+counts while the recorder is on), staged.gap > dispatch.gap (a bucket) >
+dispatch.wait (a blocking fetch), staged.phase2, staged.ext >
+dispatch.ext > dispatch.wait, staged.finish (yt_batch_finish and the
+copy of its text), staged.free (yt_batch_free); staged.gap and staged.ext carry their host_s.  The always-on sums of `stats` take the same clock
+reads.
 """
 from __future__ import annotations
 
 import ctypes as ct
 import os
 import threading
-import time
 
 import numpy as np
 import torch
@@ -71,6 +79,7 @@ from ..native import host
 from ..ops import decode, sw_batch, sw_cuda
 from ..ops.gather_dp import (COORD_BYTES, DeviceCorpus, chunk_strand_rows,
                              code_tables)
+from ..utils.timing import RECORDER, span
 
 _u8p = ct.POINTER(ct.c_uint8)
 _i32p = ct.POINTER(ct.c_int32)
@@ -202,33 +211,60 @@ class StagedAligner:
         # rg <= 512 and above it (backend "cuda"); gap_twin the gap
         # problems of the "cuda" backend whose plane is too wide for the
         # wide route's warp (sw_cuda.full_wide_fits), which the lockstep
-        # twin of ops/sw_batch.py takes on the device; plane_d2h_bytes is the backtrack-plane part of d2h_bytes (0 when
-        # rle is on).
+        # twin of ops/sw_batch.py takes on the device; plane_d2h_bytes is
+        # the backtrack-plane part of d2h_bytes (0 when rle is on).
+        # Seconds (perf_counter): device_s the DP dispatch (launches,
+        # transfers, the upload of the chunk's reads, and the fetches'
+        # waits on the card, dispatch_wait_s); begin_s, phase2_s and
+        # finish_s the native phases; gap_host_s / ext_host_s each batch's
+        # gap / extension phase less its own dispatch.  p1_scan_s,
+        # p1_clumps_s and p1_stage1_s accumulate only while the recorder
+        # is on: phase 1's thread-seconds of the host seed scan, of the
+        # hit sort, coalesce and fragments-to-clumps, and of the clumps'
+        # stage-1 alignment (native/host.profile_counters).
         self.stats = {"dp_launches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
                       "plane_d2h_bytes": 0,
                       "gap_problems": 0, "ext_problems": 0,
-                      "gap_cells": 0, "ext_cells": 0, "device_s": 0.0,
+                      "device_s": 0.0, "dispatch_wait_s": 0.0,
                       "gap_banded": 0, "gap_full": 0, "gap_fallback": 0,
                       "gap_twin": 0,
                       "begin_s": 0.0, "gap_host_s": 0.0, "phase2_s": 0.0,
-                      "ext_host_s": 0.0, "finish_s": 0.0}
+                      "ext_host_s": 0.0, "finish_s": 0.0,
+                      "p1_scan_s": 0.0, "p1_clumps_s": 0.0,
+                      "p1_stage1_s": 0.0}
         # align_chunk may run concurrently from the CLI's prefetch
-        # pipeline; the accumulator guards the read-modify-write.
+        # pipeline; the accumulator guards the read-modify-write, and each
+        # batch's own dispatch seconds are its thread's (_batch.disp_s).
         self._stats_lock = threading.Lock()
+        self._batch = threading.local()
 
     def _acc(self, **kv):
         with self._stats_lock:
             for k, v in kv.items():
                 self.stats[k] += v
 
+    def _h2d(self, nbytes):
+        self._acc(h2d_bytes=nbytes)
+        RECORDER.count(h2d=nbytes)
+
+    def _dispatched(self, seconds):
+        """Adds a dispatch span's seconds to device_s and to the batch's."""
+        self._acc(device_s=seconds)
+        self._batch.disp_s += seconds
+
     def _up(self, a):
         t = torch.from_numpy(np.ascontiguousarray(a))
-        self._acc(h2d_bytes=t.numel() * t.element_size())
+        self._h2d(t.numel() * t.element_size())
         return t.to(self.device)
 
     def _down(self, t, plane=False):
-        a = t.cpu().numpy()
-        self._acc(d2h_bytes=a.nbytes,
+        """A blocking fetch: the dispatch.wait span."""
+        with span("dispatch.wait") as sp:
+            t0 = sp.start()
+            a = t.cpu().numpy()
+            wait = sp.stop(t0)
+            sp.add(d2h=a.nbytes)
+        self._acc(d2h_bytes=a.nbytes, dispatch_wait_s=wait,
                   plane_d2h_bytes=a.nbytes if plane else 0)
         return a
 
@@ -244,7 +280,7 @@ class StagedAligner:
         seqs = np.ctypeslib.as_array(pr.seqs, shape=(max(seg1, 1),))
         lens = np.diff(offs[lo:hi + 1])
         lpad = _pow2(max(int(lens.max()) if hi > lo else 1, 64), 64)
-        self._acc(h2d_bytes=(seg1 - seg0) + 16 * (hi - lo))
+        self._h2d((seg1 - seg0) + 16 * (hi - lo))
         return chunk_strand_rows(seqs[seg0:seg1], offs[lo:hi] - seg0, lens,
                                  lpad, self.tables)
 
@@ -253,7 +289,7 @@ class StagedAligner:
         None when the bucket was fetched on the host."""
         if dev_gather is None:
             return None
-        self._acc(h2d_bytes=COORD_BYTES * n)
+        self._h2d(COORD_BYTES * n)
         return dev_gather(n, False)
 
     def _problem_args(self, planes, qa, ra, lo, hi):
@@ -301,41 +337,43 @@ class StagedAligner:
                            for s in host[:-1]]))
         return parts
 
-    def _eoidc_parts(self, fns, kw, arrs, per, planes, qa, ra, keys,
+    def _eoidc_parts(self, name, fns, kw, arrs, per, planes, qa, ra, keys,
                      backend=None):
         """The "torch" and "native" backends on one bucket (or `backend`,
-        the "torch" twin for a bucket of the "cuda" backend):
-        fns[backend](q, qlens, r, rlens, *rest, **kw) for arrs = [qlens,
-        rlens, *rest], in launch slices of at most MAX_LAUNCH_BYTES (`per`
-        bytes a problem), on the device's or the host's problem planes;
-        returns [(local_idx, FMT_EOIDC, eo, idc, plane_stride, row_stride,
-        *the per-problem outputs of `keys`)]."""
+        the "torch" twin for a bucket of the "cuda" backend), the span
+        `name`: fns[backend](q, qlens, r, rlens, *rest, **kw) for arrs =
+        [qlens, rlens, *rest], in launch slices of at most
+        MAX_LAUNCH_BYTES (`per` bytes a problem), on the device's or the
+        host's problem planes; returns [(local_idx, FMT_EOIDC, eo, idc,
+        plane_stride, row_stride, *the per-problem outputs of `keys`)]."""
         backend = backend or self.backend
         fn = fns[backend]
         n = len(arrs[0])
         parts = []
-        t0 = time.time()
-        if backend == "torch":
-            arrs = list(self._up(np.stack(arrs).astype(np.int32)))
-        for lo, hi in _slices(n, per):
-            self._acc(dp_launches=1)
-            ql, rl, *rest = (a[lo:hi] for a in arrs)
-            if backend == "native":
-                out = fn(qa[lo:hi], ql, ra[lo:hi], rl, *rest, **kw)
-                scalars = [out[k] for k in keys]
-                eo, idc = out["eo"], out["idc"]
-            else:
-                q, r = self._problem_args(planes, qa, ra, lo, hi)
-                out = fn(q, ql, r, rl, *rest, **kw)
-                scalars = list(self._down(torch.stack([out[k]
-                                                       for k in keys])))
-                eo = self._down(out["eo"], plane=True)
-                idc = self._down(out["idc"], plane=True)
-            parts.append((np.arange(lo, hi), FMT_EOIDC, eo, idc,
-                          eo.shape[1] * eo.shape[2], eo.shape[2],
-                          *(np.ascontiguousarray(a, np.int32)
-                            for a in scalars)))
-        self._acc(device_s=time.time() - t0)
+        with span(name, problems=n) as sp:
+            t0 = sp.start()
+            if backend == "torch":
+                arrs = list(self._up(np.stack(arrs).astype(np.int32)))
+            for lo, hi in _slices(n, per):
+                self._acc(dp_launches=1)
+                sp.add(launches=1)
+                ql, rl, *rest = (a[lo:hi] for a in arrs)
+                if backend == "native":
+                    out = fn(qa[lo:hi], ql, ra[lo:hi], rl, *rest, **kw)
+                    scalars = [out[k] for k in keys]
+                    eo, idc = out["eo"], out["idc"]
+                else:
+                    q, r = self._problem_args(planes, qa, ra, lo, hi)
+                    out = fn(q, ql, r, rl, *rest, **kw)
+                    scalars = list(self._down(torch.stack([out[k]
+                                                           for k in keys])))
+                    eo = self._down(out["eo"], plane=True)
+                    idc = self._down(out["idc"], plane=True)
+                parts.append((np.arange(lo, hi), FMT_EOIDC, eo, idc,
+                              eo.shape[1] * eo.shape[2], eo.shape[2],
+                              *(np.ascontiguousarray(a, np.int32)
+                                for a in scalars)))
+            self._dispatched(sp.stop(t0))
         return parts
 
     def _run_gap_bucket(self, qa, qlens, ra, rlens, lbws, rbws, qg=None,
@@ -358,6 +396,7 @@ class StagedAligner:
             # to its XLA twin.
             self._acc(gap_twin=n if twin else 0)
             return self._eoidc_parts(
+                "dispatch.gap",
                 {"native": host.anchored_forward,
                  "torch": sw_batch.batched_anchored_forward}, self.gap_kw,
                 [qlens, rlens, lbws, rbws],
@@ -371,40 +410,44 @@ class StagedAligner:
         per = ((qg + 1) * w + 12 * (w + 2) + qg + rg + 16 +
                (4 * cap if self.rle else 0))
         parts = []
-        t0 = time.time()
-        lens = self._up(np.stack([qlens, rlens, lbws, rbws]).astype(np.int32))
-        planes = self._planes(dev_gather, n)
-        for lo, hi in _slices(n, per):
-            q, r = self._problem_args(planes, qa, ra, lo, hi)
-            ql, rl, lb, rb = lens[:, lo:hi]
-            self._acc(dp_launches=1)
-            if banded:
-                out = sw_cuda.anchored_forward_banded(
-                    q, ql, r, rl, lb, rb, wband=wband, **self.gap_kw)
-                bt = out["bt_b"]
-            else:
-                out = sw_cuda.anchored_forward(q, ql, r, rl, lb, rb,
-                                               **self.gap_kw)
-                bt = out["bt"]
-            if not self.rle:
-                score = self._down(out["score"])
-                bt = self._down(bt, plane=True)
-                parts.append((np.arange(lo, hi), FMT_PACKED_BAND if banded
-                              else FMT_PACKED, bt, None,
-                              bt.shape[1] * bt.shape[2], bt.shape[2], score))
-                continue
-            # Anchored walks start at the corner (qlen, rlen).
-            if banded:
-                items, n_ops = decode.rle_decode_band(
-                    bt, ql, rl - ql + lb, torch.ones_like(ql, dtype=bool),
-                    cap=cap)
-            else:
-                items, n_ops = decode.rle_decode_full(
-                    bt, ql, rl, torch.ones_like(ql, dtype=bool), cap=cap)
-            for lidx, arr, t, idc, (score,) in self._rle_items(
-                    items, n_ops, [out["score"]], cap):
-                parts.append((lo + lidx, FMT_RLE, arr, idc, t, 0, score))
-        self._acc(device_s=time.time() - t0)
+        with span("dispatch.gap", problems=n) as sp:
+            t0 = sp.start()
+            lens = self._up(np.stack([qlens, rlens, lbws, rbws]).astype(
+                np.int32))
+            planes = self._planes(dev_gather, n)
+            for lo, hi in _slices(n, per):
+                q, r = self._problem_args(planes, qa, ra, lo, hi)
+                ql, rl, lb, rb = lens[:, lo:hi]
+                self._acc(dp_launches=1)
+                sp.add(launches=1)
+                if banded:
+                    out = sw_cuda.anchored_forward_banded(
+                        q, ql, r, rl, lb, rb, wband=wband, **self.gap_kw)
+                    bt = out["bt_b"]
+                else:
+                    out = sw_cuda.anchored_forward(q, ql, r, rl, lb, rb,
+                                                   **self.gap_kw)
+                    bt = out["bt"]
+                if not self.rle:
+                    score = self._down(out["score"])
+                    bt = self._down(bt, plane=True)
+                    parts.append((np.arange(lo, hi), FMT_PACKED_BAND
+                                  if banded else FMT_PACKED, bt, None,
+                                  bt.shape[1] * bt.shape[2], bt.shape[2],
+                                  score))
+                    continue
+                # Anchored walks start at the corner (qlen, rlen).
+                if banded:
+                    items, n_ops = decode.rle_decode_band(
+                        bt, ql, rl - ql + lb, torch.ones_like(ql, dtype=bool),
+                        cap=cap)
+                else:
+                    items, n_ops = decode.rle_decode_full(
+                        bt, ql, rl, torch.ones_like(ql, dtype=bool), cap=cap)
+                for lidx, arr, t, idc, (score,) in self._rle_items(
+                        items, n_ops, [out["score"]], cap):
+                    parts.append((lo + lidx, FMT_RLE, arr, idc, t, 0, score))
+            self._dispatched(sp.stop(t0))
         return parts
 
     def _run_ext_bucket(self, qa, qlens, ra, rlens, qg=None, rg=None,
@@ -421,6 +464,7 @@ class StagedAligner:
         w = 4 * self.aa.band_width + 1
         if self.backend != "cuda":
             return self._eoidc_parts(
+                "dispatch.ext",
                 {"native": host.extension_forward,
                  "torch": sw_batch.batched_extension_forward}, self.ext_kw,
                 [qlens, rlens], 5 * (qg + 1) * w + qg + rg + 8,
@@ -430,45 +474,48 @@ class StagedAligner:
         per = ((qg + 1) * w + 12 * (w + 2) + qg + rg + 8 +
                (4 * cap if self.rle else 0))
         parts = []
-        t0 = time.time()
-        lens = self._up(np.stack([qlens, rlens]).astype(np.int32))
-        planes = self._planes(dev_gather, n)
-        for lo, hi in _slices(n, per):
-            q, r = self._problem_args(planes, qa, ra, lo, hi)
-            ql, rl = lens[:, lo:hi]
-            self._acc(dp_launches=1)
-            out = sw_cuda.extension_forward(q, ql, r, rl, **self.ext_kw)
-            smm = [out["score"], out["maxi"], out["maxj"]]
-            if self.rle:
-                # Walks start at the best cell; score <= 0 emits nothing.
-                items, n_ops = decode.rle_decode_band(
-                    out["bt"], out["maxi"], out["maxj"], out["score"] > 0,
-                    cap=cap)
-                for lidx, arr, t, idc, (score, maxi, maxj) in \
-                        self._rle_items(items, n_ops, smm, cap):
-                    parts.append((lo + lidx, FMT_RLE, arr, idc, t, 0, maxi,
-                                  maxj, score))
-                continue
-            score, maxi, maxj = self._down(torch.stack(smm))
-            bt = out["bt"]
-            rows = bt.shape[1]
-            tiers = np.minimum(
-                _pow2_arr(np.minimum(maxi.astype(np.int64) + 1, rows), 64),
-                rows)
-            groups = [(t, np.nonzero(tiers == t)[0])
-                      for t in np.unique(tiers)]
-            flat = self._down(torch.cat([
-                bt.index_select(0, self._up(lidx))[:, :int(t)].reshape(-1)
-                for t, lidx in groups]), plane=True)
-            off = 0
-            for t, lidx in groups:
-                size = len(lidx) * int(t) * w
-                btp = flat[off:off + size].reshape(len(lidx), int(t), w)
-                off += size
-                parts.append((lo + lidx, FMT_PACKED, btp, None,
-                              btp.shape[1] * w, w, maxi[lidx], maxj[lidx],
-                              score[lidx]))
-        self._acc(device_s=time.time() - t0)
+        with span("dispatch.ext", problems=n) as sp:
+            t0 = sp.start()
+            lens = self._up(np.stack([qlens, rlens]).astype(np.int32))
+            planes = self._planes(dev_gather, n)
+            for lo, hi in _slices(n, per):
+                q, r = self._problem_args(planes, qa, ra, lo, hi)
+                ql, rl = lens[:, lo:hi]
+                self._acc(dp_launches=1)
+                sp.add(launches=1)
+                out = sw_cuda.extension_forward(q, ql, r, rl, **self.ext_kw)
+                smm = [out["score"], out["maxi"], out["maxj"]]
+                if self.rle:
+                    # Walks start at the best cell; score <= 0 emits
+                    # nothing.
+                    items, n_ops = decode.rle_decode_band(
+                        out["bt"], out["maxi"], out["maxj"],
+                        out["score"] > 0, cap=cap)
+                    for lidx, arr, t, idc, (score, maxi, maxj) in \
+                            self._rle_items(items, n_ops, smm, cap):
+                        parts.append((lo + lidx, FMT_RLE, arr, idc, t, 0,
+                                      maxi, maxj, score))
+                    continue
+                score, maxi, maxj = self._down(torch.stack(smm))
+                bt = out["bt"]
+                rows = bt.shape[1]
+                tiers = np.minimum(
+                    _pow2_arr(np.minimum(maxi.astype(np.int64) + 1, rows),
+                              64), rows)
+                groups = [(t, np.nonzero(tiers == t)[0])
+                          for t in np.unique(tiers)]
+                flat = self._down(torch.cat([
+                    bt.index_select(0, self._up(lidx))[:, :int(t)].reshape(
+                        -1) for t, lidx in groups]), plane=True)
+                off = 0
+                for t, lidx in groups:
+                    size = len(lidx) * int(t) * w
+                    btp = flat[off:off + size].reshape(len(lidx), int(t), w)
+                    off += size
+                    parts.append((lo + lidx, FMT_PACKED, btp, None,
+                                  btp.shape[1] * w, w, maxi[lidx],
+                                  maxj[lidx], score[lidx]))
+            self._dispatched(sp.stop(t0))
         return parts
 
     # ---- phase loops: pow2 buckets of the native problem lists, every
@@ -532,8 +579,6 @@ class StagedAligner:
                                            _pu8(ra), rg)
                 ql_b, rl_b, lb_b, rb_b = (a[idx].astype(np.int64) for a in
                                           (qlen, rlen, lbw, rbw))
-                self._acc(gap_cells=int((np.minimum(
-                    lb_b + rb_b + 1, rl_b + 1) * ql_b).sum()))
                 for (lidx, fmt, plane, idc, pstride, rstride,
                      score) in self._run_gap_bucket(
                          qa, ql_b, ra, rl_b, lb_b, rb_b, qg=qg, rg=rg,
@@ -578,7 +623,6 @@ class StagedAligner:
                                            _pu8(ra), rg)
                 ql_b = qlen[idx].astype(np.int64)
                 rl_b = rlen[idx].astype(np.int64)
-                self._acc(ext_cells=int((ql_b * (2 * bw2 + 1)).sum()))
                 for (lidx, fmt, plane, idc, pstride, rstride, maxi, maxj,
                      score) in self._run_ext_bucket(
                          qa, ql_b, ra, rl_b, qg=qg, rg=rg,
@@ -607,67 +651,92 @@ class StagedAligner:
         genome = self.genome
         index = self.index
         ip, fp = host._pack_params_ct(aa, self.n_threads)
+        self._batch.disp_s = 0.0
         rows2 = None
         if self.corpus is not None or self.seeder is not None:
             # The chunk's read bytes upload before the native phase 1, so
             # the copy overlaps the seed/chain/clump host work; the
             # dispatch counts as device time.
-            t_up = time.time()
-            rows2 = self._chunk_rows(pr, lo, hi)
-            self._acc(device_s=time.time() - t_up)
+            with span("staged.upload", reads=hi - lo) as sp:
+                t0 = sp.start()
+                rows2 = self._chunk_rows(pr, lo, hi)
+                self._dispatched(sp.stop(t0))
         seeds = None
         if self.seeder is not None:
             # Device seed phase: sorted hit rows per (read, strand); rows
             # with total -1 take the host scan inside phase 1.  Its wall is
             # the seeder's seed_device_s, not part of begin_s.
             seeds = self.seeder.seed_chunk(pr, lo, hi, rows2)
-        t_begin = time.time()
-        ctx = lib.yt_batch_begin(
-            pr.seqs, host.off64(pr.seq_offs, lo), pr.ids,
-            host.off64(pr.id_offs, lo), pr.quals if aa.fastq else None,
-            hi - lo, ct.cast(genome.codes_buf, _u8p), genome.codes_len,
-            genome.max_roff, ct.cast(genome._starts_arr, _i64p),
-            ct.cast(genome._lens_arr, _i64p), genome.n_seqs,
-            ct.cast(genome._names_blob, _u8p),
-            ct.cast(genome._name_offs, _i64p),
-            index.so_ptr, index.roa_ptr, index.roa_len,
-            ct.cast(ip, _i64p), ct.cast(fp, ct.POINTER(ct.c_double)),
-            1 if self.inline_small else 0,
-            *((seeds[0].ctypes.data_as(_u32p), _p32(seeds[1]),
-               _p64(seeds[2]), _p64(seeds[3])) if seeds else (None,) * 4))
+        prof = RECORDER.recording()
+        with span("staged.phase1", reads=hi - lo) as sp:
+            t0 = sp.start()
+            ctx = lib.yt_batch_begin(
+                pr.seqs, host.off64(pr.seq_offs, lo), pr.ids,
+                host.off64(pr.id_offs, lo), pr.quals if aa.fastq else None,
+                hi - lo, ct.cast(genome.codes_buf, _u8p), genome.codes_len,
+                genome.max_roff, ct.cast(genome._starts_arr, _i64p),
+                ct.cast(genome._lens_arr, _i64p), genome.n_seqs,
+                ct.cast(genome._names_blob, _u8p),
+                ct.cast(genome._name_offs, _i64p),
+                index.so_ptr, index.roa_ptr, index.roa_len,
+                ct.cast(ip, _i64p), ct.cast(fp, ct.POINTER(ct.c_double)),
+                1 if self.inline_small else 0,
+                *((seeds[0].ctypes.data_as(_u32p), _p32(seeds[1]),
+                   _p64(seeds[2]), _p64(seeds[3])) if seeds
+                  else (None,) * 4), 1 if prof else 0)
+            begin_s = sp.stop(t0)
+            if ctx and prof:
+                p1 = host.profile_counters(ctx)
+                sp.add(**{k + "_s" if k in host.PROFILE_SECONDS else k: v
+                          for k, v in p1.items()})
+                self._acc(p1_scan_s=p1["scan_hash"] + p1["scan_so"] +
+                          p1["scan_roa"],
+                          p1_clumps_s=p1["sort"] + p1["f2c"] +
+                          p1["hits_f2c"],
+                          p1_stage1_s=p1["stage1"])
         if self.corpus is None:
             rows2 = None     # problems are fetched on the host
         if not ctx:
             raise RuntimeError("yt_batch_begin failed")
         try:
-            t1 = time.time()
-            self._acc(begin_s=t1 - t_begin)
-            d0 = self.stats["device_s"]
-            self._gap_phase(ctx, rows2)
-            t2 = time.time()
-            d1 = self.stats["device_s"]
-            self._acc(gap_host_s=t2 - t1 - (d1 - d0))
-            lib.yt_batch_phase2(ctx)
-            t3 = time.time()
-            self._acc(phase2_s=t3 - t2)
-            self._ext_phase(ctx, rows2)
-            t4 = time.time()
-            d2 = self.stats["device_s"]
-            self._acc(ext_host_s=t4 - t3 - (d2 - d1))
+            self._acc(begin_s=begin_s)
+            # Each phase's host time is its wall less its own dispatch
+            # spans (this batch's, whatever the other batch adds).
+            with span("staged.gap") as sp:
+                t0 = sp.start()
+                d0 = self._batch.disp_s
+                self._gap_phase(ctx, rows2)
+                gap_host = sp.stop(t0) - (self._batch.disp_s - d0)
+                sp.add(host_s=gap_host)
+            with span("staged.phase2") as sp:
+                t0 = sp.start()
+                lib.yt_batch_phase2(ctx)
+                phase2 = sp.stop(t0)
+            with span("staged.ext") as sp:
+                t0 = sp.start()
+                d0 = self._batch.disp_s
+                self._ext_phase(ctx, rows2)
+                ext_host = sp.stop(t0) - (self._batch.disp_s - d0)
+                sp.add(host_s=ext_host)
             out_text = ct.c_void_p()
             out_len = ct.c_int64()
             sm = ct.c_int64()
             nr = ct.c_int64()
-            rc = lib.yt_batch_finish(
-                ctx, ct.byref(out_text), ct.byref(out_len), ct.byref(sm),
-                ct.byref(nr), ct.cast(dist, _i64p) if dist is not None
-                else None)
-            self._acc(finish_s=time.time() - t4)
-            assert rc == 0
-            try:
-                text = ct.string_at(out_text, out_len.value)
-            finally:
-                lib.yt_free(out_text)
+            with span("staged.finish") as sp:
+                t0 = sp.start()
+                rc = lib.yt_batch_finish(
+                    ctx, ct.byref(out_text), ct.byref(out_len),
+                    ct.byref(sm), ct.byref(nr),
+                    ct.cast(dist, _i64p) if dist is not None else None)
+                assert rc == 0
+                try:
+                    text = ct.string_at(out_text, out_len.value)
+                finally:
+                    lib.yt_free(out_text)
+                finish = sp.stop(t0)
+                sp.add(bytes=len(text))
+            self._acc(gap_host_s=gap_host, phase2_s=phase2,
+                      ext_host_s=ext_host, finish_s=finish)
             if not want_stats:
                 return text, int(sm.value), int(nr.value)
             n = hi - lo
@@ -684,4 +753,5 @@ class StagedAligner:
                     blob[a:b], ql[i], sd[i], al[i], us[i]))
             return text, int(sm.value), int(nr.value), b"".join(rows)
         finally:
-            lib.yt_batch_free(ctx)
+            with span("staged.free"):
+                lib.yt_batch_free(ctx)

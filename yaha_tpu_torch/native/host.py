@@ -19,8 +19,8 @@ ops/sw_batch.py, run by StagedAligner(backend="native"), and the DPs the
 oracle engine delegates, core/sw.py) and chain_dp (the fragment-chain DP
 that ops/chain.py is held to, and the oracle's), the oracle's fused front
 end (seed_to_clumps, frags_to_clumps, and the --max-region-frags valve's
-take_skipped_regions), and the seed scan's profile counters
-(profile_counters, under YT_PROFILE=1).
+take_skipped_regions), and a staged batch's phase-1 stage sums
+(profile_counters).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, f)
            for f in ("yaha_host.cpp", "yaha_pipe.cpp", "yaha_index.cpp")]
+HEADERS = [os.path.join(_HERE, "yaha_prof.h")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libyaha_host.so")
 GXX_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-Wall", "-shared",
@@ -53,7 +54,7 @@ _load_lock = threading.Lock()
 
 def _stale():
     return (not os.path.exists(LIB_PATH) or os.path.getmtime(LIB_PATH) <
-            max(os.path.getmtime(s) for s in SOURCES))
+            max(os.path.getmtime(s) for s in SOURCES + HEADERS))
 
 
 def build():
@@ -115,7 +116,10 @@ def _declare(lib):
         _u8p, ct.c_int64, ct.c_int64, _i64p, _i64p, ct.c_int64,
         _u8p, _i64p, _u32p, _u32p, ct.c_int64,
         _i64p, ct.POINTER(ct.c_double), ct.c_int64,
-        _u32p, _i32p, _i64p, _i64p]
+        _u32p, _i32p, _i64p, _i64p, ct.c_int64]
+    lib.yt_batch_prof.restype = ct.c_int64
+    lib.yt_batch_prof.argtypes = [ct.c_void_p, ct.POINTER(ct.c_double),
+                                  _i64p]
     lib.yt_batch_gap_count.restype = ct.c_int64
     lib.yt_batch_gap_count.argtypes = [ct.c_void_p]
     lib.yt_batch_gap_meta.argtypes = [ct.c_void_p, _i32p, _i32p, _i32p,
@@ -182,31 +186,28 @@ def _load():
         return _lib
 
 
-# The seed scan's CPU seconds and counts, summed over the native threads
-# (yaha_host.cpp yt_prof_*): scan (hash, SO and ROA steps), the hit sort
-# and the fragment-to-clump stage.  They accumulate only when YT_PROFILE is
-# set (not "0") in the environment before the process's first scan: the
-# library reads it once.
-PROFILE_SECONDS = ("yt_prof_scan", "yt_prof_scan_a", "yt_prof_scan_b",
-                   "yt_prof_scan_c", "yt_prof_sort", "yt_prof_f2c")
-PROFILE_COUNTS = ("yt_prof_hits", "yt_prof_frags")
+# A staged batch's phase-1 stage sums over its native threads
+# (yaha_prof.h Prof, through yt_batch_prof): thread-seconds of the host
+# seed scan's rolling hash, SO lookups and ROA gathers, the hit sort, the
+# fragments-to-clumps stage, the device-fed strands' coalesce and
+# fragments-to-clumps, and the clumps' stage-1 alignment; and the hit,
+# fragment and clump counts.  They accumulate only in a batch begun with
+# the profiling flag (models/staged.py, while the recorder is on).
+PROFILE_SECONDS = ("scan_hash", "scan_so", "scan_roa", "sort", "f2c",
+                   "hits_f2c", "stage1")
+PROFILE_COUNTS = ("hits", "frags", "clumps")
 
 
-def profile_counters():
-    """{name: value} of PROFILE_SECONDS (float) and PROFILE_COUNTS (int)."""
-    lib = _load()
-    out = {s: ct.c_double.in_dll(lib, s).value for s in PROFILE_SECONDS}
-    out.update({s: ct.c_int64.in_dll(lib, s).value for s in PROFILE_COUNTS})
+def profile_counters(ctx):
+    """{name: value} of PROFILE_SECONDS (float) and PROFILE_COUNTS (int)
+    of the staged batch `ctx` (yt_batch_begin's handle, before
+    yt_batch_free)."""
+    secs = (ct.c_double * len(PROFILE_SECONDS))()
+    counts = (ct.c_int64 * len(PROFILE_COUNTS))()
+    _load().yt_batch_prof(ctx, secs, counts)
+    out = dict(zip(PROFILE_SECONDS, secs))
+    out.update(zip(PROFILE_COUNTS, counts))
     return out
-
-
-def reset_profile_counters():
-    """Set every profile counter to 0."""
-    lib = _load()
-    for s in PROFILE_SECONDS:
-        ct.c_double.in_dll(lib, s).value = 0.0
-    for s in PROFILE_COUNTS:
-        ct.c_int64.in_dll(lib, s).value = 0
 
 
 def available() -> bool:

@@ -17,11 +17,12 @@
 #include <string>
 #include <vector>
 #include <algorithm>
-#include <mutex>
 #include <fcntl.h>
 #include <sys/mman.h>
 #include <sys/stat.h>
 #include <unistd.h>
+
+#include "yaha_prof.h"
 
 #if defined(__AVX512F__) && defined(__AVX512BW__) && defined(__AVX512VL__)
 #include <immintrin.h>
@@ -747,24 +748,11 @@ int64_t yt_frags_to_clumps(
 // -> fragment coalescing (QueryMatch.c:99-115) -> the fragment->clump
 // stage above.  One call replaces the per-read numpy pipeline, whose
 // per-op overhead dominates at short read lengths.
-double yt_prof_scan = 0, yt_prof_sort = 0, yt_prof_f2c = 0;
-double yt_prof_scan_a = 0, yt_prof_scan_b = 0, yt_prof_scan_c = 0;
-int64_t yt_prof_hits = 0, yt_prof_frags = 0;
 static double _now_s() {
     struct timespec ts;
     clock_gettime(CLOCK_MONOTONIC, &ts);
     return ts.tv_sec + ts.tv_nsec * 1e-9;
 }
-// Profiling accumulation is gated (magic-static init is thread-safe)
-// and mutex-guarded so -t runs stay race-free (TSAN-clean).
-static bool _prof_on() {
-    static const bool v = [] {
-        const char* e = getenv("YT_PROFILE");
-        return e && *e && *e != '0';
-    }();
-    return v;
-}
-static std::mutex _prof_mu;
 
 int64_t yt_seed_to_clumps(
         const uint8_t* codes, int64_t q_len, int64_t word_len,
@@ -814,7 +802,7 @@ int64_t yt_seed_to_clumps(
     frs.clear();
     epoch++;
     uint64_t etag = (uint64_t)epoch << 32;
-    const bool prof = _prof_on();
+    Prof* const prof = g_prof;   // this thread's slot, if bound
 
     // Short reads (the common case) skip the diag-hash grouper
     // entirely: every hit is emitted as one packed u64
@@ -1027,18 +1015,16 @@ int64_t yt_seed_to_clumps(
         }
     }
     *total_hits_out = total_hits;
+    double _t1 = prof ? _now_s() : 0;
+    if (prof) {
+        prof->scan_hash += _ta - _t0;
+        prof->scan_so += _tb - _ta;
+        prof->scan_roa += _t1 - _tb;
+        prof->hits += total_hits;
+    }
     if (sort_hits ? hitkeys.empty() : runs.empty()) {
         clump_offs[0] = 0;
         return 0;
-    }
-    double _t1 = prof ? _now_s() : 0;
-    if (prof) {
-        std::lock_guard<std::mutex> g(_prof_mu);
-        yt_prof_scan += _t1 - _t0;
-        yt_prof_scan_a += _ta - _t0;
-        yt_prof_scan_b += _tb - _ta;
-        yt_prof_scan_c += _t1 - _tb;
-        yt_prof_hits += total_hits;
     }
     for (const Run& r : runs) emit_run(r);
     static thread_local std::vector<int64_t> fsqo, feqo, fsro;
@@ -1164,9 +1150,8 @@ int64_t yt_seed_to_clumps(
 
     double _t2 = prof ? _now_s() : 0;
     if (prof) {
-        std::lock_guard<std::mutex> g(_prof_mu);
-        yt_prof_sort += _t2 - _t1;
-        yt_prof_frags += (int64_t)fsqo.size();
+        prof->sort += _t2 - _t1;
+        prof->frags += (int64_t)fsqo.size();
     }
     int64_t _rv = yt_frags_to_clumps(
         fsqo.data(), feqo.data(), fsro.data(), (int64_t)fsqo.size(), q_len,
@@ -1174,10 +1159,7 @@ int64_t yt_seed_to_clumps(
         ge_cost, band_width, word_len,
         out_sqo, out_eqo, out_sro, clump_offs, clump_matched,
         cap_frags, cap_clumps);
-    if (prof) {
-        std::lock_guard<std::mutex> g(_prof_mu);
-        yt_prof_f2c += _now_s() - _t2;
-    }
+    if (prof) prof->f2c += _now_s() - _t2;
     return _rv;
 }
 
@@ -1226,6 +1208,7 @@ int64_t yt_hits_to_clumps(
     feqo.push_back(cur_eqo + word_len - 1);
     fsro.push_back((int64_t)((cur_diag + (uint64_t)cur_sqo) &
                              (uint64_t)M32));
+    if (g_prof) g_prof->frags += (int64_t)fsqo.size();
     return yt_frags_to_clumps(
         fsqo.data(), feqo.data(), fsro.data(), (int64_t)fsqo.size(), q_len,
         max_gap, max_desert, min_match, min_non_overlap, m_score, go_cost,

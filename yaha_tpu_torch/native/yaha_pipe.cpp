@@ -28,11 +28,12 @@
 #include <cstdarg>
 #include <chrono>
 
+#include "yaha_prof.h"
+
+thread_local Prof* g_prof = nullptr;
+
 // ---- functions from yaha_host.cpp (same shared object) ----
 extern "C" {
-extern double yt_prof_scan, yt_prof_sort, yt_prof_f2c;
-extern double yt_prof_scan_a, yt_prof_scan_b, yt_prof_scan_c;
-extern int64_t yt_prof_hits, yt_prof_frags;
 int64_t yt_seed_to_clumps(
     const uint8_t* codes, int64_t q_len, int64_t word_len,
     const uint32_t* so, const uint32_t* roa, int64_t roa_len,
@@ -147,18 +148,6 @@ static void query_seed(const uint8_t* codes, int64_t q_len, uint32_t* out) {
         out[w] = word;
     }
 }
-
-// Optional stage profiling (YT_PROFILE=1): accumulated per-thread, summed
-// at batch end to stderr.  The TPU-framework analog of the reference's
-// TIMING phase counters (Timing.inl).
-struct Prof {
-    double front = 0, align = 0, oqc = 0, print = 0;
-    double s2c = 0, dp = 0, dpa = 0, dps = 0, sc = 0, gapc = 0,
-           extfr = 0;
-    int64_t reads = 0, dp_calls = 0, dpa_calls = 0, dps_calls = 0,
-            clumps = 0;
-};
-static thread_local Prof* g_prof = nullptr;
 
 // Per-run query/hit/alignment distributions — the reference's STATS
 // compile-switch counters (Query.c:275-289, 416-418, 470-477), printed
@@ -2184,6 +2173,7 @@ static int64_t process_strand_hits(State& st, bool rev,
             sc_offs.resize((size_t)cap_clumps + 1);
             sc_matched.resize((size_t)cap_clumps);
         }
+        double ts = g_prof ? now_s() : 0;
         int64_t n_clumps = yt_hits_to_clumps(
             hits_diag, hits_qo, n_hits, st.q_len, aa.word_len,
             aa.max_gap, aa.max_desert, aa.min_match,
@@ -2192,6 +2182,9 @@ static int64_t process_strand_hits(State& st, bool rev,
             sc_sqo.data(), sc_eqo.data(), sc_sro.data(),
             sc_offs.data(), sc_matched.data(),
             cap_frags, cap_clumps);
+        if (g_prof) { g_prof->hits_f2c += now_s() - ts;
+                      g_prof->hits += n_hits;
+                      g_prof->clumps += n_clumps > 0 ? n_clumps : 0; }
         if (n_clumps < 0) {
             cap_frags *= 4;
             cap_clumps *= 4;
@@ -2369,26 +2362,35 @@ struct BatchCtx {
     std::vector<ReadSlot> slots;
     std::vector<StagedProb*> gap_ptr, ext_ptr;   // global problem order
     int64_t rec_sum = 0;
+    // Phase 1's stage accumulators, one slot a worker (yt_batch_begin's
+    // profiling flag; empty without it).
+    std::vector<Prof> profs;
 };
 
+// Runs fn(i) for i in [0, count) on the batch's threads; with `prof`
+// (phase 1) and the batch's slots allocated, worker t binds g_prof to
+// slot t for the run.
 template <class F>
-static void staged_run(BatchCtx& c, int64_t count, F fn) {
+static void staged_run(BatchCtx& c, int64_t count, F fn, bool prof = false) {
     std::atomic<int64_t> next{0};
-    auto worker = [&]() {
+    const bool bind = prof && !c.profs.empty();
+    auto worker = [&](int64_t t) {
         yt_wide_scores = c.aa.max_query_length > 32000 ? 1 : 0;
         yt_max_region_frags = c.aa.max_region_frags;
+        if (bind) g_prof = &c.profs[(size_t)t];
         for (;;) {
             int64_t i = next.fetch_add(1);
             if (i >= count) break;
             fn(i);
         }
+        if (bind) g_prof = nullptr;
     };
     int64_t nt = c.n_threads;
     if (nt > count) nt = count;
-    if (nt <= 1) { worker(); return; }
+    if (nt <= 1) { worker(0); return; }
     std::vector<std::thread> ts;
-    for (int64_t t = 1; t < nt; t++) ts.emplace_back(worker);
-    worker();
+    for (int64_t t = 1; t < nt; t++) ts.emplace_back(worker, t);
+    worker(0);
     for (auto& th : ts) th.join();
 }
 
@@ -2592,8 +2594,10 @@ static void staged_phase1(BatchCtx& c, int64_t i) {
     slot.seed_matches = fwd + rev;
     slot.fwd_count = fwd;
     slot.rev_count = rev;
+    double ts = g_prof ? now_s() : 0;
     for (Clump* cl : st.clumps)
         align_clump_stage1(st, *cl, slot, c.inline_small, (int32_t)i);
+    if (g_prof) g_prof->stage1 += now_s() - ts;
 }
 
 // extendClumpForwardReverse's DP deferral: the trimming half of
@@ -3049,7 +3053,7 @@ int yt_align_batch(
     auto worker = [&]() {
         Prof* prof = prof_enabled()
             ? &profs[(size_t)prof_slot.fetch_add(1)] : nullptr;
-        g_prof = prof;
+        g_prof = prof;   // unbound below: -t 1 runs on the caller's thread
         RunStats* rs = dist_out
             ? &rstats[(size_t)rs_slot.fetch_add(1)] : nullptr;
         yt_wide_scores = aa.max_query_length > 32000 ? 1 : 0;
@@ -3098,6 +3102,7 @@ int yt_align_batch(
                 srow.append(tmp);
             }
         }
+        g_prof = nullptr;
     };
 
     if (n_threads <= 1) {
@@ -3134,16 +3139,7 @@ int yt_align_batch(
 
     if (prof_enabled()) {
         Prof sum;
-        for (const Prof& p : profs) {
-            sum.front += p.front; sum.align += p.align;
-            sum.oqc += p.oqc; sum.print += p.print; sum.reads += p.reads;
-            sum.s2c += p.s2c; sum.dp += p.dp; sum.dpa += p.dpa;
-            sum.dps += p.dps; sum.sc += p.sc;
-            sum.gapc += p.gapc; sum.extfr += p.extfr;
-            sum.dp_calls += p.dp_calls; sum.dpa_calls += p.dpa_calls;
-            sum.dps_calls += p.dps_calls;
-            sum.clumps += p.clumps;
-        }
+        for (const Prof& p : profs) sum.add(p);
         fprintf(stderr,
                 "[yt_prof] reads=%lld front=%.3fs (s2c=%.3fs) "
                 "align=%.3fs (ext=%.3fs calls=%lld anch=%.3fs "
@@ -3158,10 +3154,10 @@ int yt_align_batch(
         fprintf(stderr,
                 "[yt_prof2] scan=%.3fs (hash=%.3fs so=%.3fs roa=%.3fs) "
                 "sort=%.3fs f2c=%.3fs hits=%lld "
-                "frags=%lld\n", yt_prof_scan, yt_prof_scan_a,
-                yt_prof_scan_b, yt_prof_scan_c,
-                yt_prof_sort, yt_prof_f2c,
-                (long long)yt_prof_hits, (long long)yt_prof_frags);
+                "frags=%lld\n",
+                sum.scan_hash + sum.scan_so + sum.scan_roa, sum.scan_hash,
+                sum.scan_so, sum.scan_roa, sum.sort, sum.f2c,
+                (long long)sum.hits, (long long)sum.frags);
 
     }
 
@@ -3211,7 +3207,8 @@ void* yt_batch_begin(
     const int64_t* iparams, const double* fparams,
     int64_t inline_small,
     const uint32_t* hits_diag, const int32_t* hits_qo,
-    const int64_t* hit_offs, const int64_t* hit_totals) {
+    const int64_t* hit_offs, const int64_t* hit_totals,
+    int64_t profile) {
     using namespace yp;
     init_tables();
     BatchCtx* c = new BatchCtx();
@@ -3246,11 +3243,12 @@ void* yt_batch_begin(
     c->hit_offs = hit_offs;
     c->hit_totals = hit_totals;
     c->slots.resize((size_t)n_reads);
+    if (profile) c->profs.resize((size_t)c->n_threads);
     staged_run(*c, n_reads, [c](int64_t i) {
         double ts = now_s();
         staged_phase1(*c, i);
         c->slots[(size_t)i].usec += (int64_t)((now_s() - ts) * 1e6);
-    });
+    }, true);
     for (ReadSlot& slot : c->slots)
         for (StagedProb& p : slot.gaps) c->gap_ptr.push_back(&p);
     return c;
@@ -3595,6 +3593,22 @@ void yt_batch_query_stats(void* h, int64_t* qlen, int64_t* seeds,
         aligns[i] = (int64_t)slot.st.clumps.size();
         if (usec) usec[i] = slot.usec;
     }
+}
+
+// Phase 1's stage sums over the batch's threads (yt_batch_begin with its
+// profiling flag; zeros without it): secs = scan_hash, scan_so, scan_roa,
+// sort, f2c, hits_f2c, stage1 (thread-seconds); counts = hits, frags,
+// clumps.  Returns the number of thread slots.
+int64_t yt_batch_prof(void* h, double* secs, int64_t* counts) {
+    yp::BatchCtx& c = *(yp::BatchCtx*)h;
+    Prof sum;
+    for (const Prof& p : c.profs) sum.add(p);
+    const double s[7] = {sum.scan_hash, sum.scan_so, sum.scan_roa, sum.sort,
+                         sum.f2c, sum.hits_f2c, sum.stage1};
+    const int64_t n[3] = {sum.hits, sum.frags, sum.clumps};
+    for (int k = 0; k < 7; k++) secs[k] = s[k];
+    for (int k = 0; k < 3; k++) counts[k] = n[k];
+    return (int64_t)c.profs.size();
 }
 
 void yt_batch_free(void* h) {

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import codec
+from ..utils.timing import span
 from . import sw_cuda
 
 # Coordinate rows of gather_problems (csrc/gather_kernels.cu C_*).
@@ -159,9 +160,11 @@ class DeviceCorpus:
 
     def __init__(self, genome_codes: np.ndarray, device="cuda"):
         self.device = torch.device(device)
-        self.codes = torch.from_numpy(np.ascontiguousarray(
-            genome_codes, np.uint8)).to(self.device, copy=True)
-        self.genome_bytes = int(self.codes.numel())
+        with span("setup.corpus_upload") as sp:
+            self.codes = torch.from_numpy(np.ascontiguousarray(
+                genome_codes, np.uint8)).to(self.device, copy=True)
+            self.genome_bytes = int(self.codes.numel())
+            sp.add(h2d=self.genome_bytes)
         self.tables = code_tables(self.device)
 
     def read_rows(self, seq: np.ndarray, starts: np.ndarray,

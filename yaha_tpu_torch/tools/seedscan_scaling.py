@@ -4,17 +4,16 @@ Counterpart of tools/seedscan_scaling.py.  Phase 1 of the staged engine
 (parse -> seed scan -> chain -> clumps, the native yt_batch_begin; the
 stat begin_s) runs at each thread count on the same reads, warm, best of
 `iters`, under StagedAligner(backend="native") so that no device work is
-in the chunk.  Beside each row: the scan's CPU seconds summed over the
-threads (yt_prof_scan and its hash / SO / ROA parts, yt_prof_sort,
-yt_prof_f2c of the port's own native library, native/host.
-profile_counters), so contention shows as wall x threads against summed
-seconds.  The device seed phase is the alternative to the host scan:
-models/seeder.DeviceSeeder.seed_chunk on the same reads, its
-seed_device_s (best of `iters`) beside the rows.  Every thread count must
-give the same SAM bytes.
-
-The counters accumulate only with YT_PROFILE set before the process's
-first scan; main() sets it, so run the tool in a process of its own:
+in the chunk.  Beside each row: phase 1's stage CPU seconds summed over
+the threads (the scan and its hash / SO / ROA parts, the hit sort,
+fragments-to-clumps, the clumps' stage-1 alignment) and its hit,
+fragment and clump counts, which the recorder (utils/timing, enabled for
+the measurement) takes from the native library (native/host.
+profile_counters) onto the batch's staged.phase1 span, so contention
+shows as wall x threads against summed seconds.  The device seed phase
+is the alternative to the host scan: models/seeder.DeviceSeeder.
+seed_chunk on the same reads, its seed_device_s (best of `iters`) beside
+the rows.  Every thread count must give the same SAM bytes.
 
   python -m yaha_tpu_torch.tools.seedscan_scaling [--dir D | -x INDEX]
       [--reads 4000] [--len 1000] [--err 0.05] [--threads 1,2,4,8]
@@ -68,44 +67,49 @@ def measure(aa, genome, index, pr, threads, iters=3, device="cuda"):
     from ..models.seeder import DeviceSeeder
     from ..models.staged import StagedAligner
     from ..native import host
+    from ..utils.timing import RECORDER
     rows = []
     ref = None
-    for t in threads:
-        st = StagedAligner(aa, genome, index, device=device, n_threads=t,
-                           backend="native")
-        text = st.align_chunk(pr, 0, pr.n)[0]      # warm
-        ref = text if ref is None else ref
-        best = None
-        for _ in range(iters):
-            for k in st.stats:
-                st.stats[k] = type(st.stats[k])(0)
-            host.reset_profile_counters()
-            t0 = time.time()
-            text = st.align_chunk(pr, 0, pr.n)[0]
-            wall = time.time() - t0
-            if text != ref:
-                raise AssertionError("seedscan_scaling: %d threads give "
-                                     "other SAM bytes than %d" % (
-                                         t, threads[0]))
-            if best is None or st.stats["begin_s"] < best[0]:
-                best = (st.stats["begin_s"], wall,
-                        host.profile_counters())
-        begin, wall, prof = best
-        if prof["yt_prof_scan"] <= 0:
-            raise AssertionError("seedscan_scaling: the scan counters did "
-                                 "not move (YT_PROFILE must be set before "
-                                 "the process's first scan)")
-        rows.append({
-            "threads": t, "phase1_wall_s": begin, "chunk_wall_s": wall,
-            "scan_cpu_s_thread_sum": prof["yt_prof_scan"],
-            "scan_hash_so_roa_cpu_s": [prof["yt_prof_scan_a"],
-                                       prof["yt_prof_scan_b"],
-                                       prof["yt_prof_scan_c"]],
-            "sort_cpu_s": prof["yt_prof_sort"],
-            "f2c_cpu_s": prof["yt_prof_f2c"],
-            "scan_s_per_thread": prof["yt_prof_scan"] / t,
-            "hits": prof["yt_prof_hits"],
-            "phase1_reads_per_s": pr.n / begin})
+    RECORDER.enable()
+    try:
+        for t in threads:
+            st = StagedAligner(aa, genome, index, device=device,
+                               n_threads=t, backend="native")
+            text = st.align_chunk(pr, 0, pr.n)[0]      # warm
+            ref = text if ref is None else ref
+            best = None
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                text = st.align_chunk(pr, 0, pr.n)[0]
+                wall = time.perf_counter() - t0
+                if text != ref:
+                    raise AssertionError("seedscan_scaling: %d threads give "
+                                         "other SAM bytes than %d" % (
+                                             t, threads[0]))
+                p1 = [s for s in RECORDER.spans()
+                      if s[1] == "staged.phase1"][-1]
+                begin = (p1[6] - p1[5]) * 1e-9
+                if best is None or begin < best[0]:
+                    best = (begin, wall, p1[7])
+            begin, wall, prof = best
+            scan = prof["scan_hash_s"] + prof["scan_so_s"] + prof["scan_roa_s"]
+            if scan <= 0:
+                raise AssertionError("seedscan_scaling: the scan counters "
+                                     "did not move")
+            rows.append({
+                "threads": t, "phase1_wall_s": begin, "chunk_wall_s": wall,
+                "scan_cpu_s_thread_sum": scan,
+                "scan_hash_so_roa_cpu_s": [prof["scan_hash_s"],
+                                           prof["scan_so_s"],
+                                           prof["scan_roa_s"]],
+                "sort_cpu_s": prof["sort_s"], "f2c_cpu_s": prof["f2c_s"],
+                "stage1_cpu_s": prof["stage1_s"],
+                "scan_s_per_thread": scan / t,
+                "hits": prof["hits"], "frags": prof["frags"],
+                "clumps": prof["clumps"],
+                "phase1_reads_per_s": pr.n / begin})
+    finally:
+        RECORDER.disable()
     base = rows[0]["phase1_wall_s"] * rows[0]["threads"]
     for r in rows:
         r["speedup_vs_t%d" % rows[0]["threads"]] = (
@@ -131,7 +135,6 @@ def measure(aa, genome, index, pr, threads, iters=3, device="cuda"):
 
 def main(argv=None):
     import argparse
-    os.environ["YT_PROFILE"] = "1"
     from ..config import AlignmentArgs
     from ..io import native_loader
     from ..native import host

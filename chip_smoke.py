@@ -14,8 +14,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and no spill and no stack frame in any instance of the register
      extension kernel, the two anchored register kernels and the two
      anchored wide-route kernels, the windowed walk kernel, the gather
-     kernel, either seed kernel or the chain DP kernel (its seven team
-     shapes);
+     kernel, either seed kernel, the chain DP kernel (its seven team
+     shapes) or the clump kernel;
   2. every kernel against its plain PyTorch version on the card, on
      numpy-seeded inputs: both extension kernels (the register kernel at
      W = 13, 21 and 33 and every block size; the wide kernel at W = 1,
@@ -184,6 +184,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      both builders' seconds, the device passes' seconds (CUDA events) and
      the card's peak allocation.
 
+ 12. the device seeder's clump kernel (csrc/clump_kernels.cu
+     hits_clump_kernel) on one 16,384-read batch of the devidx.1kb_mixed
+     cell (yaha_bench: its 256 Mbp genome and read pool from a seed, the
+     L15 index built on the card): both tiers' rows, as the seeder serves
+     them, equal to the plain version (the native yt_hits_to_clumps a
+     row), the rows served and past the kernel's capacities, the largest
+     multi-fragment regions, the record planes' bytes, and each tier's
+     launch timed beside its bound (the served rows' hits in, 8 bytes a
+     hit, their records out, over 3.35 TB/s) and the plain version's
+     wall; then the staged engine with the device seeder on the same
+     batch, SAM bytes equal to the native engine's, the clump kernel
+     launched once a tier, and in two warm runs phase 1's native
+     thread-seconds by row kind (the host-scan rows past tier 2: scan,
+     sort, fragments-to-clumps; the hit-path rows: their
+     fragments-to-clumps; stage 1) beside the seeder's row counts.
+
 Each phase's seconds are printed.
 
 With --profile DIR, phases 1 and 3's batch only, in the default and the
@@ -243,11 +259,13 @@ KERNELS = {   # launch counter -> (source, the TPU program it replaces)
                  "yaha_tpu/ops/chain_jax.py:38"),
     "merge_sorted_runs": ("yaha_tpu_torch/csrc/seed_kernels.cu",
                           "yaha_tpu/parallel/mesh.py:204"),
+    "hits_clump": ("yaha_tpu_torch/csrc/clump_kernels.cu",
+                   "none (the host's fragments-to-clumps, yt_hits_to_clumps)"),
 }
 # The device seed phase's kernels (--seed device, phase 6); the chain DP,
 # which no engine runs (the JAX package wires it into none), driven by
 # phase 7; the other kernels run on the host-seed path of phases 3-4.
-SEED_KERNELS = ("seed_hashes", "expand_sort_hits")
+SEED_KERNELS = ("seed_hashes", "expand_sort_hits", "hits_clump")
 CHAIN_KERNELS = ("chain_dp",)
 # Phase 9's kernels: the merge of the index shards' hit rows (the sharded
 # seeder's alone, --model-shards) and the block extension (bands past -BW
@@ -259,7 +277,8 @@ DP_KERNELS = [k for k in KERNELS
 NO_SPILL = re.compile(r"ext_reg_kernel|ext_wide_kernel|ext_block_kernel|"
                       r"anch_reg_kernel|anch_wide_kernel|rle_win_kernel|"
                       r"gather_kernel|seed_hash_kernel|expand_sort_kernel|"
-                      r"merge_pass_kernel|chain_dp_kernel")
+                      r"merge_pass_kernel|chain_dp_kernel|"
+                      r"hits_clump_kernel")
 AB = {"device_assembly": False, "rle": False}   # the A/B configuration
 WIDE_BW = 9              # -BW of the wide kernel's path (W = 37), whole batch
 WIDER_BW = 16            # and a wider band (W = 65) on part of the batch
@@ -1580,6 +1599,144 @@ def phase_times(torch, sw, st, st_wide, st_wider, st10, kernels, errs, dev):
            out_bytes + copied + coords.nbytes, out_bytes * GATHER_BYTE_OPS)
 
 
+def phase_clumps(torch, sw, host, StagedAligner, kernels, errs, threads,
+                 dev):
+    """Phase 12: the clump kernel on one 16,384-read batch of the
+    devidx.1kb_mixed cell, both tiers = plain, timed beside the bound;
+    then the staged engine with the device seeder on that batch, and
+    where phase 1's host time goes by row kind.  The kernels line keeps
+    phase 6's launch count (the main path's warm run)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dp_cases import devidx_batch
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.ops import clumps, gather_dp, seeds
+    t0 = time.time()
+    aa, pr, index, genome = devidx_batch(dev)
+    log("phase12 devidx.1kb_mixed batch: %d reads; genome, pool and L15 "
+        "index built in %.1f s" % (pr.n, time.time() - t0))
+    seeder = DeviceSeeder(aa, index, device=dev)
+    offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
+    lens = np.diff(offs)
+    rows2 = gather_dp.chunk_strand_rows(
+        np.ctypeslib.as_array(pr.seqs, shape=(int(offs[-1]),)), offs[:-1],
+        lens, 1024, seeder.tables).to(dev)
+    qlens = torch.from_numpy(np.repeat(lens, 2).astype(np.int32)).to(dev)
+    hashes, clean = seeds.seed_hashes(rows2, qlens, word_len=aa.word_len)
+    sw.reset_launches()
+    out1 = seeder._expand(hashes, clean, seeder.CAP_TIERS[0], qlens)[0]
+    sel = torch.nonzero(out1["overflow"]).flatten()
+    ql2 = qlens.index_select(0, sel)
+    out2 = seeder._expand(hashes.index_select(0, sel),
+                          clean.index_select(0, sel), seeder.CAP_TIERS[1],
+                          ql2)[0]
+    sync(torch, dev)
+    launches = sw.launches()["hits_clump"]
+    if launches != 2:
+        raise AssertionError("phase12: hits_clump launched %d times"
+                             % launches)
+    served = within = 0
+    for tag, out, ql in (("tier1", out1, qlens), ("tier2", out2, ql2)):
+        width = out["rec"].shape[1]
+        serve = ~out["overflow"] & ~out["allwrapped"]
+        n_hits = torch.where(serve, out["total"], -1)
+        t1 = time.time()
+        want_rec, want_meta = clumps.hits_clumps_reference(
+            out["diag"].cpu(), out["qo"].cpu(), n_hits.cpu(), ql.cpu(), aa,
+            width)
+        plain_ms = (time.time() - t1) * 1e3
+        ms = _time_kernel(torch, dev, lambda: clumps.hits_clumps(
+            out["diag"], out["qo"], n_hits, ql, aa, width), [()])
+        meta = out["meta"]
+        keep = (torch.arange(width, device=dev)[None, :] <
+                meta.clamp(min=0)[:, None])
+        got = {"meta": meta.cpu(),
+               "records": torch.masked_select(out["rec"], keep).cpu()}
+        want = {"meta": want_meta, "records": torch.masked_select(
+            want_rec, keep.cpu())}
+        m_np = want_meta.numpy()
+        n_np = n_hits.cpu().numpy()
+        hit_bytes = 8 * int(np.maximum(n_np, 0)[m_np > 0].sum())
+        rec_bytes = 4 * int(np.maximum(m_np, 0).sum())
+        nbytes = hit_bytes + rec_bytes + 12 * len(m_np)
+        _record(torch, kernels if tag == "tier1" else None, errs, "phase12",
+                "hits_clump", tag, ms, plain_ms, got, want, nbytes, 0)
+        # The largest multi-fragment region of each row within the tier.
+        d_np = out["diag"].cpu().numpy().view(np.uint32)
+        q_np = out["qo"].cpu().numpy()
+        big = [int(max((n for n in clumps.regions(
+            d_np[r, :n_np[r]], q_np[r, :n_np[r]], aa.word_len,
+            aa.max_gap)[1] if n > 1), default=0))
+            for r in np.flatnonzero(n_np >= 0)]
+        log("phase12 %s: %d rows, %d within the tier, %d served (%d "
+            "phantom, %d past a capacity); records %d bytes, hits of the "
+            "served rows %d bytes; record plane [%d, %d] int32 = %d bytes; "
+            "largest multi-fragment region a row: median %d, p99 %d, max %d "
+            "(rounds take %d)" % (
+                tag, len(m_np), int((~out["overflow"]).sum()),
+                int((m_np > 0).sum()), int(out["allwrapped"][
+                    ~out["overflow"]].sum()), int((m_np < 0).sum()),
+                rec_bytes, hit_bytes, len(m_np), width, 4 * len(m_np) * width,
+                int(np.median(big)) if big else 0,
+                int(np.percentile(big, 99)) if big else 0,
+                max(big, default=0), clumps.REGION))
+        served += int((m_np > 0).sum())
+        within += int((~out["overflow"]).sum())
+    log("phase12 served %d of %d rows within a tier: %.3f %%" % (
+        served, within, 100.0 * served / max(within, 1)))
+    del out1, out2, hashes, clean, rows2
+    _staged_clumps(torch, sw, host, StagedAligner, seeder, genome, index,
+                   aa, pr, threads, dev)
+
+
+def _staged_clumps(torch, sw, host, StagedAligner, seeder, genome, index,
+                   aa, pr, threads, dev):
+    """Phase 12's engine runs: the devidx batch through the staged engine
+    with the device seeder (seed_clumps, the main path's routing), SAM =
+    native, the clump kernel launched once a tier; in two warm runs under
+    the span recorder, phase 1's native sums (the staged.phase1 span's
+    counts) by row kind beside the seeder's row counts."""
+    from yaha_tpu_torch.utils.timing import RECORDER
+    t0 = time.time()
+    ref = host.align_batch_native(pr, 0, pr.n, genome, index, aa,
+                                  n_threads=threads)[0]
+    log("phase12 native engine on the batch: %.1f s" % (time.time() - t0))
+    st = StagedAligner(aa, genome, index, device=dev, n_threads=threads,
+                       seeder=seeder)
+    _timed(torch, sw, st, pr, ref, dev, "phase12 staged cold run")
+    for rep in range(2):
+        _reset_stats(seeder)
+        RECORDER.enable()
+        try:
+            wall, launches = _timed(torch, sw, st, pr, ref, dev,
+                                    "phase12 staged warm run")
+        finally:
+            RECORDER.disable()
+        s = seeder.stats
+        if (launches["hits_clump"] != s["seed_launches"] or
+                not s["clump_rows"]):
+            raise AssertionError("phase12 staged: hits_clump launched %d "
+                                 "times for %d tiers, %d rows served" % (
+                                     launches["hits_clump"],
+                                     s["seed_launches"], s["clump_rows"]))
+        p1_span = [x for x in RECORDER.spans()
+                   if x[1] == "staged.phase1"][-1]
+        p1 = p1_span[7]
+        log("phase12 staged warm run %d: wall %.4f s, SAM = native; rows: "
+            "%d served by the clump kernel, %d on the hit path (%d phantom, "
+            "%d past a capacity), %d host scan (past tier 2); phase 1 "
+            "thread-s: host-scan rows scan %.4f sort %.4f "
+            "fragments-to-clumps %.4f, hit-path rows fragments-to-clumps "
+            "%.4f, stage 1 %.4f; %d hits on both host paths; phase 1 wall "
+            "%.4f s" % (
+                rep, wall, s["clump_rows"], s["clump_host_rows"],
+                s["phantom_rows"], s["clump_overflow_rows"],
+                s["fallback_rows"], p1["scan_hash_s"] + p1["scan_so_s"] +
+                p1["scan_roa_s"], p1["sort_s"], p1["f2c_s"],
+                p1["hits_f2c_s"], p1["stage1_s"], p1["hits"],
+                (p1_span[6] - p1_span[5]) * 1e-9))
+    del st, seeder
+
+
 def _seed_recorder(torch, DeviceSeeder):
     """A DeviceSeeder that keeps, for phase 6's checks and times, the
     strand rows and lengths of its largest chunk ("rows") and the hashes
@@ -1594,17 +1751,18 @@ def _seed_recorder(torch, DeviceSeeder):
                                         self.kept[key][0].shape[0]):
                 self.kept[key] = arrays
 
-        def seed_chunk(self, pr, lo, hi, rows2=None):
+        def _seed_rows(self, pr, lo, hi, rows2, *rest):
+            # seed_chunk's and seed_clumps' common body.
             if rows2 is not None:
                 offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
                 lens = np.repeat(np.diff(offs[lo:hi + 1]), 2)
                 self._keep("rows", (rows2, torch.from_numpy(lens.astype(
                     np.int32)).to(rows2.device)))
-            return super().seed_chunk(pr, lo, hi, rows2)
+            return super()._seed_rows(pr, lo, hi, rows2, *rest)
 
-        def _expand(self, hashes, clean, capacity):
+        def _expand(self, hashes, clean, capacity, qlens=None):
             self._keep(capacity, (hashes, clean))
-            return super()._expand(hashes, clean, capacity)
+            return super()._expand(hashes, clean, capacity, qlens)
     return SeedRecorder
 
 
@@ -3342,6 +3500,9 @@ def main():
     # The oracle engine and the index builder, which launch no kernel.
     phase_oracle_builder(torch, reads, nib, idx, threads, dev)
     phase_done("phase11 seconds")
+    phase_clumps(torch, sw, host, StagedAligner, kernels, errs, threads,
+                 dev)
+    phase_done("phase12 seconds")
 
     log("total: %.1f s" % (time.time() - t_start))
     log(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))

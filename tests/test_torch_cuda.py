@@ -23,7 +23,8 @@ package); the expansion also on each shard of 2 and 4 of the index
 (parallel/mesh.ShardedIndex), and the merge of the shards' rows
 (merge_sorted_runs) on them and on random sorted runs of 1 to 8 shards up
 to the 1 kb batch's [2, 32,768, 1,024] and [4, 32,768, 1,024].  The
-chain DP kernel is held to its plain
+clump kernel (ops/clumps.py) is held to its plain version on both tiers
+of one devidx.1kb_mixed batch.  The chain DP kernel is held to its plain
 version on the ranges of tests/test_chain_jax.py, on ranges dense in equal scores, on the edge
 ranges, at every team shape (N = 20 to 4,096 nodes) and on ranges whose
 candidate DAG is one path through every node.  The lockstep
@@ -68,7 +69,7 @@ from torch_dp_cases import (ANCH_SWEEP, ANCH_SWEEP_IDS, CHAIN_KW,
                             indel_extension_inputs, indel_reads,
                             long_gap_reads, long_run_inputs,
                             medium_indel_gaps, read_rows, seed_case,
-                            seed_rows)
+                            seed_rows, devidx_batch)
 from yaha_tpu_torch.ops import (chain, decode, gather_dp, seeds, sw_batch,
                                 sw_cuda)
 
@@ -690,8 +691,10 @@ def test_staged_cuda_matches_native(dev, testgen, qfile, over, config):
 ], ids=["C_params", "A_default"])
 def test_staged_cuda_with_seeder_matches_native(dev, testgen, qfile, over):
     """The engine with the device seeder (--seed device) on the card: SAM
-    bytes equal the native engine's; both seed kernels launched; on
-    C_params the phantom, retry and host-scan rows all occur."""
+    bytes equal the native engine's; both seed kernels and the clump
+    kernel launched, the clump kernel once a tier, serving rows; on
+    C_params the phantom, retry and host-scan rows all occur, and the
+    phantom rows take the hit path."""
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.seeder import DeviceSeeder
     from yaha_tpu_torch.models.staged import StagedAligner
@@ -718,10 +721,55 @@ def test_staged_cuda_with_seeder_matches_native(dev, testgen, qfile, over):
     launched = sw_cuda.launches()
     assert launched["seed_hashes"] == 1
     assert launched["expand_sort_hits"] == seeder.stats["seed_launches"]
+    assert launched["hits_clump"] == seeder.stats["seed_launches"]
+    assert seeder.stats["clump_rows"] > 0
     if qfile == "readsC_1kb.fasta":
         s = seeder.stats
         assert s["phantom_rows"] > 0 and s["cap_retries"] > 0
         assert s["fallback_rows"] > 0
+        assert s["clump_host_rows"] >= s["phantom_rows"]
+
+
+def test_clump_kernel_matches_plain_devidx_batch(dev):
+    """hits_clump_kernel = its plain version (the native yt_hits_to_clumps
+    a row) on one 16,384-read batch of the devidx.1kb_mixed cell, both
+    tiers as the seeder serves them: every row's record length and every
+    record, after torch.cuda.synchronize(); nearly every row served."""
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.ops import clumps
+    aa, pr, index, _ = devidx_batch(dev)
+    seeder = DeviceSeeder(aa, index, device=dev)
+    offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
+    lens = np.diff(offs)
+    rows2 = gather_dp.chunk_strand_rows(
+        np.ctypeslib.as_array(pr.seqs, shape=(int(offs[-1]),)), offs[:-1],
+        lens, 1024, seeder.tables).to(dev)
+    qlens = torch.from_numpy(np.repeat(lens, 2).astype(np.int32)).to(dev)
+    hashes, clean = seeds.seed_hashes(rows2, qlens, word_len=aa.word_len)
+    sw_cuda.reset_launches()
+    out1 = seeder._expand(hashes, clean, 1024, qlens)[0]
+    sel = torch.nonzero(out1["overflow"]).flatten()
+    out2 = seeder._expand(hashes.index_select(0, sel),
+                          clean.index_select(0, sel), 8192,
+                          qlens.index_select(0, sel))[0]
+    torch.cuda.synchronize()
+    assert sw_cuda.launches()["hits_clump"] == 2
+    served = within = 0
+    for out, ql in ((out1, qlens), (out2, qlens.index_select(0, sel))):
+        serve = ~out["overflow"] & ~out["allwrapped"]
+        rec, meta = clumps.hits_clumps_reference(
+            out["diag"].cpu(), out["qo"].cpu(),
+            torch.where(serve, out["total"], -1).cpu(), ql.cpu(), aa,
+            out["rec"].shape[1])
+        got_meta = out["meta"].cpu()
+        assert torch.equal(got_meta, meta)
+        got = out["rec"].cpu()
+        for r in torch.nonzero(meta > 0).flatten().tolist():
+            m = int(meta[r])
+            assert torch.equal(got[r, :m], rec[r, :m]), r
+        served += int((meta > 0).sum())
+        within += int((~out["overflow"]).sum())
+    assert served >= 0.99 * within
 
 
 def _chain_args(case):
@@ -847,7 +895,8 @@ def test_sharded_seeder_on_card_matches_native(dev, testgen):
     """DeviceSeeder on (1 x 2) and (2 x 2) grids of the card (readsC at
     -BW 3 -G 20 -M 15 -X 15): seed rows equal the single-device seeder's
     wherever both serve a row, SAM bytes equal the native engine's, both
-    kernels launched."""
+    kernels launched, and the clump kernel once a tier on the merged rows,
+    serving rows."""
     from yaha_tpu_torch import host
     from yaha_tpu_torch.models.seeder import DeviceSeeder
     from yaha_tpu_torch.models.staged import StagedAligner
@@ -880,6 +929,7 @@ def test_sharded_seeder_on_card_matches_native(dev, testgen):
         st = StagedAligner(aa, genome, index, device=dev, n_threads=4,
                            seeder=seeder)
         sw_cuda.reset_launches()
+        tiers = seeder.stats["seed_launches"]
         text, sm, nr = st.align_chunk(pr, 0, pr.n)
         assert text == ref[0]
         assert (sm, nr) == (ref[2], ref[3])
@@ -887,6 +937,9 @@ def test_sharded_seeder_on_card_matches_native(dev, testgen):
         assert launched["seed_hashes"] == 1
         assert launched["expand_sort_hits"] >= 2 * n_data
         assert launched["merge_sorted_runs"] >= n_data
+        assert launched["hits_clump"] == (seeder.stats["seed_launches"] -
+                                          tiers)
+        assert seeder.stats["clump_rows"] > 0
 
 
 @pytest.mark.parametrize("qfile,over", [

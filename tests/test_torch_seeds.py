@@ -30,8 +30,9 @@ import torch
 
 from conftest import DATA, GOLD
 from torch_dp_cases import (HASH_SHAPE_IDS, HASH_SHAPES, SEED_CASES,
-                            SIZE_TOTALS, golden_index, hash_rows, seed_case,
-                            seed_rows, unsigned_case, wrapped_case)
+                            SIZE_TOTALS, golden_index, hash_rows,
+                            parse_clump_record, seed_case, seed_rows,
+                            unsigned_case, wrapped_case)
 from yaha_tpu.ops import seeds_jax
 from yaha_tpu_torch.ops import seeds
 
@@ -378,6 +379,90 @@ def test_cli_seed_device_cpu_matches_golden(scratch, monkeypatch):
                     if not ln.startswith(b"@PG")]
     assert body(os.path.join(scratch, "seed_device.sam")) == body(
         os.path.join(GOLD, "A_default.sam"))
+
+
+@pytest.mark.parametrize("qfile,over", CONFIGS, ids=CONFIG_IDS)
+def test_seed_clumps_routing(scratch, env, qfile, over):
+    """seed_clumps on the CPU (the clump kernel's plain version): a served
+    row's record holds yt_hits_to_clumps' clumps of seed_chunk's hits for
+    that row and the row carries no hits; every other row within a tier
+    (phantom rows, the kernel's overflow) carries seed_chunk's hits; the
+    totals are seed_chunk's; the stats and the seeder.seed span count the
+    rows each way (params1kb: phantom and tier-2 fallback rows occur)."""
+    from yaha_tpu_torch.models.seeder import DeviceSeeder
+    from yaha_tpu_torch.native import host as native
+    from yaha_tpu_torch.utils.timing import RECORDER
+    _, index = env
+    aa, pr = _setup(scratch, index, qfile, over)
+    d0, q0, o0, t0 = DeviceSeeder(aa, index, device="cpu").seed_chunk(
+        pr, 0, pr.n)
+    seeder = DeviceSeeder(aa, index, device="cpu")
+    RECORDER.enable()
+    try:
+        d, q, o, t, recs, rec_offs = seeder.seed_clumps(pr, 0, pr.n)
+    finally:
+        RECORDER.disable()
+    np.testing.assert_array_equal(t, t0)
+    offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
+    qlens = np.repeat(np.diff(offs), 2)
+    served = rec_offs >= 0
+    for r in range(len(t)):
+        if served[r]:
+            assert o[r + 1] == o[r]
+            got = parse_clump_record(recs[rec_offs[r]:])
+            c_offs, sqo, eqo, sro, matched, skipped = native.hits_to_clumps(
+                d0[o0[r]:o0[r + 1]], q0[o0[r]:o0[r + 1]], int(qlens[r]), aa)
+            want = (skipped, [(int(matched[k]), [
+                (int(sqo[i]), int(eqo[i]), int(sro[i]))
+                for i in range(c_offs[k], c_offs[k + 1])])
+                for k in range(len(matched))])
+            assert got == want, r
+        elif t[r] >= 0:
+            np.testing.assert_array_equal(d[o[r]:o[r + 1]],
+                                          d0[o0[r]:o0[r + 1]])
+            np.testing.assert_array_equal(q[o[r]:o[r + 1]],
+                                          q0[o0[r]:o0[r + 1]])
+    s = seeder.stats
+    assert s["clump_rows"] == served.sum() > 0
+    assert s["clump_host_rows"] == ((t >= 0) & ~served).sum()
+    assert s["clump_host_rows"] >= s["phantom_rows"]
+    assert s["clump_rows"] + s["clump_host_rows"] + s["fallback_rows"] == \
+        len(t)
+    (seed,) = [x for x in RECORDER.spans() if x[1] == "seeder.seed"]
+    assert seed[7]["clump_rows"] == s["clump_rows"]
+    assert seed[7]["clump_host_rows"] == s["clump_host_rows"]
+    if qfile == "readsC_1kb.fasta":
+        assert s["phantom_rows"] > 0 and s["fallback_rows"] > 0
+
+
+def test_cli_seed_device_clumps_golden(scratch, monkeypatch, capsys):
+    """The CLI with --seed device on the CPU writes the C_params golden
+    (readsC at -BW 3 -G 20 -M 15 -X 15) with clumps made by the clump
+    kernel's plain version for most rows, while phantom rows and tier-2
+    fallback rows take the host path; -v reports the counts."""
+    from yaha_tpu_torch import cli
+    monkeypatch.chdir(scratch)
+    rc = cli.main(["-x", INDEX, "-q", "readsC_1kb.fasta", "-BW", "3", "-G",
+                   "20", "-M", "15", "-X", "15", "--engine", "batch-cuda",
+                   "--seed", "device", "--device", "cpu", "-v", "-osh",
+                   "seed_clumps.sam"])
+    assert rc == 0
+    err = capsys.readouterr().err
+
+    def body(p):
+        with open(p, "rb") as f:
+            return [ln for ln in f.read().split(b"\n")
+                    if not ln.startswith(b"@PG")]
+    assert body(os.path.join(scratch, "seed_clumps.sam")) == body(
+        os.path.join(GOLD, "C_params.sam"))
+    import re
+    m = re.search(r"(\d+) phantom rows, (\d+) host-scan rows.*clumps made on "
+                  r"the device for (\d+) rows, (\d+) rows' hits to the host",
+                  err, re.S)
+    assert m, err[-2000:]
+    phantom, scan, served, host_rows = (int(x) for x in m.groups())
+    assert served > 0 and phantom > 0 and scan > 0
+    assert host_rows >= phantom
 
 
 def test_device_seeder_cuda_without_card_raises(env):

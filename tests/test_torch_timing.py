@@ -275,7 +275,15 @@ def test_staged_spans_under_prefetch(scratch, rec, qfile, flags, gold,
     assert stats["dispatch_wait_s"] <= stats["device_s"]
     assert stats["begin_s"] == pytest.approx(
         sum(dur(s) for s in by_name(spans, "staged.phase1")), rel=1e-9)
-    assert stats["p1_stage1_s"] > 0 and stats["p1_clumps_s"] > 0
+    assert stats["p1_stage1_s"] > 0
+    if seeded:
+        # Rows whose clumps the device made run no host fragments-to-
+        # clumps: the stage's thread-seconds count the host-path rows.
+        assert seed_stats["clump_rows"] > 0
+        assert (stats["p1_clumps_s"] > 0) == (
+            seed_stats["clump_host_rows"] > 0)
+    else:
+        assert stats["p1_clumps_s"] > 0
     if seeded:
         fetches = by_name(spans, "seeder.fetch")
         splices = by_name(spans, "seeder.splice")
@@ -425,11 +433,10 @@ def test_native_phase1_counters(scratch, threads):
     assert p1["hits"] == hits and p1["scan_so_s"] == on["scan_so"]
 
 
-def test_native_counters_with_the_device_seeder(scratch):
-    """Strands fed by the device seeder count their hit rows and time
-    their coalesce + fragments-to-clumps (hits_f2c); the fragments are
-    the front end's (phantom hits included); no row takes the host scan
-    on readsA."""
+def _seeded_counters(scratch, hit_rows):
+    """Phase 1's counters of readsA with the device seeder (on the CPU),
+    and the seeder; hit_rows sends every row as hits (no clump records),
+    as seed_chunk returns them."""
     from yaha_tpu_torch import host
     from yaha_tpu_torch.io import native_loader
     from yaha_tpu_torch.models.seeder import DeviceSeeder
@@ -446,6 +453,10 @@ def test_native_counters_with_the_device_seeder(scratch):
     pr = host.parse_queries_native(data, False, aa.max_query_length,
                                    aa.word_len)
     seeder = DeviceSeeder(aa, index, device="cpu")
+    if hit_rows:
+        seeder.seed_clumps = lambda pr, lo, hi, rows2=None: tuple(
+            seeder.seed_chunk(pr, lo, hi, rows2)) + (
+                np.zeros(0, np.int32), np.full(2 * (hi - lo), -1, np.int64))
     st = StagedAligner(aa, genome, index, device="cpu", n_threads=2,
                        seeder=seeder, backend="native")
     st.lib = keep = _KeepProf(st.lib)
@@ -455,12 +466,34 @@ def test_native_counters_with_the_device_seeder(scratch):
     finally:
         RECORDER.disable()
     (on,) = keep.kept
-    _, frags, clumps = _front_end_counts(data, aa,
+    return on, seeder, _front_end_counts(data, aa,
                                          os.path.join(scratch, INDEX))
+
+
+def test_native_counters_with_the_device_seeder(scratch):
+    """Strands fed by the device seeder as hit rows count their hit rows
+    and time their coalesce + fragments-to-clumps (hits_f2c); the
+    fragments are the front end's (phantom hits included); no row takes
+    the host scan on readsA."""
+    on, seeder, (_, frags, clumps) = _seeded_counters(scratch, True)
     assert seeder.stats["fallback_rows"] == 0
     assert on["hits_f2c"] > 0 and on["hits"] > 0
     assert on["scan_hash"] == on["scan_so"] == on["scan_roa"] == 0
     assert on["frags"] == frags and on["clumps"] == clumps
+
+
+def test_native_counters_with_device_clumps(scratch):
+    """With the clump kernel (its plain version here) the served strands
+    add their clumps as they stand: the clumps are the front end's, and
+    only the host-path rows (none on readsA) count hits and fragments and
+    time hits_f2c."""
+    on, seeder, (_, _, clumps) = _seeded_counters(scratch, False)
+    s = seeder.stats
+    assert s["fallback_rows"] == 0 and s["clump_rows"] > 0
+    assert on["clumps"] == clumps
+    assert on["scan_hash"] == on["scan_so"] == on["scan_roa"] == 0
+    if s["clump_host_rows"] == 0:
+        assert on["hits_f2c"] == on["hits"] == on["frags"] == 0
 
 
 @pytest.mark.parametrize("threads", ["1", "2"])

@@ -1030,3 +1030,246 @@ GOLDEN_CASES = [
     ("D_fbs_loose.sam", "readsD_sv.fasta", "testgen.X11_01_65525S",
      ["-FBS", "Y", "-PRL", "0.5", "-PSS", "0.5", "-osh"]),
 ]
+
+
+# ---- fragments-to-clumps on hit rows (csrc/clump_kernels.cu) ----
+
+# Fragment-stage parameters (the AlignmentArgs fields the clump stage
+# reads): the query defaults, readsC's -BW 3 -G 20 -M 15, and settings
+# dense in equal scores (no gap costs) and in chops (short min_match and
+# min_non_overlap), one with the --max-region-frags valve.
+CLUMP_PARAMS = {
+    "default": {},
+    "params1kb": dict(band_width=3, max_gap=20, min_match=15),
+    "ties": dict(go_cost=0, ge_cost=0, min_match=15, max_desert=200),
+    "chops": dict(min_match=8, band_width=1, max_gap=8),
+    "valve": dict(max_region_frags=4),
+}
+
+
+def parse_clump_record(rec):
+    """A clump record (ops/clumps.py: int32 array) -> (skipped,
+    [(matched, [(sqo, eqo, sro)])]) with sro as an unsigned value."""
+    nc, _, skipped = (int(x) for x in rec[:3])
+    pos, out = 3, []
+    for _ in range(nc):
+        n, matched = int(rec[pos]), int(rec[pos + 1])
+        f = np.asarray(rec[pos + 2:pos + 2 + 3 * n]).reshape(n, 3).astype(
+            np.int64)
+        f[:, 2] &= 0xFFFFFFFF
+        out.append((matched, [tuple(int(v) for v in x) for x in f]))
+        pos += 2 + 3 * n
+    return skipped, out
+
+
+def _hit_rows(rows, cap=None):
+    """Sorted (diag, qo) rows -> diag uint32 [B, C], qo int32 [B, C] with
+    the seeder's sentinels past each row, and the counts."""
+    n = np.array([len(r[0]) for r in rows], np.int32)
+    c = max(int(n.max(initial=1)), 1) if cap is None else cap
+    diag = np.full((len(rows), c), 0xFFFFFFFF, np.uint32)
+    qo = np.full((len(rows), c), 0x7FFFFFFF, np.int32)
+    for k, (d, q) in enumerate(rows):
+        order = np.lexsort((q, d))
+        diag[k, :len(d)] = np.asarray(d, np.uint32)[order]
+        qo[k, :len(d)] = np.asarray(q, np.int32)[order]
+    return diag, qo, n
+
+
+def _kmer_hashes(codes, wl):
+    n = len(codes) - wl + 1
+    h = np.zeros(max(n, 0), np.int64)
+    for t in range(wl):
+        h = (h << 2) | codes[t:t + n].astype(np.int64)
+    return h
+
+
+def _read_hits(ref, ref_off, read, wl, rng, spurious):
+    """Every (diag, qo) of an exact wl-mer match of `read` in `ref` (at
+    genome offset ref_off), plus `spurious` random hits."""
+    hr, hq = _kmer_hashes(ref, wl), _kmer_hashes(read, wl)
+    order = np.argsort(hr, kind="stable")
+    hs = hr[order]
+    lo = np.searchsorted(hs, hq, "left")
+    hi = np.searchsorted(hs, hq, "right")
+    qo = np.repeat(np.arange(len(hq), dtype=np.int64), hi - lo)
+    ro = order[np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)] +
+                              [np.zeros(0, np.int64)])].astype(np.int64)
+    ro = ro + ref_off
+    sq = rng.integers(0, max(len(hq), 1), spurious)
+    sr = rng.integers(0, 1 << 32, spurious)
+    d = np.concatenate([(ro - qo) & 0xFFFFFFFF, (sr - sq) & 0xFFFFFFFF])
+    q = np.concatenate([qo, sq])
+    keep = np.unique(d * (1 << 32) + q, return_index=True)[1]
+    return d[keep], q[keep]
+
+
+def _mutate(rng, seq, sub, indel):
+    out = []
+    for b in seq:
+        r = rng.random()
+        if r < indel / 2:
+            continue                        # deletion
+        if r < indel:
+            out.append(rng.integers(0, 4))  # insertion
+        out.append(rng.integers(0, 4) if rng.random() < sub else b)
+    return np.asarray(out, np.uint8)
+
+
+def clump_read_rows(seed, wl=15, n=48, length=1000):
+    """Hit rows of 1 kb reads against a random 64 kb reference (at a genome
+    offset near 2^32, so diagonals wrap): substitution reads (5 %), indel
+    reads (5 % and 0.75 % indel events a base), split reads (two pieces
+    1-20 kb apart, either order), reads across copies of a 300-base repeat
+    unit (many regions), each with random spurious hits; and reads whose
+    true diagonal region holds more fragments than the kernel's rounds
+    take (0.5 kb of 2-base repeats).  Returns (diag, qo, n_hits, q_len)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 64000).astype(np.uint8)
+    unit = rng.integers(0, 4, 300).astype(np.uint8)
+    for at in (5000, 21000, 40000, 52000):
+        ref[at:at + 300] = unit
+    ref[60000:60500] = np.tile(np.array([0, 1], np.uint8), 250)
+    off = int(rng.integers((1 << 32) - 200000, (1 << 32) - 64000))
+    rows, qlens = [], []
+    for k in range(n):
+        kind = k % 6
+        p = int(rng.integers(0, 64000 - 2 * length))
+        if kind == 0:
+            read = _mutate(rng, ref[p:p + length], 0.05, 0.0)
+        elif kind in (1, 2):
+            read = _mutate(rng, ref[p:p + length], 0.05, 0.0075)[:length]
+        elif kind == 3:
+            a = int(rng.integers(200, length - 200))
+            p2 = min(p + a + int(rng.integers(1000, 20000)),
+                     64000 - length)
+            parts = [ref[p:p + a], ref[p2:p2 + length - a]]
+            read = _mutate(rng, np.concatenate(parts[::int(rng.choice(
+                [-1, 1]))]), 0.02, 0.0)
+        elif kind == 4:
+            at = int(rng.choice([5000, 21000, 40000, 52000]))
+            s = at - int(rng.integers(0, 700))
+            read = _mutate(rng, ref[s:s + length], 0.01, 0.0)
+        else:
+            s = 60500 - int(rng.integers(300, 500)) if k % 12 == 5 else p
+            read = _mutate(rng, ref[s:s + length], 0.03, 0.0)
+        rows.append(_read_hits(ref, off, read, wl, rng,
+                               int(rng.integers(0, 300))))
+        qlens.append(len(read))
+    diag, qo, nh = _hit_rows(rows)
+    return diag, qo, nh, np.asarray(qlens, np.int32)
+
+
+def clump_dense_rows(seed, n=64, q_len=400, regions=3):
+    """Rows of a few dense regions each: random hits on diagonals a few
+    apart, so regions hold tens of short overlapping fragments (equal
+    scores, chops that persist into later rounds, clean-up erasures);
+    region count and spacing vary, some regions 45-55 diagonals apart."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        d_all, q_all = [], []
+        base = int(rng.integers(0, 1 << 32))
+        for r in range(int(rng.integers(1, regions + 1))):
+            width = int(rng.integers(2, 30))
+            m = int(rng.integers(5, 120))
+            d = base + rng.integers(0, width, m)
+            q = rng.integers(0, q_len - 10, m)
+            # runs of consecutive qo on a diagonal: fragments longer
+            # than one word
+            run = rng.integers(1, 12, m)
+            d = np.repeat(d, run)
+            q = np.repeat(q, run) + np.concatenate([np.arange(x)
+                                                    for x in run])
+            d_all.append(d)
+            q_all.append(np.minimum(q, q_len - 15))   # windows inside
+            base += width + int(rng.choice([45, 50, 51, 55, 3000]))
+        d = np.concatenate(d_all) & 0xFFFFFFFF
+        q = np.concatenate(q_all)
+        keep = np.unique(d * (1 << 32) + q, return_index=True)[1]
+        rows.append((d[keep], q[keep]))
+    diag, qo, nh = _hit_rows(rows)
+    return diag, qo, nh, np.full(n, q_len, np.int32)
+
+
+def clump_edge_rows(max_gap=50, wl=15):
+    """Rows at the stage's edges: no hits, one hit, one fragment of
+    min_match - 1 and of min_match bases (the defaults' 25), two
+    fragments max_gap and max_gap + 1 diagonals apart (one region or
+    two), a qo step of exactly word_len and word_len + 1 on a diagonal
+    (one fragment or two), hits at diagonal 0xFFFFFFFF, and a row served
+    with fewer hits than it holds (n_hits 5 of 9).  q_len 200."""
+    def frag(d, q0, length):
+        return [d] * (length - wl + 1), list(range(q0, q0 + length - wl + 1))
+    rows = [([], [])]
+    rows.append(([1000], [7]))
+    for length in (24, 25):
+        rows.append(frag(5000, 10, length))
+    for gap in (max_gap, max_gap + 1):
+        d1, q1 = frag(9000, 10, 40)
+        d2, q2 = frag(9000 + gap, 80, 40)
+        rows.append((d1 + d2, q1 + q2))
+    for step in (wl, wl + 1):
+        rows.append(([7000] * 4, [10, 11, 11 + step, 12 + step]))
+    d1, q1 = frag(0xFFFFFFFF, 3, 60)
+    rows.append((d1, q1))
+    d1, q1 = frag(300, 0, 23)
+    rows.append((d1, q1))
+    diag, qo, nh = _hit_rows(rows)
+    nh[-1] = 5
+    return diag, qo, nh, np.full(len(rows), 200, np.int32)
+
+
+def clump_wrap_rows(seed=7, q_len=40000, n=4):
+    """Reads of 40 kb (past 32,767: the stored scores wrap to int16 unless
+    max_query_length > 32000) with long fragments on a few diagonals in
+    one region."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        d, q = [], []
+        pos, diag = 0, 100000 + int(rng.integers(0, 1000))
+        while pos < q_len - 2000:
+            length = int(rng.integers(500, 9000))
+            stop = min(pos + length, q_len - 15)
+            q += list(range(pos, stop))
+            d += [diag] * (stop - pos)
+            pos = stop + int(rng.integers(16, 40))
+            diag += int(rng.integers(-3, 4))
+        rows.append((np.asarray(d), np.asarray(q)))
+    diag, qo, nh = _hit_rows(rows)
+    return diag, qo, nh, np.full(n, q_len, np.int32)
+
+
+def devidx_batch(device, seed=3000000017, n_reads=16384):
+    """One batch of the devidx.1kb_mixed cell (yaha_bench): its genome and
+    read pool from `seed`, the first n_reads reads as ParsedReads, the
+    cell's L15 index built on `device` (index/build.py) as a NativeIndex,
+    the genome as a NativeGenome and the cell's AlignmentArgs (query
+    defaults, --seed device).  Returns (aa, pr, index, genome)."""
+    from yaha_bench import harness
+    from yaha_bench.traffic.generator import fasta, make_pool
+    from yaha_bench.traffic.genome import make_genome
+    from yaha_tpu_torch import cli, host
+    from yaha_tpu_torch.index import build as ibuild
+    from yaha_tpu_torch.io.genome import Genome
+    cell = harness.load_cell("devidx.1kb_mixed")
+    config, traffic = cell["config"], cell["traffic"]
+    g = make_genome(dict(config["genome"], bases=config["genome_bases"]),
+                    seed, device)
+    pool = make_pool(traffic, g, seed)
+    ix = config["index"]
+    so, roa, total = ibuild.build_index(
+        Genome(names=g.names, starting_offsets=g.starts, lengths=g.lengths,
+               codes=np.ascontiguousarray(g.codes)),
+        ix["word_len"], ix["skip_dist"], ix["max_hits"], device=device)
+    index = harness.native_index(ix["word_len"], ix["max_hits"], so, roa,
+                                 total)
+    aa, _, _ = cli.parse_args(["-x", "genome.X15_01_65525S", "-q",
+                               "pool.fasta", "--seed", "device", "-osh",
+                               "out.sam"] + list(config["query_flags"]))
+    cli._take_index_params(aa, index)
+    pr = host.parse_queries_native(fasta(pool[:n_reads]), False,
+                                   aa.max_query_length, aa.word_len)
+    codes = np.ascontiguousarray(g.codes)
+    return aa, pr, index, harness.native_genome(g, codes)

@@ -610,7 +610,9 @@ def _report(totals, loop_s, emitted, seed_total, rec_total, dp_stats,
     if seed_stats is not None:
         print("Device seed: %d launches, %.1f MB h2d, %.1f MB d2h, %.1f MB "
               "gathered from index shards, %d retries, %d phantom rows, %d "
-              "host-scan rows, %.2fs; index %.1f MB placed in %.2fs."
+              "host-scan rows, %.2fs; index %.1f MB placed in %.2fs; "
+              "clumps made on the device for %d rows, %d rows' hits to "
+              "the host (%d past the clump kernel's capacity)."
               % (seed_stats["seed_launches"],
                  seed_stats["seed_h2d_bytes"] / 1e6,
                  seed_stats["seed_d2h_bytes"] / 1e6,
@@ -618,7 +620,9 @@ def _report(totals, loop_s, emitted, seed_total, rec_total, dp_stats,
                  seed_stats["cap_retries"], seed_stats["phantom_rows"],
                  seed_stats["fallback_rows"], seed_stats["seed_device_s"],
                  seed_stats["index_upload_bytes"] / 1e6,
-                 seed_stats["index_upload_s"]), file=sys.stderr)
+                 seed_stats["index_upload_s"], seed_stats["clump_rows"],
+                 seed_stats["clump_host_rows"],
+                 seed_stats["clump_overflow_rows"]), file=sys.stderr)
     if dist_acc[0] <= 0:
         return
     q, qlt, qlmin, qlmax = dist_acc[0:4]

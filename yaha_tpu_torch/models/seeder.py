@@ -26,13 +26,24 @@ The reference's behaviour at its edges is kept:
     on the host from just those rows (their codes and wrapped flags are
     the only rows fetched), merged in sorted position.
 
-Hits leave the device as one masked_select per plane of the rows served,
-in row order, plus one small transfer of total / overflow / allwrapped per
-tier.  Spans (utils/timing): seeder.seed, a chunk's seed phase, with a
-seeder.fetch under it for each blocking fetch (the tiers' totals, the hit
-rows, the phantom rows' flags and codes) and a seeder.splice, the hit
-rows' splice after seed_device_s stops; setup.seeder_upload, the
-tables' upload.  The JAX seeder's pow2 batch padding, its pow2-padded ragged fetch
+For the staged engine (seed_clumps) the clump kernel of ops/clumps.py
+turns each tier's rows into their clumps on the device, and those rows
+leave it as clump records in place of hits; yt_batch_begin adds them as
+they stand.  The rows it does not serve keep the hit path: the phantom
+rows (their hits are fetched and injected, and phase 1's
+yt_hits_to_clumps runs on them) and the rows past the kernel's
+capacities (stats clump_rows, clump_host_rows, clump_overflow_rows).
+seed_chunk returns every row as hits, the JAX seeder's contract.
+
+A tier's rows leave the device in two transfers: one small one of total /
+overflow / allwrapped (and the clump records' lengths) per row, then the
+clump records and the host-path rows' hits, masked_select'ed in row order,
+as one flat array.  Spans (utils/timing): seeder.seed, a chunk's seed
+phase (with the clump counts under seed_clumps), with a seeder.fetch under
+it for each blocking fetch (the tiers' sizes, the records and hit rows,
+the phantom rows' flags and codes) and a seeder.splice, the hit rows'
+splice after seed_device_s stops; setup.seeder_upload, the tables'
+upload.  The JAX seeder's pow2 batch padding, its pow2-padded ragged fetch
 with the sort / unsort round trip and its ROA < 2^31 refusal have no
 counterpart here.
 """
@@ -44,7 +55,7 @@ import numpy as np
 import torch
 
 from ..core.frags import phantom_hits
-from ..ops import gather_dp, seeds
+from ..ops import clumps, gather_dp, seeds
 from ..utils.timing import RECORDER, span
 
 M32 = 0xFFFFFFFF
@@ -98,7 +109,9 @@ class DeviceSeeder:
                       "seed_d2h_bytes": 0, "all_gather_bytes": 0,
                       "phantom_rows": 0, "fallback_rows": 0,
                       "seed_device_s": 0.0, "cap_retries": 0,
-                      "index_upload_bytes": 0, "index_upload_s": 0.0}
+                      "index_upload_bytes": 0, "index_upload_s": 0.0,
+                      "clump_rows": 0, "clump_host_rows": 0,
+                      "clump_overflow_rows": 0}
         # seed_chunk may run concurrently under the CLI's depth-2 prefetch:
         # the stats' read-modify-writes take the lock.
         self._stats_lock = threading.Lock()
@@ -144,9 +157,11 @@ class DeviceSeeder:
         self._acc(seed_d2h_bytes=a.nbytes)
         return a
 
-    def _expand(self, hashes, clean, capacity):
-        """One tier: the kernel, then (total, overflow, allwrapped) of its
-        rows in one transfer."""
+    def _expand(self, hashes, clean, capacity, qlens=None):
+        """One tier: the kernel, with qlens (the rows' query lengths on the
+        device) the clump kernel on the rows it serves, then (total,
+        overflow, allwrapped and the clump records' lengths) of its rows in
+        one transfer."""
         self._acc(seed_launches=1)
         kw = dict(max_hits=int(self.aa.max_hits), capacity=capacity)
         if self.sidx is not None:
@@ -159,20 +174,45 @@ class DeviceSeeder:
         else:
             out = seeds.expand_sort_hits(hashes, clean, self.so_dev,
                                          self.roa_dev, **kw)
-        small = self._down(torch.stack([out["total"],
-                                        out["overflow"].to(torch.int32),
-                                        out["allwrapped"].to(torch.int32)]))
-        return out, small[0].astype(np.int64), small[1] != 0, small[2] != 0
+        parts = [out["total"], out["overflow"].to(torch.int32),
+                 out["allwrapped"].to(torch.int32)]
+        if qlens is not None:
+            # Rows with phantom hits keep the hit path (n_hits -1).
+            serve = ~out["overflow"] & ~out["allwrapped"]
+            out["rec"], out["meta"] = clumps.hits_clumps(
+                out["diag"], out["qo"], torch.where(serve, out["total"], -1),
+                qlens, self.aa, capacity)
+            parts.append(out["meta"])
+        small = self._down(torch.stack(parts))
+        meta = small[3] if qlens is not None else None
+        return (out, small[0].astype(np.int64), small[1] != 0, small[2] != 0,
+                meta)
 
-    def _fetch(self, out):
-        """The hits of every row that did not overflow the tier, in row
-        order: one masked_select per plane."""
+    def _fetch(self, out, meta):
+        """The hits of the rows that take the host path (every row that did
+        not overflow the tier, or with clumps only those the clump kernel
+        did not serve), in row order, and the served rows' clump records:
+        one flat transfer.  Returns (records int32, diag uint32, qo
+        int32)."""
         width = out["diag"].shape[1]
-        take = torch.where(out["overflow"], 0, out["total"])
+        hp = ~out["overflow"]
+        if meta is not None:
+            hp &= out["meta"] < clumps.HEAD
+        take = torch.where(hp, out["total"], 0)
         mask = (torch.arange(width, device=self.device)[None, :] <
                 take[:, None])
-        return (self._down(torch.masked_select(out["diag"], mask)).view(
-            np.uint32), self._down(torch.masked_select(out["qo"], mask)))
+        parts = [torch.masked_select(out["diag"], mask),
+                 torch.masked_select(out["qo"], mask)]
+        if meta is not None:
+            rec = out["rec"]
+            keep = (torch.arange(rec.shape[1], device=self.device)[None, :] <
+                    out["meta"].clamp(min=0)[:, None])
+            parts.insert(0, torch.masked_select(rec, keep))
+        flat = self._down(torch.cat(parts))
+        n_rec = int(np.maximum(meta, 0).sum()) if meta is not None else 0
+        n_hit = (len(flat) - n_rec) // 2
+        return (flat[:n_rec], flat[n_rec:n_rec + n_hit].view(np.uint32),
+                flat[n_rec + n_hit:])
 
     def _inject_row(self, codes_row, qlen, wrapped_row, diag, qo):
         """Merge the phantom hits of a row's wrapped windows into its
@@ -212,16 +252,32 @@ class DeviceSeeder:
         span seeder.seed is the whole call, seeder.splice under it."""
         with span("seeder.seed", reads=hi - lo) as sp:
             t0 = sp.start()
-            return self._seed_rows(pr, lo, hi, rows2, sp, t0)
+            return self._seed_rows(pr, lo, hi, rows2, sp, t0, False)[:4]
 
-    def _seed_rows(self, pr, lo, hi, rows2, sp, t0):
+    def seed_clumps(self, pr, lo, hi, rows2=None):
+        """seed_chunk with the clump kernel (ops/clumps.py): the rows it
+        serves come back as their clumps, and only the other rows as hits.
+        Returns (diag, qo, offs, totals, records, rec_offs): the hit rows as
+        seed_chunk's, empty for a served row; records int32, the served
+        rows' clump records back to back; rec_offs int64[2n], a row's
+        record start, -1 for a row that carries hits or takes the host
+        scan.  A row takes the hit path where it has phantom hits or is
+        past the kernel's capacity (stats clump_host_rows, of them
+        clump_overflow_rows); clump_rows counts the rows served.  The
+        seeder.seed span carries the three counts of the call."""
+        with span("seeder.seed", reads=hi - lo) as sp:
+            t0 = sp.start()
+            return self._seed_rows(pr, lo, hi, rows2, sp, t0, True)
+
+    def _seed_rows(self, pr, lo, hi, rows2, sp, t0, want_clumps):
         dev = self.device
         offs = np.ctypeslib.as_array(pr.seq_offs, shape=(pr.n + 1,))
         lens = np.diff(offs[lo:hi + 1])
         rows = 2 * (hi - lo)
         if rows == 0:
             return (np.zeros(0, np.uint32), np.zeros(0, np.int32),
-                    np.zeros(1, np.int64), np.zeros(0, np.int64))
+                    np.zeros(1, np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, np.int32), np.zeros(0, np.int64))
         if rows2 is None:
             seg0, seg1 = int(offs[lo]), int(offs[hi])
             seqs = np.ctypeslib.as_array(pr.seqs, shape=(max(seg1, 1),))
@@ -231,15 +287,22 @@ class DeviceSeeder:
                 seqs[seg0:seg1], offs[lo:hi] - seg0, lens, lpad, self.tables)
         rows2 = rows2.to(dev)
         lengths = np.repeat(lens, 2).astype(np.int32)
-        hashes, clean = seeds.seed_hashes(rows2, self._up(lengths),
+        len_dev = self._up(lengths)
+        hashes, clean = seeds.seed_hashes(rows2, len_dev,
                                           word_len=self.word_len)
-        out1, tot1, over1, allw1 = self._expand(hashes, clean,
-                                                self.CAP_TIERS[0])
-        take = np.where(over1, 0, tot1)
-        d1, q1 = self._fetch(out1)
+        qlens = len_dev if want_clumps else None
+        out1, tot1, over1, allw1, meta1 = self._expand(
+            hashes, clean, self.CAP_TIERS[0], qlens)
+        rec1, d1, q1 = self._fetch(out1, meta1)
+        served1, host1 = self._routes(over1, allw1, meta1)
+        take = np.where(host1, tot1, 0)
         offs1 = np.zeros(rows + 1, np.int64)
         np.cumsum(take, out=offs1[1:])
         totals = tot1.copy()
+        rec_offs = np.full(rows, -1, np.int64)
+        recs = [rec1]
+        if want_clumps:
+            rec_offs[served1] = _starts(meta1[served1])
         # The rows whose hits are not tier 1's as fetched: row -> (diag, qo).
         own = {}
         # Rows with a wrapped window, by tier: (tier output, its rows there,
@@ -252,16 +315,24 @@ class DeviceSeeder:
             # big tier; the rows that overflow it take the host scan.
             self._acc(cap_retries=1)
             sel = self._up(over_rows)
-            out2, tot2, over2, allw2 = self._expand(
+            out2, tot2, over2, allw2, meta2 = self._expand(
                 hashes.index_select(0, sel), clean.index_select(0, sel),
-                self.CAP_TIERS[1])
-            take2 = np.where(over2, 0, tot2)
-            d2, q2 = self._fetch(out2)
+                self.CAP_TIERS[1], qlens.index_select(0, sel)
+                if want_clumps else None)
+            rec2, d2, q2 = self._fetch(out2, meta2)
+            served2, host2 = self._routes(over2, allw2, meta2)
+            take2 = np.where(host2, tot2, 0)
             offs2 = np.zeros(len(over_rows) + 1, np.int64)
             np.cumsum(take2, out=offs2[1:])
             for k, r in enumerate(over_rows):
-                own[r] = (d2[offs2[k]:offs2[k + 1]], q2[offs2[k]:offs2[k + 1]])
+                if not served2[k]:
+                    own[r] = (d2[offs2[k]:offs2[k + 1]],
+                              q2[offs2[k]:offs2[k + 1]])
             totals[over_rows] = np.where(over2, -1, tot2)
+            if want_clumps:
+                rec_offs[over_rows[served2]] = len(rec1) + _starts(
+                    meta2[served2])
+            recs.append(rec2)
             self._acc(fallback_rows=int(over2.sum()))
             ph2 = np.flatnonzero(allw2 & ~over2)
             if len(ph2):
@@ -275,9 +346,19 @@ class DeviceSeeder:
                 d, q = own[r] if r in own else (d1[offs1[r]:offs1[r + 1]],
                                                 q1[offs1[r]:offs1[r + 1]])
                 own[r] = self._inject_row(c, int(lengths[r]), f, d, q)
+        records = np.concatenate(recs)
+        if want_clumps:
+            n_served = int((rec_offs >= 0).sum())
+            n_host = int((totals >= 0).sum()) - n_served
+            n_over = int((meta1 < 0).sum()) + (
+                int((meta2 < 0).sum()) if len(over_rows) else 0)
+            self._acc(clump_rows=n_served, clump_host_rows=n_host,
+                      clump_overflow_rows=n_over)
+            sp.add(clump_rows=n_served, clump_host_rows=n_host,
+                   clump_overflow_rows=n_over)
         if not own:
             self._acc(seed_device_s=sp.lap(t0))
-            return d1, q1, offs1, totals
+            return d1, q1, offs1, totals, records, rec_offs
         # Splice the rows of `own` between the spans of tier-1 rows.
         row_len = take.copy()
         parts_d, parts_q = [], []
@@ -296,4 +377,21 @@ class DeviceSeeder:
         with span("seeder.splice") as sq:
             d, q = np.concatenate(parts_d), np.concatenate(parts_q)
             sq.add(bytes=d.nbytes + q.nbytes)
-        return d, q, offs, totals
+        return d, q, offs, totals, records, rec_offs
+
+    @staticmethod
+    def _routes(over, allw, meta):
+        """(served, host) masks of a tier's rows: the clump kernel's rows,
+        and the rows whose hits go to the host (every row within the tier
+        without clumps)."""
+        if meta is None:
+            return np.zeros(len(over), bool), ~over
+        served = meta >= clumps.HEAD
+        return served, ~over & ~served
+
+
+def _starts(lengths):
+    """Exclusive prefix sums: each record's start."""
+    out = np.zeros(len(lengths), np.int64)
+    np.cumsum(lengths[:-1], out=out[1:])
+    return out

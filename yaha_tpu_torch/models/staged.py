@@ -49,9 +49,10 @@ The DP backend (JAX staged.py's `backend`):
 
 With a seeder (models/seeder.DeviceSeeder, --seed device) the seed scan
 runs on the device too: the chunk's strand rows are hashed and expanded
-against the index resident there, and phase 1 takes the sorted hit rows in
-place of its host scan (a row the seeder sends back with total -1 still
-takes the host scan).
+against the index resident there, the clump kernel turns most rows' hits
+into their clumps there (ops/clumps.py), and phase 1 takes those clumps,
+and the sorted hit rows of the rest, in place of its host scan (a row the
+seeder sends back with total -1 still takes the host scan).
 
 Small problems (<= 24 rows) run inline on the native small-DP fast paths
 during the host phases by default (YT_STAGED_INLINE=0 sends every problem
@@ -663,10 +664,12 @@ class StagedAligner:
                 self._dispatched(sp.stop(t0))
         seeds = None
         if self.seeder is not None:
-            # Device seed phase: sorted hit rows per (read, strand); rows
-            # with total -1 take the host scan inside phase 1.  Its wall is
-            # the seeder's seed_device_s, not part of begin_s.
-            seeds = self.seeder.seed_chunk(pr, lo, hi, rows2)
+            # Device seed phase: per (read, strand) its clumps, made on the
+            # device, or its sorted hit rows (phantom rows and the clump
+            # kernel's overflow); rows with total -1 take the host scan
+            # inside phase 1.  Its wall is the seeder's seed_device_s, not
+            # part of begin_s.
+            seeds = self.seeder.seed_clumps(pr, lo, hi, rows2)
         prof = RECORDER.recording()
         with span("staged.phase1", reads=hi - lo) as sp:
             t0 = sp.start()
@@ -682,8 +685,9 @@ class StagedAligner:
                 ct.cast(ip, _i64p), ct.cast(fp, ct.POINTER(ct.c_double)),
                 1 if self.inline_small else 0,
                 *((seeds[0].ctypes.data_as(_u32p), _p32(seeds[1]),
-                   _p64(seeds[2]), _p64(seeds[3])) if seeds
-                  else (None,) * 4), 1 if prof else 0)
+                   _p64(seeds[2]), _p64(seeds[3]), _p32(seeds[4]),
+                   _p64(seeds[5])) if seeds else (None,) * 6),
+                1 if prof else 0)
             begin_s = sp.stop(t0)
             if ctx and prof:
                 p1 = host.profile_counters(ctx)

@@ -116,7 +116,7 @@ def _declare(lib):
         _u8p, ct.c_int64, ct.c_int64, _i64p, _i64p, ct.c_int64,
         _u8p, _i64p, _u32p, _u32p, ct.c_int64,
         _i64p, ct.POINTER(ct.c_double), ct.c_int64,
-        _u32p, _i32p, _i64p, _i64p, ct.c_int64]
+        _u32p, _i32p, _i64p, _i64p, _i32p, _i64p, ct.c_int64]
     lib.yt_batch_prof.restype = ct.c_int64
     lib.yt_batch_prof.argtypes = [ct.c_void_p, ct.POINTER(ct.c_double),
                                   _i64p]
@@ -172,6 +172,11 @@ def _declare(lib):
         ct.c_int64] + [ct.c_int64] * 8 + [_i64p] * 5 + \
         [ct.c_int64] * 2 + [_i64p]
     lib.yt_seed_to_clumps.restype = ct.c_int64
+    lib.yt_hits_to_clumps.argtypes = [_u32p, _i32p] + [ct.c_int64] * 11 + \
+        [_i64p] * 5 + [ct.c_int64] * 2
+    lib.yt_hits_to_clumps.restype = ct.c_int64
+    lib.yt_set_wide_scores.argtypes = [ct.c_int64]
+    lib.yt_set_wide_scores.restype = None
 
 
 def _load():
@@ -527,3 +532,38 @@ def seed_to_clumps(codes, index, aa, *, cap_frags=65536, cap_clumps=8192):
     used = int(clump_offs[nc])
     return (clump_offs[:nc + 1], out_sqo[:used], out_eqo[:used],
             out_sro[:used], matched[:nc], int(total.value))
+
+
+def hits_to_clumps(diag, qo, q_len, aa):
+    """The device-fed front end for one strand (yt_hits_to_clumps): hits
+    sorted by (diag uint32, qo) -> (clump_offs, out_sqo, out_eqo, out_sro,
+    matched, skipped), clumps in emission order, with --max-region-frags
+    and the score mode of max_query_length as the staged workers set them;
+    skipped counts the regions that valve skipped."""
+    lib = _load()
+    diag = np.ascontiguousarray(diag, np.uint32)
+    qo = np.ascontiguousarray(qo, np.int32)
+    _set_region_cap(lib, aa)
+    lib.yt_set_wide_scores(1 if aa.max_query_length > 32000 else 0)
+    lib.yt_take_skipped_regions()
+    cap_frags, cap_clumps = 4 * len(qo) + 64, len(qo) + 64
+    p = _i64_ptr
+    while True:
+        out = [np.empty(cap_frags, np.int64) for _ in range(3)]
+        clump_offs = np.empty(cap_clumps + 1, np.int64)
+        matched = np.empty(cap_clumps, np.int64)
+        nc = lib.yt_hits_to_clumps(
+            diag.ctypes.data_as(_u32p), qo.ctypes.data_as(_i32p), len(qo),
+            q_len, aa.word_len, aa.max_gap, aa.max_desert, aa.min_match,
+            aa.min_non_overlap, aa.m_score, aa.go_cost, aa.ge_cost,
+            aa.band_width, *(p(a) for a in out), p(clump_offs), p(matched),
+            cap_frags, cap_clumps)
+        if nc >= 0:
+            break
+        lib.yt_take_skipped_regions()
+        cap_frags *= 4
+        cap_clumps *= 4
+    lib.yt_set_wide_scores(0)
+    used = int(clump_offs[nc])
+    return (clump_offs[:nc + 1], out[0][:used], out[1][:used],
+            out[2][:used], matched[:nc], int(lib.yt_take_skipped_regions()))

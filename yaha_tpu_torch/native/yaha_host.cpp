@@ -51,6 +51,9 @@ thread_local int64_t yt_wide_scores = 0;
 thread_local int64_t yt_max_region_frags = 0;
 thread_local int64_t yt_skipped_regions = 0;
 void yt_set_max_region_frags(int64_t v) { yt_max_region_frags = v; }
+// The calling thread's score mode (the staged workers set it from
+// max_query_length; a caller of the front-end entries sets it here).
+void yt_set_wide_scores(int64_t v) { yt_wide_scores = v; }
 int64_t yt_take_skipped_regions() {
     int64_t v = yt_skipped_regions;
     yt_skipped_regions = 0;

@@ -2208,6 +2208,37 @@ static int64_t process_strand_hits(State& st, bool rev,
     }
 }
 
+// A strand whose clumps the card made (the seeder's clump kernel,
+// csrc/clump_kernels.cu): its record -- clumps, fragments, skipped
+// regions, then per clump its fragment count, matched bases and (sqo,
+// eqo, sro) a fragment -- enters by process_strand_hits' tail, as
+// yt_hits_to_clumps would have returned it.  `total_hits` is the
+// device-counted seed-match total.
+static int64_t add_device_clumps(State& st, bool rev, const int32_t* rec,
+                                 int64_t total_hits) {
+    const int64_t n_clumps = rec[0];
+    yt_skipped_regions += rec[2];
+    if (g_prof) g_prof->clumps += n_clumps;
+    int64_t pos = 3;
+    for (int64_t k = 0; k < n_clumps; k++) {
+        const int64_t n = rec[pos];
+        Clump* clump = st.new_clump();
+        for (int64_t i = 0; i < n; i++) {
+            const int32_t* f3 = rec + pos + 2 + 3 * i;
+            clump->sfrags.emplace_back();
+            Frag& f = clump->sfrags.back().frag;
+            f.sqo = f3[0];
+            f.eqo = f3[1];
+            f.sro = (int64_t)(uint32_t)f3[2];
+            f.ref_len = f.eqo - f.sqo + 1;
+        }
+        clump->matched_bases = rec[pos + 1];
+        st.add_clump(clump, rev);
+        pos += 2 + 3 * n;
+    }
+    return total_hits;
+}
+
 // Returns (seed_matches, alignments_printed) for the QUERYSTATS analog
 // (Query.c:480-491; core/pipeline.align_query stats fields).
 static std::pair<int64_t, int64_t> align_read(State& st, std::string& out,
@@ -2359,6 +2390,12 @@ struct BatchCtx {
     const int32_t* hits_qo = nullptr;
     const int64_t* hit_offs = nullptr;
     const int64_t* hit_totals = nullptr;
+    // Optional clumps made on the card for device-seeded rows: row r's
+    // record starts at dev_clumps[dev_offs[r]] (add_device_clumps), or
+    // dev_offs[r] = -1 where the row carries hits instead (its hit range
+    // then holds them).  NULL = every device-seeded row carries hits.
+    const int32_t* dev_clumps = nullptr;
+    const int64_t* dev_offs = nullptr;
     std::vector<ReadSlot> slots;
     std::vector<StagedProb*> gap_ptr, ext_ptr;   // global problem order
     int64_t rec_sum = 0;
@@ -2574,7 +2611,12 @@ static void staged_phase1(BatchCtx& c, int64_t i) {
     int64_t counts[2];
     for (int s = 0; s < 2; s++) {
         int64_t row = 2 * i + s;
-        if (c.hit_offs != nullptr && c.hit_totals[row] >= 0) {
+        if (c.dev_offs != nullptr && c.hit_totals[row] >= 0 &&
+            c.dev_offs[row] >= 0) {
+            counts[s] = add_device_clumps(st, s != 0,
+                                          c.dev_clumps + c.dev_offs[row],
+                                          c.hit_totals[row]);
+        } else if (c.hit_offs != nullptr && c.hit_totals[row] >= 0) {
             counts[s] = process_strand_hits(
                 st, s != 0, c.hits_diag + c.hit_offs[row],
                 c.hits_qo + c.hit_offs[row],
@@ -3208,6 +3250,7 @@ void* yt_batch_begin(
     int64_t inline_small,
     const uint32_t* hits_diag, const int32_t* hits_qo,
     const int64_t* hit_offs, const int64_t* hit_totals,
+    const int32_t* dev_clumps, const int64_t* dev_offs,
     int64_t profile) {
     using namespace yp;
     init_tables();
@@ -3242,6 +3285,8 @@ void* yt_batch_begin(
     c->hits_qo = hits_qo;
     c->hit_offs = hit_offs;
     c->hit_totals = hit_totals;
+    c->dev_clumps = dev_clumps;
+    c->dev_offs = dev_offs;
     c->slots.resize((size_t)n_reads);
     if (profile) c->profs.resize((size_t)c->n_threads);
     staged_run(*c, n_reads, [c](int64_t i) {

@@ -163,4 +163,7 @@ def load():
     lib.yt_chain_dp_cuda.restype = ct.c_int
     lib.yt_chain_dp_cuda.argtypes = [_vp] * 5 + [_i64] * 2 + [_i32] * 5 + \
         [_vp] * 5
+    lib.yt_hits_clump.restype = ct.c_int
+    lib.yt_hits_clump.argtypes = ([_vp, _vp, _i64, _i64, _vp, _vp] +
+                                  [_i64] * 10 + [_i32, _vp, _i64, _vp, _vp])
     return lib

@@ -60,8 +60,8 @@ from .dp_common import (BT_CD, BT_CF, DP_WORST, OP_DELETE, OP_INSERT,
 I32 = torch.int32
 
 # Kernel launches per wrapper since the last reset_launches(), for the
-# kernels of this module and of gather_dp, decode, seeds and chain: a run
-# can show which kernels its main path went through.  The extension has
+# kernels of this module and of gather_dp, decode, seeds, chain and
+# clumps: a run can show which kernels its main path went through.  The extension has
 # three kernels, counted apart: "extension_forward" (band state in
 # registers, csrc/ext_kernels.cu), "extension_forward_wide" (a warp a
 # problem, csrc/ext_wide_kernels.cu ext_wide_kernel) and
@@ -70,7 +70,8 @@ _launches = {"extension_forward": 0, "extension_forward_wide": 0,
              "extension_forward_block": 0,
              "anchored_forward_banded": 0, "anchored_forward": 0,
              "gather_problems": 0, "rle_walk": 0, "seed_hashes": 0,
-             "expand_sort_hits": 0, "merge_sorted_runs": 0, "chain_dp": 0}
+             "expand_sort_hits": 0, "merge_sorted_runs": 0, "chain_dp": 0,
+             "hits_clump": 0}
 
 # Band widths W = 4*band_width + 1 the register kernel is instantiated for
 # (-BW 1 to 8), and the block sizes it takes.

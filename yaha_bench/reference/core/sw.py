@@ -5,7 +5,9 @@ findAffineGapScore (SW.cpp:798-1208) and its wrappers — anchored
 full/banded alignment for seed-gap fill and X-dropoff extensions —
 including the indel tie rules (extensions prefer indels: `>=` at
 SW.cpp:1036,1054), the maxIntron/maxGap indel run caps, the columnar band
-layout, and the run-length backtrack.
+layout, and the run-length backtrack.  The core keeps its rows and cells
+in Python lists of exact ints; test_bench_reference.py holds the same loop
+over numpy arrays and compares the two.
 """
 from __future__ import annotations
 
@@ -53,56 +55,51 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
         maxi, maxj = arr_height - 1, arr_width - 1
 
     # Backtrack arrays (+1 col of headroom like the reference's arrWidth+2
-    # overflow slots; we size exactly and guard instead).
-    eo = np.full((arr_height, arr_width), _UNKNOWN, dtype=object)
-    idc = np.zeros((arr_height, arr_width), dtype=np.int64)
+    # overflow slots; we size exactly and guard instead): a row of Python
+    # lists is made when the DP first writes it, since an X-drop extension
+    # stops long before its arr_height (the remaining query) rows; a row
+    # never written reads _UNKNOWN / 0.  Plain lists and ints, not numpy
+    # scalars: the same exact integers, read and written per cell.
+    eo = [None] * arr_height
+    idc = [None] * arr_height
 
-    # PVRow has a [-1] hack slot in the reference (DPInit, SW.cpp:385-388).
-    pv = np.full(arr_width + 2, DP_WORST, dtype=np.int64)   # index shift +1
-    pf = np.full(arr_width + 2, DP_WORST, dtype=np.int64)
-    pi = np.zeros(arr_width + 2, dtype=np.int64)
+    def row(i):
+        if eo[i] is None:
+            eo[i] = [_UNKNOWN] * arr_width
+            idc[i] = [0] * arr_width
+        return eo[i], idc[i]
 
-    def PV(i):
-        return pv[i + 1]
+    # PVRow has a [-1] hack slot in the reference (DPInit, SW.cpp:385-388):
+    # pv[k + 1] is PV(k), and so for pf and pi.
+    pv = [DP_WORST] * (arr_width + 2)
+    pf = [DP_WORST] * (arr_width + 2)
+    pi = [0] * (arr_width + 2)
+    r = np.asarray(r).tolist()
 
-    def PVset(i, v):
-        pv[i + 1] = v
-
-    def PF(i):
-        return pf[i + 1]
-
-    def PFset(i, v):
-        pf[i + 1] = v
-
-    def PI(i):
-        return pi[i + 1]
-
-    def PIset(i, v):
-        pi[i + 1] = v
-
+    eo0, idc0 = row(0)
     if banded:
         start_init = left_bw + 1
-        eo[0][left_bw] = _UNKNOWN
-        idc[0][left_bw] = 0
-        PFset(arr_width, DP_WORST)
-        PVset(arr_width, DP_WORST)
-        PIset(arr_width, 0)
+        eo0[left_bw] = _UNKNOWN
+        idc0[left_bw] = 0
+        pf[arr_width + 1] = DP_WORST
+        pv[arr_width + 1] = DP_WORST
+        pi[arr_width + 1] = 0
     else:
         start_init = 1
-        eo[0][0] = _UNKNOWN
-        idc[0][0] = 0
+        eo0[0] = _UNKNOWN
+        idc0[0] = 0
     end_init = arr_width
     delete_count = 1
     for j in range(start_init, end_init):
-        eo[0][j] = DELETE
-        idc[0][j] = delete_count
-        PVset(j, -(go + delete_count * ge))
+        eo0[j] = DELETE
+        idc0[j] = delete_count
+        pv[j + 1] = -(go + delete_count * ge)
         delete_count += 1
-        PFset(j, DP_WORST)
-        PIset(j, 0)
-    PFset(start_init - 1, 0)
-    PIset(start_init - 1, 0)
-    PVset(start_init - 1, 0)
+        pf[j + 1] = DP_WORST
+        pi[j + 1] = 0
+    pf[start_init] = 0
+    pi[start_init] = 0
+    pv[start_init] = 0
 
     # The reference initializes leftBW rows here even when qLen < leftBW
     # (its arrays are maxQueryLength tall, SW.cpp:925-933); rows beyond
@@ -110,8 +107,9 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
     end_init = min(left_bw if banded else arr_height - 1, arr_height - 1)
     for i in range(1, end_init + 1):
         loffset = (left_bw - i) if banded else 0
-        eo[i][loffset] = INSERT
-        idc[i][loffset] = i
+        eo_i, idc_i = row(i)
+        eo_i[loffset] = INSERT
+        idc_i[loffset] = i
 
     max_score = DP_WORST
     cutoff = aa.x_cutoff
@@ -130,22 +128,21 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
                 pv_col = DP_WORST
             else:
                 pv_col = -(go + i * ge)
-                PVset(start_col - 1, pv_col)
+                pv[start_col] = pv_col
             end_col = min(left_bw + r_len - i, arr_width - 1)
         else:
             pv_col = -(go + i * ge)
 
         row_max = DP_WORST
-        q_char = q[1 - i] if reverse else q[i - 1]
+        q_char = int(q[1 - i] if reverse else q[i - 1])
         r_row_start = i - left_bw - 1 if banded else 0
 
-        eo_row = eo[i]
-        idc_row = idc[i]
+        eo_row, idc_row = row(i)
         for j in range(start_col, end_col + 1):
             rm_off = j if banded else j - 1
             i_off = rm_off + 1
 
-            V = PV(rm_off)
+            V = pv[rm_off + 1]
             r_char = r[r_row_start + j] if banded else r[j - 1]
             if q_char == r_char:
                 V += ms
@@ -169,11 +166,11 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
                 idc_row[j] = pd_col
 
             # Insert (gap in reference, consumes query).
-            cf = PF(i_off) - ge
-            nf = PV(i_off) - (go + ge)
-            if cf >= nf and (PI(i_off) + 1) <= max_gap:
+            cf = pf[i_off + 1] - ge
+            nf = pv[i_off + 1] - (go + ge)
+            if cf >= nf and (pi[i_off + 1] + 1) <= max_gap:
                 F = cf
-                I = PI(i_off) + 1
+                I = pi[i_off + 1] + 1
             else:
                 F = nf
                 I = 1
@@ -181,8 +178,8 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
                 V = F
                 opcode = INSERT
                 idc_row[j] = I
-            PFset(j, F)
-            PIset(j, I)
+            pf[j + 1] = F
+            pi[j + 1] = I
 
             eo_row[j] = opcode
             if xcutoff and V > row_max:
@@ -191,15 +188,15 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
                 max_score = V
                 maxi, maxj = i, j
             if banded:
-                PVset(j, V)
+                pv[j + 1] = V
             else:
-                PVset(j - 1, pv_col)
+                pv[j] = pv_col
             pv_col = V
 
         if xcutoff and extension and row_max < (max_score - cutoff):
             break
         if not banded:
-            PVset(end_col, V)
+            pv[end_col + 1] = V
 
     retval = max_score if extension else V
     if extension and retval <= 0:
@@ -207,14 +204,14 @@ def _find_affine_gap_score(aa, q, r, banded, extension, reverse, xcutoff,
 
     # Backtrack (SW.cpp:1137-1195).
     x, y = maxj, maxi
-    prev_code = eo[y][x]
+    prev_code = _UNKNOWN if eo[y] is None else eo[y][x]
     op_len = 0
     items = []  # built via front-insert (forward) or append (reverse)
     while True:
-        code = eo[y][x]
+        code = _UNKNOWN if eo[y] is None else eo[y][x]
         if code == _UNKNOWN:
             break
-        eolen = int(idc[y][x])
+        eolen = idc[y][x]
         if banded:
             if code == DELETE:
                 x -= eolen

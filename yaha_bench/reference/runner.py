@@ -1,13 +1,27 @@
 """Align reads with the reference: the frozen pure-Python oracle, read by
-read, over the reference's own index.
+read, over the reference's own index, the reads shared out among worker
+processes.
 
 `alignment_args` reads a configuration's query flags with the CLI's flag
 table (a frozen copy of the parts of the port's cli.py that query flags
 use) and applies the index's word length and maxHits as a query run does.
 `align` returns each read's output text, the SAM records yaha 0.1.83
 writes for it (none for a read that does not align).
+
+A read's records depend on that read alone (QueryState is reset for each
+read and its RNG seeded from the read's codes), so the reads are aligned
+one a task by up to MAX_WORKERS processes and merged in file order, byte
+for byte what one loop over them gives.  The workers are forked: the
+caller may hold a CUDA context, which they never touch (they run the
+reference's numpy code alone), and the genome, the index and the parsed
+reads reach them copy-on-write rather than pickled.  Where fork is not
+available, or one CPU is, the reads are aligned in the caller.
 """
 from __future__ import annotations
+
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -59,9 +73,44 @@ def genome(names, starts, lengths, codes) -> Genome:
                   lengths=np.asarray(lengths, np.int64), codes=codes)
 
 
+MAX_WORKERS = 8
+# A worker's QueryState and parsed reads, set by _start in the forked
+# worker alone.
+_WORKER = {}
+
+
+def workers() -> int:
+    """Processes `align` uses: one a CPU this process may run on, up to
+    MAX_WORKERS; 1 where fork is not available."""
+    if "fork" not in multiprocessing.get_all_start_methods():
+        return 1
+    return min(MAX_WORKERS, len(os.sched_getaffinity(0)))
+
+
+def _start(qs, recs):
+    _WORKER["qs"], _WORKER["recs"] = qs, recs
+
+
+def _align_one(k: int) -> str:
+    return align_query(_WORKER["qs"], _WORKER["recs"][k])
+
+
 def align(aa, ref_genome: Genome, index, fasta_bytes: bytes) -> dict:
-    """{read name: its output text} for every read of `fasta_bytes`."""
+    """{read name: its output text} for every read of `fasta_bytes`.  A
+    worker's exception, or a worker that dies, raises here."""
     qs = QueryState(aa, ref_genome, index)
     aa.fastq = False
-    return {rec.query_id: align_query(qs, rec)
-            for rec in fasta.read_queries(fasta_bytes, aa)}
+    recs = list(fasta.read_queries(fasta_bytes, aa))
+    n = min(workers(), len(recs))
+    if n <= 1:
+        texts = [align_query(qs, rec) for rec in recs]
+    else:
+        # fork passes the initializer's arguments by memory, unpickled
+        pool = ProcessPoolExecutor(
+            n, mp_context=multiprocessing.get_context("fork"),
+            initializer=_start, initargs=(qs, recs))
+        try:
+            texts = list(pool.map(_align_one, range(len(recs))))
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+    return {rec.query_id: text for rec, text in zip(recs, texts)}

@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """The program's own spans in the traced window: the stall, and the
 card's idle time by the spans open across it.
 
@@ -9,19 +8,15 @@ id, start ns, end ns, counts) on perf_counter_ns, the harness's own clock.
 A program without the recorder leaves none, and every function here that
 reads them gives None.
 
-    python3 yaha_bench/spans.py --workload <cell> --seed <n> --seconds <s>
-
-is run.py's traced run (same arguments, the same result line) that also
-prints, on standard error, the idle-by-span table: for each stretch of
-the window in which the card ran nothing, the innermost program span open
-on each thread, summed by combination, the top 10 by seconds, and the
-share of the idle seconds that some program span covers and the share
-under a worker's phase span (a span below `align`).  main() is a stopgap
-beside run.py for as long as the harness does not print the table itself.
+The harness's traced run prints, on standard error, the idle-by-span
+table: for each stretch of the window in which the card ran nothing, the
+innermost program span open on each thread, summed by combination, the
+top 10 by seconds, and the share of the idle seconds that some program
+span covers and the share under a worker's phase span (a span below
+`align`).
 """
 from __future__ import annotations
 
-import os
 import re
 import sys
 
@@ -192,30 +187,3 @@ def print_table(table, out=sys.stderr):
                              table["phase_pct"]), file=out)
     for combo, secs in table["rows"]:
         print("  %10.3f s  %s" % (secs, combo), file=out)
-
-
-def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    from yaha_bench import run, trace
-    summarize = trace.summarize
-
-    def summarize_and_table(path, align_spans, pass_spans, t_window0):
-        out = summarize(path, align_spans, pass_spans, t_window0)
-        spans = program_spans()
-        if spans is None:
-            print("idle by span: the program recorded no spans",
-                  file=sys.stderr)
-        else:
-            print_table(idle_table(path, spans, thread_names(), t_window0))
-        return out
-    trace.summarize = summarize_and_table
-    if "--trace" in argv:
-        k = argv.index("--trace")
-        del argv[k:k + 2]
-    return run.main(argv + ["--trace", "1"])
-
-
-if __name__ == "__main__":
-    sys.exit(main())

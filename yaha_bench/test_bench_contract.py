@@ -129,7 +129,11 @@ def test_load_cell_finds_every_part(bench):
         assert cell["config"]["name"] == w["config"]
         assert cell["traffic"]["pool_reads"] > 0
         names = {m["name"] for m in cell["per_layer"]}
-        assert "device.idle_pct" in names
+        assert names & {"device.idle_pct", "device.idle_pct.devidx"}
+        ends = {m["name"] for m in cell["end_to_end"]}
+        assert "setup_s" in ends and len(ends) >= 2
+        # every per-layer metric of the cell moves one that it reports
+        assert {m["moves"] for m in cell["per_layer"]} <= ends
     with pytest.raises(harness.UsageError):
         harness.load_cell("no.such_cell")
 

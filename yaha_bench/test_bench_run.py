@@ -6,6 +6,7 @@ reference against the goldens.  The harness's look for a card is skipped
     python -m pytest -q yaha_bench/test_bench_run.py      # ~7 min
 """
 import gzip
+import io
 import json
 import os
 import subprocess
@@ -37,18 +38,20 @@ def tiny(name, pool=48, batch=16, check=12):
     return cell
 
 
-def run(cell, trace=False, seed=SEED):
-    with open(os.devnull, "w") as log:
-        return harness.run(cell, seed, 0.1, trace, device="cpu", log=log)
+def run(cell, trace=False, seed=SEED, log=None):
+    return harness.run(cell, seed, 0.1, trace, device="cpu",
+                       log=log or io.StringIO())
 
 
 @pytest.fixture(scope="module")
 def traced():
-    return run(tiny("devidx.1kb_mixed"), trace=True)
+    """A traced run's result and what it wrote to its log."""
+    log = io.StringIO()
+    return run(tiny("devidx.1kb_mixed"), trace=True, log=log), log.getvalue()
 
 
 def test_result_line_shape(traced):
-    r = traced
+    r = traced[0]
     assert list(r)[:5] == ["correct", "attempted", "failed", "metrics",
                            "device"]
     assert list(r)[-1] == "checks"
@@ -67,23 +70,47 @@ def test_result_line_shape(traced):
     for name, m in r["metrics"].items():
         assert m["unit"] == names[name]
         assert isinstance(m["value"], float) or isinstance(m["value"], int)
-    # the host's stats and spans read in every cell; the device's only on
-    # a card (no kernel runs here)
-    for name in ("stream.overlap", "staged.phase1_ms_per_kread",
-                 "staged.host_ms_per_kread", "seeder.ms_per_kread",
-                 "dispatch.launches_per_batch", "setup.index_build_s",
+    # the host's stats and spans read in every cell (in devidx under the
+    # names that move memory_peak_gb); the device's only on a card (no
+    # kernel runs here)
+    for name in ("stream.reads_per_s", "stream.overlap.devidx",
+                 "staged.phase1_ms_per_kread.devidx",
+                 "staged.host_ms_per_kread.devidx", "seeder.ms_per_kread",
+                 "dispatch.launches_per_batch.devidx", "setup.index_build_s",
                  "setup.warmup_s"):
         assert name in r["metrics"], name
-    assert "kernels.dp_ms_per_kread" not in r["metrics"]
-    assert r["metrics"]["staged.host_ms_per_kread"]["value"] > 0
+    assert "kernels.dp_ms_per_kread.devidx" not in r["metrics"]
+    assert "stream.overlap" not in r["metrics"]
+    assert r["metrics"]["staged.host_ms_per_kread.devidx"]["value"] > 0
+    line = [ln for ln in traced[1].splitlines() if ln.startswith("window ")]
+    rate = float(line[0].split(" reads/s")[0].rsplit(", ", 1)[1])
+    assert r["metrics"]["stream.reads_per_s"]["value"] == pytest.approx(
+        rate, abs=0.06)
     json.dumps(r)
 
 
-def test_untraced_reports_end_to_end():
-    r = run(tiny("hostidx.1kb_mixed"))
+def test_traced_run_prints_idle_by_span(traced):
+    """The traced run prints the idle-by-span table on its log: the card's
+    idle time in the window by the program spans open across it (no
+    kernel runs here, so the whole window is idle)."""
+    log = traced[1]
+    head = [ln for ln in log.splitlines() if ln.startswith("idle by span:")]
+    assert len(head) == 1 and "of device idle time in the window" in head[0]
+    rows = log.split(head[0], 1)[1].splitlines()[1:]
+    assert rows and rows[0].lstrip().split()[1] == "s"
+    assert any("worker:" in r for r in rows)
+
+
+@pytest.mark.parametrize("name,ends", [
+    ("hostidx.1kb_mixed", {"reads_per_s": "reads/s", "setup_s": "s"}),
+    ("devidx.1kb_mixed", {"memory_peak_gb": "GB", "setup_s": "s"})])
+def test_untraced_reports_end_to_end(name, ends):
+    r = run(tiny(name))
     assert r["correct"] is True
-    assert set(r["metrics"]) == {"reads_per_s", "setup_s"}
-    assert r["metrics"]["reads_per_s"]["unit"] == "reads/s"
+    assert {k: m["unit"] for k, m in r["metrics"].items()} == ends
+    if "memory_peak_gb" in ends:
+        assert r["metrics"]["memory_peak_gb"]["value"] == (
+            r["device"]["memory_peak_bytes"] / 1e9)
     assert "busy_s" not in r["device"] and "breakdown" not in r
 
 
@@ -130,10 +157,12 @@ def test_faults_make_it_incorrect(monkeypatch, fault):
     assert r["failed"] > 0
 
 
-@pytest.mark.parametrize("name", ["hostidx.1kb_mixed", "devidx.1kb_mixed"])
+@pytest.mark.parametrize("name", ["hostidx.1kb_mixed", "devidx.1kb_mixed",
+                                  "hostidx.10kb_long"])
 def test_control_fails_the_check(name):
     """The control's records, through the harness's comparison, come out
-    not correct: most of the sample differs."""
+    not correct: most of the sample differs.  The reference and the
+    control align their reads in worker processes."""
     with open(os.devnull, "w") as log:
         checks, ok = control.readings(tiny(name, pool=48, check=24), 7,
                                       "cpu", passes=2, log=log)

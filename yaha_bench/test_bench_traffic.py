@@ -69,23 +69,23 @@ def test_genome_has_its_repeats(gen):
     assert found > 0 and n_rep > 0
 
 
-@pytest.mark.parametrize("name", ["1kb_mixed"])
-def test_pool_same_seed_same_bytes(gen, name):
-    m = small(name, 48)
+@pytest.mark.parametrize("name,pool", [("1kb_mixed", 48), ("10kb_long", 8)])
+def test_pool_same_seed_same_bytes(gen, name, pool):
+    m = small(name, pool)
     a = generator.fasta(generator.make_pool(m, gen, SEED))
     b = generator.fasta(generator.make_pool(m, gen, SEED))
     c = generator.fasta(generator.make_pool(m, gen, SEED + 1))
     assert a == b and a != c
 
 
-@pytest.mark.parametrize("name", ["1kb_mixed"])
-def test_pool_shares(gen, name):
-    m = small(name, 160)
+@pytest.mark.parametrize("name,size", [("1kb_mixed", 160), ("10kb_long", 16)])
+def test_pool_shares(gen, name, size):
+    m = small(name, size)
     pool = generator.make_pool(m, gen, SEED)
     counts = generator.part_counts(m)
-    assert sum(counts) == len(pool) == 160
+    assert sum(counts) == len(pool) == size
     for part, n in zip(m["parts"], counts):
-        assert n == int(160 * part["share"]) or part is m["parts"][-1]
+        assert n == int(size * part["share"]) or part is m["parts"][-1]
         got = [r for name_, r in pool if name_.startswith(part["prefix"])]
         assert len(got) == n
         lens = [len(r) for r in got]
@@ -93,6 +93,38 @@ def test_pool_shares(gen, name):
         if part["kind"] == "sampled" and not part.get("indel_events"):
             assert set(lens) == {part["length"]}
     assert len({n for n, _ in pool}) == len(pool)
+
+
+def test_seed_draws_letters_not_layout(gen):
+    """Another seed lays the repeats and N runs in the same places and
+    makes reads of the same lengths in each part, of other letters and in
+    another order: the work does not change with the seed."""
+    other = genome.make_genome(SPEC, SEED + 1, "cpu")
+    assert np.array_equal(gen.codes == 4, other.codes == 4)
+    assert not np.array_equal(gen.codes, other.codes)
+    for name, pool in (("1kb_mixed", 160), ("10kb_long", 16)):
+        m = small(name, pool)
+        a = generator.make_pool(m, gen, SEED)
+        b = generator.make_pool(m, other, SEED + 1)
+        for part in m["parts"]:
+            la = sorted(len(r) for n, r in a if n.startswith(part["prefix"]))
+            lb = sorted(len(r) for n, r in b if n.startswith(part["prefix"]))
+            assert la == lb
+        assert [n[0] for n, _ in a] != [n[0] for n, _ in b]
+        assert generator.fasta(a) != generator.fasta(b)
+
+
+def test_long_reads_are_10kb(gen):
+    """The 10 kb mix's reads with substitutions alone are exactly 10,000
+    bases; those with indel events are cut back to 10,000 and fall short
+    of it by their deletions less their insertions, a few tens of bases."""
+    m = small("10kb_long", 32)
+    assert [p["length"] for p in m["parts"]] == [10_000, 10_000]
+    lens = {"s": set(), "i": set()}
+    for name, r in generator.make_pool(m, gen, SEED):
+        lens[name[0]].add(len(r))
+    assert lens["s"] == {10_000}
+    assert 9_800 <= min(lens["i"]) and max(lens["i"]) == 10_000
 
 
 def test_mixed_pool_proportions(gen):

@@ -18,9 +18,14 @@ share of the pool drawn by one of these kinds:
              model of tools/make_sv_testdata.py (RandomSV_Events), each
              contig's reads drawn at once.
 
-Every count is fixed by the mix, so every seed makes the same number of
-reads of each part and length model, in another order and from other
-places of the genome.  Reads are 4-bit codes; `fasta` renders them.
+Every count is fixed by the mix, and the seed draws only letters and the
+order: each read's place and strand, its errors' places, its indel events
+and its SV event (kind, size, locus) come from a stream that no seed
+changes (genome.LAYOUT_SEED), the bases of the genome, of the errors and
+of the insertions from the seed.  So every seed makes the same set of
+reads, in sizes and places, in another order and of other letters, and a
+cell's work does not change with the seed.  Reads are 4-bit codes;
+`fasta` renders them.
 """
 from __future__ import annotations
 
@@ -50,8 +55,10 @@ def _strand(reads: np.ndarray, rng) -> list:
     return out
 
 
-def sampled(genome: SynthGenome, n: int, p: dict, g) -> list:
-    """Drawn on the genome's device with the torch.Generator `g`."""
+def sampled(genome: SynthGenome, n: int, p: dict, g, lay=None) -> list:
+    """Drawn on the genome's device: places, strands, error places and
+    indel events with the torch.Generator `lay`, bases with `g` (`lay`
+    None: `g` draws all)."""
     import torch
     length = int(p["length"])
     sub = float(p["substitution"])
@@ -60,15 +67,17 @@ def sampled(genome: SynthGenome, n: int, p: dict, g) -> list:
     codes = genome.device_codes
     dev = codes.device
 
+    lay = g if lay is None else lay
+
     def rand(*shape):
-        return torch.rand(shape, generator=g, device=dev)
+        return torch.rand(shape, generator=lay, device=dev)
 
     def bases(*shape):
         return torch.randint(0, 4, shape, generator=g, device=dev,
                              dtype=torch.uint8)
     starts = torch.from_numpy(genome.starts).to(dev)
     room = torch.from_numpy(genome.lengths - length).to(dev)
-    c = torch.randint(0, len(genome.names), (n,), generator=g, device=dev)
+    c = torch.randint(0, len(genome.names), (n,), generator=lay, device=dev)
     pos = (rand(n).double() * room[c]).long()
     mat = codes[(starts[c] + pos)[:, None] +
                 torch.arange(length, device=dev)[None, :]]
@@ -81,8 +90,8 @@ def sampled(genome: SynthGenome, n: int, p: dict, g) -> list:
     # k events a read at uniform places; each an insertion of d random
     # bases before its place or a deletion of d bases from it (d
     # geometric); the read is cut back to `length`.
-    e = torch.randint(0, length, (n * k,), generator=g, device=dev)
-    d = torch.empty(n * k, device=dev).geometric_(geo, generator=g).long()
+    e = torch.randint(0, length, (n * k,), generator=lay, device=dev)
+    d = torch.empty(n * k, device=dev).geometric_(geo, generator=lay).long()
     ins = rand(n * k) < 0.5
     rows = torch.arange(n, device=dev).repeat_interleave(k)
     ins_len = torch.zeros((n, length), dtype=torch.int64, device=dev)
@@ -128,7 +137,10 @@ def _event_contig(genome, rng, kind, size, fl):
     return np.concatenate([s[p - fl:p], s2[p2:p2 + size], s[p:p + fl]])
 
 
-def sv_events(genome: SynthGenome, n: int, p: dict, rng) -> list:
+def sv_events(genome: SynthGenome, n: int, p: dict, rng, lay=None) -> list:
+    """Events, loci, read places, error places and strands from the numpy
+    Generator `lay`, error bases from `rng` (`lay` None: `rng` draws all)."""
+    lay = rng if lay is None else lay
     length = int(p["length"])
     cov = int(p["coverage"])
     err = float(p["error"])
@@ -138,18 +150,18 @@ def sv_events(genome: SynthGenome, n: int, p: dict, rng) -> list:
     out = []
     i = 0
     while len(out) < n:
-        contig = _event_contig(genome, rng, kinds[i % 4],
-                               int(rng.integers(lo, hi)), fl)
+        contig = _event_contig(genome, lay, kinds[i % 4],
+                               int(lay.integers(lo, hi)), fl)
         i += 1
         span = len(contig) - length
         if span <= 0:
             continue
         nr = max(1, len(contig) * cov // length)
-        q = rng.integers(0, span + 1, nr)
+        q = lay.integers(0, span + 1, nr)
         mat = contig[q[:, None] + np.arange(length)[None, :]]
-        m = rng.random(mat.shape) < err
+        m = lay.random(mat.shape) < err
         mat[m] = rng.integers(0, 4, int(m.sum())).astype(np.uint8)
-        out += _strand(mat, rng)
+        out += _strand(mat, lay)
     return out[:n]
 
 
@@ -160,14 +172,17 @@ def make_pool(mix: dict, genome: SynthGenome, seed: int) -> list:
     """The mix's pool from `seed`: a list of (name, codes), the parts
     shuffled together so that every batch holds them in their shares.
     "sampled" parts draw on the genome's device, the others on the host."""
-    from .genome import generator
+    from .genome import LAYOUT_SEED, generator
     rng = np.random.default_rng([int(seed), 1])
+    lay = np.random.default_rng([LAYOUT_SEED, 1])
+    dev = genome.device_codes.device
     reads = []
     for k, (p, n) in enumerate(zip(mix["parts"], part_counts(mix))):
-        src = (generator(seed, genome.device_codes.device, 10 + k)
-               if p["kind"] == "sampled" else rng)
-        reads += [(p["prefix"], r) for r in KINDS[p["kind"]](genome, n, p,
-                                                            src)]
+        src, src_lay = ((generator(seed, dev, 10 + k),
+                         generator(LAYOUT_SEED, dev, 10 + k))
+                        if p["kind"] == "sampled" else (rng, lay))
+        reads += [(p["prefix"], r) for r in KINDS[p["kind"]](
+            genome, n, p, src, src_lay)]
     order = rng.permutation(len(reads))
     return [("%s%d" % (reads[k][0], i), reads[k][1])
             for i, k in enumerate(order)]

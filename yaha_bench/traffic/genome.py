@@ -7,9 +7,12 @@ out: each chromosome starts on an 8-base boundary, the gap before the next
 padded with X (code 14), and 8,192 zero codes after the last one (the
 reference's mmap zero page).  Bases are drawn on `device` with a
 torch.Generator in a few large calls; the same seed on the same kind of
-device gives the same bytes.  The repeat units' lengths and the N runs'
-count and lengths are fixed by the configuration, so every seed lays out
-the same amount of repeat and N sequence, in other places.
+device gives the same bytes.  The seed draws the letters alone: the
+layout (which unit each repeat slot holds, where it lies, where the N runs
+lie and how long they are) comes from a stream that no seed changes, so
+every seed lays out the same repeats and N runs in the same places, each
+unit with the same number of copies, and a cell's work does not change
+with the seed.
 """
 from __future__ import annotations
 
@@ -37,6 +40,10 @@ class SynthGenome:
         return self.codes[s:s + int(self.lengths[c])]
 
 
+# The seed of the layout streams (genome and pools): the same for every run.
+LAYOUT_SEED = 0x59414841
+
+
 def generator(seed: int, device, stream: int):
     """A torch.Generator on `device` for one of the benchmark's streams of
     `seed` (any whole number: it is folded into the 64 bits a generator
@@ -61,19 +68,20 @@ def make_genome(spec: dict, seed: int, device="cuda") -> SynthGenome:
     stride = (per + 7) // 8 * 8
     starts = np.arange(n_chrom, dtype=np.int64) * stride
     g = generator(seed, device, 0)
+    lay = generator(LAYOUT_SEED, device, 0)
     codes = torch.randint(0, 4, (n_chrom * stride + TAIL_CODES,),
                           generator=g, device=device, dtype=torch.uint8)
     units = [torch.randint(0, 4, (n,), generator=g, device=device,
                            dtype=torch.uint8) for n in units_len]
     n_rep = per // every
-    pick = torch.randint(0, len(units), (n_chrom, n_rep), generator=g,
+    pick = torch.randint(0, len(units), (n_chrom, n_rep), generator=lay,
                          device=device).tolist()
-    where = torch.rand((n_chrom, n_rep), generator=g,
+    where = torch.rand((n_chrom, n_rep), generator=lay,
                        device=device).double().cpu().numpy()
-    run_at = torch.rand((n_chrom, n_runs), generator=g,
+    run_at = torch.rand((n_chrom, n_runs), generator=lay,
                         device=device).double().cpu().numpy()
     run_len = torch.randint(run_min, run_max + 1, (n_chrom, n_runs),
-                            generator=g, device=device).tolist()
+                            generator=lay, device=device).tolist()
     for c in range(n_chrom):
         s = int(starts[c])
         for k in range(n_rep):
